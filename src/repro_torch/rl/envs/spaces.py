@@ -1,0 +1,45 @@
+"""Typed observation/action spaces (port of ``repro.rl.envs.spaces``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Discrete:
+    """Integers ``{0, ..., n-1}``; scalar per env instance."""
+
+    n: int
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ()
+
+    @property
+    def dtype(self):
+        return torch.int32
+
+    def sample(self, gen: torch.Generator, batch: int,
+               device="cpu") -> torch.Tensor:
+        """``batch`` uniform actions, drawn on the CPU generator."""
+        a = torch.randint(0, self.n, (batch,), generator=gen,
+                          dtype=torch.int64)
+        return a.to(device=device, dtype=torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """Float tensor with (possibly infinite) scalar bounds."""
+
+    low: float
+    high: float
+    shape: Tuple[int, ...]
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+
+Space = Union[Discrete, Box]
