@@ -11,20 +11,30 @@ non-zero:
 2. build every kernel from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (B in {1, 7, 32}) and at ragged ones:
-   int32 outputs equal, fp32 outputs bitwise equal;
+   the two paths' shapes and at ragged ones: int32 and int8 outputs
+   equal, fp32 outputs bitwise equal, V-ACT's softmax within
+   rtol=1e-6 (its row sum runs in another order);
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
    enter), and compute each kernel's bound on an H100;
-5. the main path: build a conv DQN for keydoor at full width (seed 0),
-   save it as a checkpoint, and serve it through
+5. the serving path: build a conv DQN for keydoor at full width (seed
+   0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
    checks, counting kernel launches; then hold the served Q-values on
    the card against the plain path on the CPU;
 6. profile served forwards of a full bucket (device time by kernel,
    host wall time, idle share);
-7. print the kernels' JSON line, then the device line last.
+7. the HRL path: the paper's E2HRL agent at its published width
+   (32x32x3 keydoor frames, conv channels (16, 32, 32), seed 0), FC-HRL
+   on 512 frames and LSTM-HRL on 128 windows of 4 frames, under
+   ``FXP8`` with CORDIC activations at ``pallas`` (fused Q-LSTM) and
+   ``xla`` (Q-MAC gates + V-ACT), and FC-HRL with packed w8 weights;
+   logits and values on the card bitwise equal to the plain path on
+   the CPU, probabilities within rtol=1e-6; 64 greedy keydoor steps;
+   frames/s per variant; counting kernel launches;
+8. profile LSTM-HRL forwards (device time by kernel, idle share);
+9. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ FP32_FLOPS_PER_S = 67e12
 
 N_TIMED = 60
 N_WARM = 10
+FLT_MIN = 1.1754944e-38      # smallest normal fp32
 
 
 def card_line() -> str:
@@ -107,7 +118,9 @@ def check_kernels(torch, dev):
     def pos(shape):
         return torch.rand(shape, generator=g, device=dev) * 0.02 + 1e-4
 
-    worst = {"qmac_i8": 0.0, "qmac_i8_deq": 0.0, "qconv_i8_taps": 0.0}
+    worst = {"qmac_i8": 0.0, "qmac_i8_deq": 0.0, "qconv_i8_taps": 0.0,
+             "vact_ew": 0.0, "vact_ew_q8": 0.0, "vact_softmax": 0.0,
+             "qlstm_cell": 0.0}
     qmac_shapes = []
     for b in (1, 7, 32):
         qmac_shapes += [(b, 2048, 128), (b, 128, 4)]
@@ -158,6 +171,140 @@ def check_kernels(torch, dev):
                                  f"{stride} {padding} (max abs err {err})")
     print(f"Q-Conv: {len(conv_cases)} cases, fp32 bitwise equal to the "
           "plain version")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_hrl_kernels(torch, dev, worst):
+    """Phase 3, the HRL path's kernels: Q-Conv at the stem's three
+    shapes (C_in = 3 first), Q-MAC at the agent's dense shapes, V-ACT
+    (every kind, 6 and 13 iterations, fp32 and int8) and the fused
+    Q-LSTM cell, each against its plain version on the card."""
+    from repro_torch.kernels.qconv import ops as qconv_ops
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+    from repro_torch.kernels.qmac import ops as qmac_ops
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def i8(shape):
+        return _i8(torch, g, dev, shape)
+
+    def pos(shape, scale=0.02):
+        return torch.rand(shape, generator=g, device=dev) * scale + 1e-4
+
+    n_conv = 0
+    for b in (1, 7, 64):
+        for h, c, nc in ((32, 3, 16), (16, 16, 32), (8, 32, 32)):
+            qx, qw = i8((b, h, h, c)), i8((3, 3, c, nc))
+            sx, sw = pos((b, h, h, 1)), pos((nc,))
+            bias = torch.randn(nc, generator=g, device=dev) * 0.1
+            kw = dict(stride=2, padding="SAME", fuse_relu=True)
+            got = qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias, **kw)
+            want = qconv_ops.qconv2d_i8_plain(qx, sx, qw, sw, bias, **kw)
+            err = (got - want).abs().max().item()
+            worst["qconv_i8_taps"] = max(worst["qconv_i8_taps"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qconv != plain at HRL stem "
+                                     f"x[{b},{h},{h},{c}] (max abs err "
+                                     f"{err})")
+            n_conv += 1
+    n_mm = 0
+    for m in (1, 7, 128, 512):
+        for k, n in ((512, 32), (32, 32), (32, 8), (40, 4), (40, 1)):
+            qx, qw = i8((m, k)), i8((k, n))
+            sx, sw = pos((m, 1)), pos((1, n))
+            if not bits_equal(torch, qmac_ops.qmac_i8(qx, qw),
+                              qmac_ops.qmac_i8_plain(qx, qw)):
+                raise AssertionError(f"qmac_i8 != plain at {m},{k},{n}")
+            got = qmac_ops.qmac_i8_deq(qx, sx, qw, sw)
+            want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, sw)
+            worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"],
+                                       (got - want).abs().max().item())
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8_deq != plain at "
+                                     f"{m},{k},{n}")
+            n_mm += 1
+    print(f"HRL shapes: Q-Conv {n_conv} cases (C_in 3, 16, 32) and Q-MAC "
+          f"{n_mm} cases bitwise equal to the plain versions")
+
+    edge = torch.tensor([0.0, 1e-8, -1e-8, 1.0, -1.0, 30.0, -30.0, 100.0,
+                         -100.0, 88.5, -88.5], device=dev)
+
+    def fp(shape):
+        x = torch.randn(shape, generator=g, device=dev) * 4
+        flat = x.view(-1)
+        k = min(edge.numel(), flat.numel())
+        flat[:k] = edge[:k]
+        return x
+
+    n_ew = 0
+    for shape in ((512, 8), (128, 32), (1, 1), (7, 33), (300, 301),
+                  (3, 5, 11)):
+        x = fp(shape)
+        qx = i8(shape)
+        sx = pos((), 0.05)
+        for n in (6, 13):
+            for kind in ("relu", "sigmoid", "tanh"):
+                got = vact_ops.vact(x, kind, n)
+                want = vact_ops.vact_ew_plain(x, kind, n)
+                err = (got - want).abs().max().item()
+                worst["vact_ew"] = max(worst["vact_ew"], err)
+                if not bits_equal(torch, got, want):
+                    raise AssertionError(f"vact_ew {kind} n={n} != plain "
+                                         f"at {shape} (max abs err {err})")
+                got = vact_ops.vact_q8(qx, sx, kind, n)
+                want = vact_ops.vact_q8_plain(qx, sx, kind, n)
+                err = (got.int() - want.int()).abs().max().item()
+                worst["vact_ew_q8"] = max(worst["vact_ew_q8"], err)
+                if not bits_equal(torch, got, want):
+                    raise AssertionError(f"vact_q8 {kind} n={n} != plain "
+                                         f"at {shape} (max code err {err})")
+                n_ew += 1
+    print(f"V-ACT elementwise and q8: {n_ew} cases each bitwise equal to "
+          "the plain versions")
+    rel = 0.0
+    for rows in (1, 512, 1000):
+        for n_col in (1, 4, 6, 33):
+            x = fp((rows, n_col))
+            for n in (6, 13):
+                got = vact_ops.vact(x, "softmax", n)
+                want = vact_ops.vact_softmax_plain(x, n)
+                err = (got - want).abs().max().item()
+                worst["vact_softmax"] = max(worst["vact_softmax"], err)
+                r = ((got - want).abs() / want.abs().clamp_min(
+                    FLT_MIN)).max().item()
+                rel = max(rel, r)
+                # atol: a subnormal quotient keeps fewer significant bits
+                if not torch.allclose(got, want, rtol=1e-6, atol=FLT_MIN):
+                    raise AssertionError(
+                        f"vact_softmax n={n} at [{rows}, {n_col}] off its "
+                        f"plain version by {err} (rel {r}) > rtol 1e-6")
+    print(f"V-ACT softmax: 24 cases within rtol=1e-6 of the plain version "
+          f"(max abs err {worst['vact_softmax']}, max rel err {rel})")
+
+    n_cell = 0
+    for b in (1, 7, 128):
+        for d_in, hid in ((32, 32), (8, 8), (40, 24)):
+            args = (i8((b, d_in)), pos((), 0.02), i8((b, hid)),
+                    pos((), 0.02), i8((d_in, 4 * hid)),
+                    pos((1, 4 * hid), 0.004), i8((hid, 4 * hid)),
+                    pos((1, 4 * hid), 0.004),
+                    torch.randn(4 * hid, generator=g, device=dev) * 0.1,
+                    torch.randn((b, hid), generator=g, device=dev))
+            for n in (6, 13):
+                got = qlstm_ops.qlstm_cell(*args, n_iters=n)
+                want = qlstm_ops.qlstm_cell_plain(*args, n)
+                for gt, wt, what in zip(got, want, ("h'", "c'")):
+                    err = (gt - wt).abs().max().item()
+                    worst["qlstm_cell"] = max(worst["qlstm_cell"], err)
+                    if not bits_equal(torch, gt, wt):
+                        raise AssertionError(
+                            f"qlstm {what} != plain at B={b} Din={d_in} "
+                            f"H={hid} n={n} (max abs err {err})")
+                n_cell += 1
+    print(f"Q-LSTM: {n_cell} cases, h' and c' bitwise equal to the plain "
+          "version")
     torch.cuda.synchronize()
     return worst
 
@@ -235,18 +382,126 @@ def _time_qconv(torch, g, dev, bsz, h, c, nc):
             torch, lambda: F.conv2d(xd, wd, cb, stride=2), "F.conv2d"))
 
 
+def cordic_exp_flops(n: int) -> int:
+    """fp32 operations of one CORDIC e^x as the kernels run it: divide,
+    floor, multiply, subtract; 5 per iteration (two scalings, two adds,
+    one angle update); the final add, clamp, 2^m and scaling."""
+    return 4 + 5 * n + 5
+
+
+def vact_flops(kind: str, n: int) -> int:
+    """fp32 operations of one V-ACT element: sigmoid adds |x|, negate,
+    add, divide and select to e^x; tanh two multiplies and a subtract
+    to sigmoid; relu one compare."""
+    sig = cordic_exp_flops(n) + 5
+    return {"relu": 1, "sigmoid": sig, "tanh": sig + 3}[kind]
+
+
+def _time_vact(torch, g, dev, m, n_col, n_iters, softmax=False):
+    """V-ACT at one shape: (elementwise tanh, q8 tanh) rows, or the
+    softmax row."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    x = torch.randn((m, n_col), generator=g, device=dev) * 2
+    el = m * n_col
+    shape = f"[{m}, {n_col}] n={n_iters}"
+    if softmax:
+        # per element: subtract the max, e^x, add to the sum, divide
+        b_ms, b_by = bound_ms(8 * el, fp32_ops=el * (
+            cordic_exp_flops(n_iters) + 4))
+        return dict(
+            shape=shape + " softmax",
+            ms=device_ms(torch, lambda: vact_ops.vact_softmax(x, n_iters)),
+            plain_ms=device_ms(torch, lambda: vact_ops.vact_softmax_plain(
+                x, n_iters)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    qx = _i8(torch, g, dev, (m, n_col))
+    sx = torch.full((), 0.02, device=dev)
+    b_ms, b_by = bound_ms(8 * el, fp32_ops=el * vact_flops("tanh", n_iters))
+    ew = dict(shape=shape + " tanh",
+              ms=device_ms(torch, lambda: vact_ops.vact_ew(x, "tanh",
+                                                           n_iters)),
+              plain_ms=device_ms(torch, lambda: vact_ops.vact_ew_plain(
+                  x, "tanh", n_iters)),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the int8 variant adds a dequantizing multiply and the requant's
+    # multiply, round and two clamps per element
+    b_ms, b_by = bound_ms(2 * el + 4, fp32_ops=el * (
+        vact_flops("tanh", n_iters) + 5))
+    q8 = dict(shape=shape + " tanh, int8",
+              ms=device_ms(torch, lambda: vact_ops.vact_q8(qx, sx, "tanh",
+                                                           n_iters)),
+              plain_ms=device_ms(torch, lambda: vact_ops.vact_q8_plain(
+                  qx, sx, "tanh", n_iters)),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return ew, q8
+
+
+def _time_qlstm(torch, g, dev, b, d_in, hid, n_iters):
+    """The fused Q-LSTM cell at one shape."""
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+
+    g4 = 4 * hid
+    args = (_i8(torch, g, dev, (b, d_in)), torch.full((), 0.01, device=dev),
+            _i8(torch, g, dev, (b, hid)), torch.full((), 0.01, device=dev),
+            _i8(torch, g, dev, (d_in, g4)),
+            torch.rand((1, g4), generator=g, device=dev) * 0.004,
+            _i8(torch, g, dev, (hid, g4)),
+            torch.rand((1, g4), generator=g, device=dev) * 0.004,
+            torch.randn(g4, generator=g, device=dev) * 0.1,
+            torch.randn((b, hid), generator=g, device=dev))
+    nbytes = (b * d_in + b * hid + (d_in + hid) * g4 + 4 * (2 + 3 * g4)
+              + 4 * b * hid + 8 * b * hid)
+    # per hidden unit: 4 gates x (4 multiplies, 2 adds), 3 sigmoids and
+    # 2 tanhs, the cell update (2 multiplies, 1 add) and h's multiply
+    per_unit = (4 * 6 + 3 * vact_flops("sigmoid", n_iters)
+                + 2 * vact_flops("tanh", n_iters) + 4)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * b * (d_in + hid) * g4,
+                          b * hid * per_unit)
+    return dict(
+        shape=f"B={b} Din={d_in} H={hid} n={n_iters}",
+        ms=device_ms(torch, lambda: qlstm_ops.qlstm_cell(*args,
+                                                         n_iters=n_iters)),
+        plain_ms=device_ms(torch, lambda: qlstm_ops.qlstm_cell_plain(
+            *args, n_iters)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def time_kernels(torch, dev):
     """Phase 4: every kernel beside its plain version and a library call,
-    at each shape the main path gives it at its largest bucket (32)."""
+    at each shape the two paths give it: the serving path at its largest
+    bucket (32), the HRL path at its largest call (512 frames; the
+    LSTM's 128 rows per step).  No single PyTorch call computes a
+    CORDIC activation or the fused cell, so those have no library time.
+    Each kernel's first row is the one the JSON line reports."""
     g = torch.Generator(device=dev).manual_seed(7)
-    rows = {"qmac_i8": [], "qmac_i8_deq": [], "qconv_i8_taps": []}
-    for m, k, n in ((32, 2048, 128), (32, 128, 4)):      # fc, Q head
+    rows = {"qmac_i8": [], "qmac_i8_deq": [], "qconv_i8_taps": [],
+            "vact_ew": [], "vact_ew_q8": [], "vact_softmax": [],
+            "qlstm_cell": []}
+    for m, k, n in ((32, 2048, 128), (32, 128, 4),      # DQN fc, Q head
+                    (512, 512, 32), (512, 40, 4)):      # HRL stem fc, head
         i32, deq = _time_qmac(torch, g, dev, m, k, n)
         rows["qmac_i8"].append(i32)
         rows["qmac_i8_deq"].append(deq)
-    for bsz, h, c, nc in ((32, 32, 12, 16), (32, 16, 16, 32)):  # conv1, 2
+    for bsz, h, c, nc in ((32, 32, 12, 16), (32, 16, 16, 32),  # DQN
+                          (512, 32, 3, 16), (512, 16, 16, 32)):  # HRL
         rows["qconv_i8_taps"].append(_time_qconv(torch, g, dev, bsz, h, c,
                                                  nc))
+    # the HRL path: sub-goal tanh [512, 8], LSTM gates [128, 32], the
+    # action softmax [512, 4], all at FxP8's 6 iterations
+    for m, n_col in ((512, 8), (128, 32)):
+        ew, q8 = _time_vact(torch, g, dev, m, n_col, 6)
+        rows["vact_ew"].append(ew)
+        rows["vact_ew_q8"].append(q8)
+    rows["vact_softmax"].append(_time_vact(torch, g, dev, 512, 4, 6,
+                                           softmax=True))
+    rows["qlstm_cell"].append(_time_qlstm(torch, g, dev, 128, 32, 32, 6))
+    print("bound_ms = max(bytes / 3.35e12 B/s, int8 ops / 1.979e15 + fp32 "
+          "ops / 6.7e13) in ms; bytes = inputs read once + outputs written "
+          "once; V-ACT fp32 ops per element: relu 1, sigmoid 14 + 5n, tanh "
+          "17 + 5n, softmax 13 + 5n (n CORDIC iterations); Q-LSTM: int8 "
+          "ops 2 B (Din + H) 4H, fp32 ops per hidden unit 24 + 3 sigmoids "
+          "+ 2 tanhs + 4")
     for name, shapes in rows.items():
         for r in shapes:
             lib = r["library_ms"]
@@ -255,6 +510,11 @@ def time_kernels(torch, dev):
                   f"{'n/a' if lib is None else f'{lib:.5f}'}  bound_ms "
                   f"{r['bound_ms']:.6f} ({r['bound_by']})")
     return rows
+
+
+SERVING_KERNELS = ("qmac_i8", "qmac_i8_deq", "qconv_i8_taps")
+HRL_KERNELS = ("qmac_i8", "qconv_i8_taps", "vact_ew", "vact_softmax",
+               "qlstm_cell")
 
 
 def main_path(torch, dev, work):
@@ -294,10 +554,11 @@ def main_path(torch, dev, work):
                                  f"{st.episodes} episodes")
         served[precision] = st
     launches = kernels.launch_counts()
-    print(f"kernel launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    print(f"kernel launches on the serving path: {launches}")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 "path")
 
     # the served forward on the card against the plain path on the CPU,
     # same weights, same observations
@@ -364,6 +625,166 @@ def profile_forward(torch, dev, ckpt, n=50):
         print("  the profiler recorded no device time (not measured)")
 
 
+def _keydoor_frames(torch, dev):
+    """keydoor's own frames: 512 envs after a reset, and 128 envs'
+    windows of their last 4 frames (random actions, seeded)."""
+    from repro_torch.rl.envs import make
+    from repro_torch.rl.rollout import init_envs
+
+    env = make("keydoor")
+    gen = torch.Generator().manual_seed(2)
+    est, obs = init_envs(env, 0, 512, dev)
+    west, wobs = init_envs(env, 1, 128, dev)
+    frames = [wobs]
+    for _ in range(3):
+        west, wobs, *_ = env.step(west, env.action_space.sample(gen, 128,
+                                                                dev))
+        frames.append(wobs)
+    return env, est, obs, torch.stack(frames, dim=1)
+
+
+def hrl_path(torch, dev):
+    """Phase 7: the E2HRL agent at its published width on keydoor."""
+    from repro_torch import kernels
+    from repro_torch.configs.e2hrl import HRLConfig
+    from repro_torch.core.fxp import QTensor
+    from repro_torch.core.policy import FXP8
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.models import hrl
+    from repro_torch.tree import tree_map
+
+    env, est, obs, windows = _keydoor_frames(torch, dev)
+    cfg_fc = HRLConfig(obs_shape=tuple(env.obs_shape),
+                       n_actions=env.spec.n_actions)
+    cfg_lstm = HRLConfig(obs_shape=tuple(env.obs_shape),
+                         n_actions=env.spec.n_actions, subgoal_kind="lstm")
+    pallas = FXP8.replace(backend="pallas", act_backend="cordic")
+    xla = FXP8.replace(act_backend="cordic")
+    p_fc = hrl.init(torch.Generator().manual_seed(0), cfg_fc, device="cpu")
+    p_lstm = hrl.init(torch.Generator().manual_seed(0), cfg_lstm,
+                      device="cpu")
+    p_packed = quantize_params(p_fc, pallas)
+
+    def to_dev(tree):
+        return tree_map(lambda x: x.to(dev), tree,
+                        is_leaf=lambda x: isinstance(x, QTensor))
+
+    variants = [  # (name, cfg, cpu params, policy, observations)
+        ("FC-HRL pallas", cfg_fc, p_fc, pallas, obs),
+        ("LSTM-HRL pallas", cfg_lstm, p_lstm, pallas, windows),
+        ("LSTM-HRL xla", cfg_lstm, p_lstm, xla, windows),
+        ("FC-HRL packed w8", cfg_fc, p_packed, pallas, obs),
+    ]
+    dev_params = {name: to_dev(p) for name, _, p, _, _ in variants}
+
+    kernels.reset_launch_counts()
+    outs = {}
+    for name, cfg, _, pol, o in variants:
+        logits, value, _ = hrl.apply(dev_params[name], o, cfg, pol)
+        outs[name] = (logits, value, hrl.action_probs(logits, pol))
+    # act greedily on keydoor with FC-HRL
+    returns = torch.zeros(obs.shape[0], device=dev)
+    episodes = 0
+    s, o = est, obs
+    for _ in range(64):
+        logits, _, _ = hrl.apply(dev_params["FC-HRL pallas"], o, cfg_fc,
+                                 pallas)
+        s, o, reward, done, trunc, _ = env.step(
+            s, torch.argmax(logits, dim=-1).to(torch.int32))
+        returns += reward
+        episodes += int((done | trunc).sum().item())
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"kernel launches on the HRL path: {launches}")
+    for k in HRL_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the HRL path")
+    print(f"FC-HRL greedy on keydoor: 64 steps x 512 envs, {episodes} "
+          f"episodes ended, mean return {returns.mean().item():.4f}")
+
+    # the card against the plain path on the CPU, same weights and frames
+    for name, cfg, p_cpu, pol, o in variants:
+        logits, value, probs = outs[name]
+        want_l, want_v, _ = hrl.apply(p_cpu, o.cpu(), cfg, pol)
+        want_p = hrl.action_probs(want_l, pol)
+        b = o.shape[0]
+        if logits.shape != (b, cfg.n_actions) or value.shape != (b,) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: bad outputs {logits.shape} "
+                                 f"{value.shape}")
+        err_l = (logits.cpu() - want_l).abs().max().item()
+        err_v = (value.cpu() - want_v).abs().max().item()
+        err_p = (probs.cpu() - want_p).abs().max().item()
+        print(f"{name}: card vs CPU plain path, logits max abs err {err_l}, "
+              f"values {err_v}, probabilities {err_p}")
+        if not (bits_equal(torch, logits.cpu(), want_l)
+                and bits_equal(torch, value.cpu(), want_v)):
+            raise AssertionError(f"{name}: card and CPU logits/values "
+                                 "differ")
+        if not torch.allclose(probs.cpu(), want_p, rtol=1e-6, atol=FLT_MIN):
+            raise AssertionError(f"{name}: probabilities off by {err_p}")
+
+    # frames/s per variant (the paper's Table V quantity): 512 frames a
+    # call, 512 single frames for FC-HRL, 128 windows of 4 for LSTM-HRL
+    fps = {}
+    for name, cfg, _, pol, o in variants:
+        def fwd():
+            logits, _, _ = hrl.apply(dev_params[name], o, cfg, pol)
+            return torch.argmax(logits, dim=-1)
+        for _ in range(3):
+            fwd()
+        torch.cuda.synchronize()
+        n_calls = 20
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fwd()
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / n_calls
+        fps[name] = o.shape[0] * (o.shape[1] if o.ndim == 5 else 1) / sec
+        print(f"{name}: {fps[name]:.1f} frames/s ({sec * 1e3:.4f} ms per "
+              f"call of {o.shape[0]} {'windows' if o.ndim == 5 else 'frames'})")
+    return launches, fps, (dev_params["LSTM-HRL pallas"], cfg_lstm, pallas,
+                           windows)
+
+
+def profile_hrl(torch, lstm, n=20):
+    """Phase 8: where an LSTM-HRL forward's time goes (128 windows of 4
+    frames, pallas + CORDIC at FxP8), as ``profile_forward`` reads it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import hrl
+
+    params, cfg, pol, windows = lstm
+    for _ in range(3):
+        hrl.apply(params, windows, cfg, pol)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            hrl.apply(params, windows, cfg, pol)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        rows.append((dev_us / n / 1e3, ev.count // n, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"LSTM-HRL forward, 128 windows x 4 frames, pallas: wall "
+          f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} device "
+          "launches per forward")
+    for ms, count, name in rows[:12]:
+        print(f"  {ms:.5f} ms  x{count}  {name[:90]}")
+    if not rows:
+        print("  the profiler recorded no device time (not measured)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,39 +810,56 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_kernels(torch, dev)
+    worst = check_hrl_kernels(torch, dev, check_kernels(torch, dev))
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
-    launches, served = main_path(torch, dev, work)
+    serve_launches, served = main_path(torch, dev, work)
     profile_forward(torch, dev, os.path.join(work, "ckpt"))
     for precision, st in served.items():
         s = st.server
         print(f"{precision} on {card}: {s['actions_per_s']:.1f} actions/s, "
               f"p50 {s['p50_ms']:.4f} ms, p99 {s['p99_ms']:.4f} ms, "
               f"{st.episodes} episodes")
+    hrl_launches, fps, lstm = hrl_path(torch, dev)
+    profile_hrl(torch, lstm)
+    for name, v in fps.items():
+        print(f"{name} on {card}: {v:.1f} frames/s")
 
-    source = {"qmac_i8": "src/repro_torch/kernels/qmac/csrc/qmac.cu",
-              "qmac_i8_deq": "src/repro_torch/kernels/qmac/csrc/qmac.cu",
-              "qconv_i8_taps": "src/repro_torch/kernels/qconv/csrc/qconv.cu"}
+    kdir = "src/repro_torch/kernels"
+    source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
+              "qmac_i8_deq": f"{kdir}/qmac/csrc/qmac.cu",
+              "qconv_i8_taps": f"{kdir}/qconv/csrc/qconv.cu",
+              "vact_ew": f"{kdir}/vact/csrc/vact.cu",
+              "vact_ew_q8": f"{kdir}/vact/csrc/vact.cu",
+              "vact_softmax": f"{kdir}/vact/csrc/vact.cu",
+              "qlstm_cell": f"{kdir}/qlstm/csrc/qlstm.cu"}
     replaces = {"qmac_i8": "src/repro/kernels/qmac/qmac.py:62",
                 "qmac_i8_deq": "src/repro/kernels/qmac/qmac.py:84",
-                "qconv_i8_taps": "src/repro/kernels/qconv/qconv.py:66"}
+                "qconv_i8_taps": "src/repro/kernels/qconv/qconv.py:66",
+                "vact_ew": "src/repro/kernels/vact/vact.py:86",
+                "vact_ew_q8": "src/repro/kernels/vact/vact.py:103",
+                "vact_softmax": "src/repro/kernels/vact/vact.py:123",
+                "qlstm_cell": "src/repro/kernels/qlstm/qlstm.py:52"}
     out = []
     for name, shapes in rows.items():
         r = shapes[0]                      # the largest call of the path
+        by_path = {"serving": serve_launches[name],
+                   "hrl": hrl_launches[name]}
+        launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
-                    "replaces": replaces[name],
-                    "launches": launches[name],
+                    "replaces": replaces[name], "launches": launches,
+                    "launches_by_path": by_path,
                     "max_abs_err": worst[name], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "shapes": shapes})
-        print(f"{name}: launches {launches[name]}, kernel_ms {r['ms']:.5f}, "
-              f"plain_ms {r['plain_ms']:.5f}, library_ms {r['library_ms']} "
-              f"at {r['shape']} on {card}")
+        print(f"{name}: launches {launches} {by_path}, kernel_ms "
+              f"{r['ms']:.5f}, plain_ms {r['plain_ms']:.5f}, library_ms "
+              f"{r['library_ms']} at {r['shape']} on {card}")
+    print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` under ``repro_torch/kernels`` becomes
 ``build/repro_torch/lib<name>-<hash>.so`` at the checkout's root, where
-``<hash>`` covers the source and the flags, so an edited source never
-loads a stale library.  The build runs at first use (or, for all
+``<hash>`` covers the source, every ``csrc/*.cuh`` header of the
+package and the flags, so an edited source or header never loads a
+stale library.  The build runs at first use (or, for all
 kernels at once, in parallel through :func:`build_all`); nothing is
 built or imported when a module is imported.
 
@@ -30,6 +31,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "qmac": _KERNELS / "qmac" / "csrc" / "qmac.cu",
     "qconv": _KERNELS / "qconv" / "csrc" / "qconv.cu",
+    "vact": _KERNELS / "vact" / "csrc" / "vact.cu",
+    "qlstm": _KERNELS / "qlstm" / "csrc" / "qlstm.cu",
 }
 
 # --fmad=false: no a + b*c contraction anywhere, so the fp epilogues
@@ -53,8 +56,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_KERNELS.glob("*/csrc/*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
