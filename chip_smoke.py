@@ -13,7 +13,10 @@ non-zero:
 3. hold each kernel against its plain PyTorch version on the card, at
    the two paths' shapes and at ragged ones: int32 and int8 outputs
    equal, fp32 outputs bitwise equal, V-ACT's softmax within
-   rtol=1e-6 (its row sum runs in another order);
+   rtol=1e-6 (its row sum runs in another order); the split-K Q-MAC
+   over the edges of its slices, its counters and two streams, and the
+   band-staged Q-Conv over channel counts, strides, kernels, paddings,
+   a band past 48 KB of shared memory and a row past 227 KB (refused);
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -309,6 +312,132 @@ def check_hrl_kernels(torch, dev, worst):
     return worst
 
 
+def check_split_and_band_edges(torch, dev, worst):
+    """Phase 3, the redesigned kernels at their edges: Q-MAC over every
+    K x M x N of the split's edges with per-channel and per-tensor sw,
+    its counters and workspaces (the same call twice, other shapes in
+    between, two streams at once); Q-Conv over C in {3, 5, 12, 16, 40,
+    130}, strides 1-3, SAME and VALID, 2x2/3x3/5x5 kernels, N in {3, 16,
+    33, 48}, a band in more than 48 KB of shared memory, and a row past
+    227 KB, which must raise."""
+    from repro_torch.kernels.qconv import ops as qconv_ops
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+
+    def i8(shape):
+        return _i8(torch, g, dev, shape)
+
+    def pos(shape):
+        return torch.rand(shape, generator=g, device=dev) * 0.02 + 1e-4
+
+    def mm_case(m, k, n):
+        return i8((m, k)), i8((k, n)), pos((m, 1)), pos((1, n))
+
+    def mm_check(qx, qw, sx, sw, what):
+        got = qmac_ops.qmac_i8(qx, qw)
+        want = qmac_ops.qmac_i8_plain(qx, qw)
+        worst["qmac_i8"] = max(worst["qmac_i8"], float(
+            (got.long() - want.long()).abs().max().item()))
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"qmac_i8 != plain at {what}")
+        for s in (sw, sw[:, :1].contiguous()):
+            got = qmac_ops.qmac_i8_deq(qx, sx, qw, s)
+            want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, s)
+            err = (got - want).abs().max().item()
+            worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8_deq != plain at {what} "
+                                     f"(max abs err {err})")
+
+    n_mm = 0
+    for k in (1, 15, 16, 17, 40, 2047, 2048, 2049, 131072):
+        for m in (1, 2, 31, 32, 33, 512):
+            for n in (1, 4, 33, 128):
+                mm_check(*mm_case(m, k, n), f"M,K,N={m},{k},{n} "
+                         f"({qmac_ops.split_plan(m, k, n)})")
+                n_mm += 1
+    # counters: the same split call twice, other shapes in between
+    fc, other = mm_case(32, 2048, 128), mm_case(512, 512, 32)
+    qx, qw, sx, sw = fc
+    want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, sw)
+    runs = [qmac_ops.qmac_i8_deq(qx, sx, qw, sw) for _ in range(2)]
+    for _ in range(3):
+        for case in (other, fc, mm_case(8, 4096, 4)):
+            mm_check(*case, "interleaved shapes")
+    # two streams at once, each with its own workspace and counters
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    runs += [qmac_ops.qmac_i8_deq(qx, sx, qw, sw) for _ in range(8)]
+    with torch.cuda.stream(side):
+        runs += [qmac_ops.qmac_i8_deq(qx, sx, qw, sw) for _ in range(8)]
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    for got in runs:
+        if not bits_equal(torch, got, want):
+            raise AssertionError("qmac_i8_deq: a repeated split call or a "
+                                 "call on a second stream changed bits")
+    print(f"Q-MAC split-K edges: {n_mm} shapes x (int32, per-channel, "
+          f"per-tensor) equal to the plain version; {len(runs)} repeated "
+          "and two-stream calls bitwise equal")
+
+    n_conv = 0
+    for c in (3, 5, 12, 16, 40, 130):
+        i = 0
+        for stride in (1, 2, 3):
+            for kk in (2, 3, 5):
+                for padding in ("SAME", "VALID"):
+                    n = (3, 16, 33, 48)[i % 4]
+                    b, h, w = 1 + i % 3, 13 + i % 4, 11 + 2 * (i % 3)
+                    i += 1
+                    qx, qw = i8((b, h, w, c)), i8((kk, kk, c, n))
+                    sx, sw = pos((b, h, w, 1)), pos((n,))
+                    bias = torch.randn(n, generator=g, device=dev) * 0.1
+                    kw = dict(stride=stride, padding=padding,
+                              fuse_relu=bool(i % 2))
+                    got = qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias, **kw)
+                    want = qconv_ops.qconv2d_i8_plain(qx, sx, qw, sw, bias,
+                                                      **kw)
+                    err = (got - want).abs().max().item()
+                    worst["qconv_i8_taps"] = max(worst["qconv_i8_taps"],
+                                                 err)
+                    if not bits_equal(torch, got, want):
+                        raise AssertionError(
+                            f"qconv != plain at x[{b},{h},{w},{c}] "
+                            f"w[{kk},{kk},{c},{n}] stride {stride} "
+                            f"{padding} (max abs err {err})")
+                    n_conv += 1
+    b, h, w, c, n = 1, 8, 512, 40, 16
+    plan = qconv_ops.band_plan(b, h, w, c, 3, 3, n, 1, "SAME")
+    if plan.smem <= 48 * 1024:
+        raise AssertionError(f"the wide case takes only {plan.smem} bytes")
+    qx, qw = i8((b, h, w, c)), i8((3, 3, c, n))
+    sx, sw = pos((b, h, w, 1)), pos((n,))
+    bias = torch.randn(n, generator=g, device=dev) * 0.1
+    if not bits_equal(torch, qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias),
+                      qconv_ops.qconv2d_i8_plain(qx, sx, qw, sw, bias)):
+        raise AssertionError(f"qconv != plain with a {plan.smem}-byte band")
+    before = qconv_ops.qconv2d_i8.launches
+    try:
+        qconv_ops.qconv2d_i8(
+            torch.zeros((1, 4, 2048, 40), dtype=torch.int8, device=dev),
+            torch.ones((1, 4, 2048, 1), device=dev),
+            torch.zeros((3, 3, 40, 16), dtype=torch.int8, device=dev),
+            torch.ones(16, device=dev), torch.zeros(16, device=dev))
+    except ValueError as e:
+        print(f"Q-Conv refused a row past 227 KB: {e}")
+    else:
+        raise AssertionError("Q-Conv ran a row past 227 KB of shared "
+                             "memory")
+    if qconv_ops.qconv2d_i8.launches != before:
+        raise AssertionError("the refused Q-Conv launched")
+    torch.cuda.synchronize()
+    print(f"Q-Conv band edges: {n_conv} cases and a {plan.smem}-byte band "
+          "bitwise equal to the plain version")
+    return worst
+
+
 def _i8(torch, g, dev, shape):
     return torch.randint(-127, 128, shape, generator=g, device=dev,
                          dtype=torch.int32).to(torch.int8)
@@ -333,9 +462,12 @@ def _time_qmac(torch, g, dev, m, k, n):
     sx = torch.rand((m, 1), generator=g, device=dev) * 0.01
     sw = torch.rand((1, n), generator=g, device=dev) * 0.01
     shape = f"M={m} K={k} N={n}"
+    p = qmac_ops.split_plan(m, k, n)
+    plan = f"{p.splits} slices of {p.slice} B, {p.blocks} blocks"
     b_ms, b_by = bound_ms(m * k + k * n + 4 * m * n, 2.0 * m * n * k)
     i32 = dict(
-        shape=shape, ms=device_ms(torch, lambda: qmac_ops.qmac_i8(qx, qw)),
+        shape=shape, plan=plan,
+        ms=device_ms(torch, lambda: qmac_ops.qmac_i8(qx, qw)),
         plain_ms=device_ms(torch, lambda: qmac_ops.qmac_i8_plain(qx, qw)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=_yardstick(torch, lambda: torch._int_mm(qx, qw),
@@ -343,7 +475,7 @@ def _time_qmac(torch, g, dev, m, k, n):
     b_ms, b_by = bound_ms(m * k + k * n + 4 * m + 4 * n + 4 * m * n,
                           2.0 * m * n * k, 2.0 * m * n)
     deq = dict(
-        shape=shape,
+        shape=shape, plan=plan,
         ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq(qx, sx, qw, sw)),
         plain_ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq_plain(
             qx, sx, qw, sw)),
@@ -362,6 +494,7 @@ def _time_qconv(torch, g, dev, bsz, h, c, nc):
     csw = torch.rand((nc,), generator=g, device=dev) * 0.01
     cb = torch.rand((nc,), generator=g, device=dev) * 0.1
     kw = dict(stride=2, padding="SAME", fuse_relu=True)
+    p = qconv_ops.band_plan(bsz, h, h, c, 3, 3, nc, 2, "SAME")
     mo = bsz * (h // 2) ** 2
     b_ms, b_by = bound_ms(bsz * h * h * c + 4 * bsz * h * h + 9 * c * nc
                           + 8 * nc + 4 * mo * nc,
@@ -373,6 +506,8 @@ def _time_qconv(torch, g, dev, bsz, h, c, nc):
     wd = (cw.float() * csw).permute(3, 2, 0, 1).contiguous()
     return dict(
         shape=f"x[{bsz},{h},{h},{c}] w[3,3,{c},{nc}] stride 2 SAME",
+        plan=(f"bands of {p.rows} rows, N tile {p.n_tile}, {p.threads} "
+              f"threads, {p.smem} B shared, {p.blocks} blocks"),
         ms=device_ms(torch, lambda: qconv_ops.qconv2d_i8(
             cx, csx, cw, csw, cb, **kw)),
         plain_ms=device_ms(torch, lambda: qconv_ops.qconv2d_i8_plain(
@@ -479,7 +614,8 @@ def time_kernels(torch, dev):
             "vact_ew": [], "vact_ew_q8": [], "vact_softmax": [],
             "qlstm_cell": []}
     for m, k, n in ((32, 2048, 128), (32, 128, 4),      # DQN fc, Q head
-                    (512, 512, 32), (512, 40, 4)):      # HRL stem fc, head
+                    (512, 512, 32), (512, 40, 4),       # HRL stem fc, head
+                    (1, 2048, 128), (8, 2048, 128)):    # fc, buckets 1, 8
         i32, deq = _time_qmac(torch, g, dev, m, k, n)
         rows["qmac_i8"].append(i32)
         rows["qmac_i8_deq"].append(deq)
@@ -508,7 +644,8 @@ def time_kernels(torch, dev):
             print(f"{name:14s} {r['shape']}: kernel_ms {r['ms']:.5f}  "
                   f"plain_ms {r['plain_ms']:.5f}  library_ms "
                   f"{'n/a' if lib is None else f'{lib:.5f}'}  bound_ms "
-                  f"{r['bound_ms']:.6f} ({r['bound_by']})")
+                  f"{r['bound_ms']:.6f} ({r['bound_by']})"
+                  + (f"  [{r['plan']}]" if "plan" in r else ""))
     return rows
 
 
@@ -584,13 +721,55 @@ def main_path(torch, dev, work):
     return launches, served
 
 
+def _profiled(torch, fn, n):
+    """``n`` calls of ``fn`` (each ending in a synchronize) under
+    ``torch.profiler``, after three calls the profiler traces and drops
+    (CUPTI can miss the first launches of a trace): (host wall ms per
+    call, [(device ms per call, launches per call, kernel name)] sorted
+    by time, device launches per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=n)) as prof:
+        for i in range(3 + n):
+            if i == 3:
+                t0 = time.perf_counter()
+            fn()
+            if i == 2 + n:
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            prof.step()
+    rows = []
+    for ev in prof.key_averages():
+        # the kernels themselves (operators' rows would count them twice;
+        # the schedule's step annotation spans the whole call)
+        if (ev.device_type != DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
+            continue
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        rows.append((dev_us / n / 1e3, ev.count / n, ev.key))
+    rows.sort(reverse=True)
+    return wall_ms, rows, sum(r[1] for r in rows)
+
+
+def _print_profile(what, wall_ms, rows, launches, top):
+    busy_ms = sum(r[0] for r in rows)
+    print(f"{what}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {launches:g} device "
+          "launches per forward")
+    for ms, count, name in rows[:top]:
+        print(f"  {ms:.5f} ms  x{count:g}  {name[:90]}")
+    if not rows:
+        print("  the profiler recorded no device time (not measured)")
+
+
 def profile_forward(torch, dev, ckpt, n=50):
     """Phase 6: where a served forward's time goes.  ``n`` w8 forwards of
     a full bucket (32) under ``torch.profiler``: device time per forward
     by kernel name, beside the host wall time per forward (each ``act``
     ends in a synchronize), so the device's idle share shows."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.rl.rollout import init_envs
     from repro_torch.serve import PolicyServer, load_policy
 
@@ -598,31 +777,8 @@ def profile_forward(torch, dev, ckpt, n=50):
                           max_bucket=32)
     _, obs = init_envs(server.policy.env, 4, 32, dev)
     server.warmup(32)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            server.act(obs)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for ev in prof.key_averages():
-        # the kernels themselves (operators' rows would count them twice)
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
-        rows.append((dev_us / n / 1e3, ev.count // n, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    print(f"served forward, bucket 32, w8: wall {wall_ms:.4f} ms, device "
-          f"busy {busy_ms:.4f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} device "
-          "launches per forward")
-    for ms, count, name in rows[:10]:
-        print(f"  {ms:.5f} ms  x{count}  {name[:90]}")
-    if not rows:
-        print("  the profiler recorded no device time (not measured)")
+    _print_profile("served forward, bucket 32, w8",
+                   *_profiled(torch, lambda: server.act(obs), n), top=10)
 
 
 def _keydoor_frames(torch, dev):
@@ -750,39 +906,16 @@ def hrl_path(torch, dev):
 def profile_hrl(torch, lstm, n=20):
     """Phase 8: where an LSTM-HRL forward's time goes (128 windows of 4
     frames, pallas + CORDIC at FxP8), as ``profile_forward`` reads it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import hrl
 
     params, cfg, pol, windows = lstm
-    for _ in range(3):
+
+    def fwd():
         hrl.apply(params, windows, cfg, pol)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            hrl.apply(params, windows, cfg, pol)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
-        rows.append((dev_us / n / 1e3, ev.count // n, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    print(f"LSTM-HRL forward, 128 windows x 4 frames, pallas: wall "
-          f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} device "
-          "launches per forward")
-    for ms, count, name in rows[:12]:
-        print(f"  {ms:.5f} ms  x{count}  {name[:90]}")
-    if not rows:
-        print("  the profiler recorded no device time (not measured)")
+        torch.cuda.synchronize()
+
+    _print_profile("LSTM-HRL forward, 128 windows x 4 frames, pallas",
+                   *_profiled(torch, fwd, n), top=12)
 
 
 def main() -> int:
@@ -810,7 +943,8 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_hrl_kernels(torch, dev, check_kernels(torch, dev))
+    worst = check_split_and_band_edges(
+        torch, dev, check_hrl_kernels(torch, dev, check_kernels(torch, dev)))
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")

@@ -7,10 +7,16 @@ int8 filters, exact int32 channel dots, fp32 tap carry in kh-major
 order, fused ``* sw + b`` and optional ReLU).  There is no fallback: a
 CUDA tensor launches ``csrc/qconv.cu`` or raises, and
 ``qconv2d_i8.launches`` counts the launches.
+
+Each block of the kernel stages a band of input rows once and computes
+R output rows of one image from shared memory; :func:`band_plan` picks
+R, the tile of output channels, the threads and the shared memory, and
+refuses a shape whose single output row does not fit a block.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -25,13 +31,108 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# a block's shared memory on an H100 (227 KB), and the kernel's most
+# threads a block (qconv.cu: kSmemLimit, kMaxThreads)
+SMEM_LIMIT = 232448
+MAX_THREADS = 256
+# about two blocks per SM of an H100 (132 SMs), so one block's staging
+# overlaps another's taps
+TARGET_BLOCKS = 256
+# at least this many threads a block, so a small band still stages its
+# weights with enough loads in flight
+MIN_THREADS = 128
+# at most this many (pixel, 4-channel group) items a block: four a
+# thread, so a wider band does not leave the card with too few blocks
+MAX_ITEMS = 4 * MAX_THREADS
+# the widest N tile: 64 channels, 16 groups of four
+MAX_N_TILE = 64
+
+
 @functools.cache
 def _lib():
-    lib = _build.load("qconv")
-    fn = lib.qforce_qconv_i8
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 13
+    fn = _build.load("qconv").qforce_qconv_i8
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 17
     fn.restype = _I
     return fn
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(in_rows: int, w: int, c: int, kh: int, kw: int,
+               n_tile: int) -> int:
+    """qconv.cu's ``Layout``: the band's input bytes at C padded to a
+    multiple of 4 (+16 for the aligned copy's shift), its fp32 scales
+    (+16), and the N tile's weights at an odd count of 32-bit words a
+    column (``w_pitch``), each region rounded to 16 bytes."""
+    c4 = _round_up(c, 4)
+    pitch = (c4 // 4) | 1
+    return (_round_up(in_rows * w * c4 + 16, 16)
+            + _round_up(in_rows * w * 4 + 16, 16)
+            + _round_up(kh * kw * _round_up(n_tile, 4) * pitch * 4, 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """One Q-Conv launch: ``blocks`` blocks of ``rows`` output rows of one
+    image by ``n_tile`` output channels, ``threads`` a block, ``smem``
+    bytes of shared memory over ``in_rows`` staged input rows at most.
+    The launcher refuses any ``smem`` other than its own layout's."""
+
+    rows: int
+    n_tile: int
+    threads: int
+    smem: int
+    in_rows: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def band_plan(batch: int, h: int, w: int, c: int, kh: int, kw: int, n: int,
+              stride: int, padding: str) -> BandPlan:
+    """Size Q-Conv's blocks for an input [batch, h, w, c] and filters
+    [kh, kw, c, n].
+
+    The N tile is all of N (rounded up to 4) up to 64 channels.  R is the
+    most output rows a band can have while the grid keeps at least
+    ``TARGET_BLOCKS`` blocks, a block at most ``MAX_ITEMS`` (pixel,
+    4-channel) items and its shared memory fits ``SMEM_LIMIT``; where no
+    R keeps that many blocks, R = 1.  Where one row does not fit, the N
+    tile halves down to 4 channels; past that the shape is refused with
+    a ValueError (the wrapper never falls back to the plain version)."""
+    ho, wo, *_ = out_geometry(h, w, kh, kw, stride, padding)
+    if min(batch, ho, wo, n) < 1 or c < 0:
+        raise ValueError(f"band_plan: empty conv x[{batch},{h},{w},{c}] "
+                         f"w[{kh},{kw},{c},{n}]")
+    n_tile = min(_round_up(n, 4), MAX_N_TILE)
+    while True:
+        def fit(r):
+            in_rows = min(h, (r - 1) * stride + kh)
+            return in_rows, smem_bytes(in_rows, w, c, kh, kw, n_tile)
+
+        groups = -(-n_tile // 4)
+        n_tiles = -(-n // n_tile)
+        rows = 1
+        for r in range(ho, 1, -1):
+            if (batch * -(-ho // r) * n_tiles >= TARGET_BLOCKS
+                    and r * wo * groups <= MAX_ITEMS
+                    and fit(r)[1] <= SMEM_LIMIT):
+                rows = r
+                break
+        in_rows, smem = fit(rows)
+        if smem <= SMEM_LIMIT:
+            items = rows * wo * groups
+            threads = min(MAX_THREADS, max(MIN_THREADS,
+                                           _round_up(items, 32)))
+            return BandPlan(rows, n_tile, threads, smem, in_rows,
+                            batch * -(-ho // rows) * n_tiles)
+        if n_tile == 4:
+            raise ValueError(
+                f"Q-Conv: one output row of x[{batch},{h},{w},{c}] with "
+                f"w[{kh},{kw},{c},{n}] needs {smem} bytes of shared "
+                f"memory, more than the {SMEM_LIMIT} a block can have")
+        n_tile = max(4, _round_up(n_tile // 2, 4))
 
 
 def out_geometry(h: int, w: int, kh: int, kw: int, stride: int,
@@ -125,13 +226,15 @@ def qconv2d_i8(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor, b: Tensor,
                       device=qx.device)
     if out.numel() == 0:
         return out
+    plan = band_plan(bsz, h, w, c, kh, kw, n, stride, padding)
     dev = qx.device
-    code = _lib()(dev.index if dev.index is not None else 0,
-                  torch.cuda.current_stream(dev).cuda_stream,
-                  qx.data_ptr(), sx.data_ptr(), qw.data_ptr(),
-                  sw.data_ptr(), 0 if sw.numel() == 1 else 1, b.data_ptr(),
-                  out.data_ptr(), bsz, h, w, c, kh, kw, n, stride, pt, plf,
-                  ho, wo, int(fuse_relu))
+    code = _lib()(
+        dev.index if dev.index is not None else 0,
+        torch.cuda.current_stream(dev).cuda_stream, qx.data_ptr(),
+        sx.data_ptr(), qw.data_ptr(), sw.data_ptr(),
+        0 if sw.numel() == 1 else 1, b.data_ptr(), out.data_ptr(), bsz, h,
+        w, c, kh, kw, n, stride, pt, plf, ho, wo, int(fuse_relu), plan.rows,
+        plan.n_tile, plan.threads, plan.smem)
     _build.check(code, "qconv")
     qconv2d_i8.launches += 1
     return out

@@ -6,10 +6,18 @@ fp32 out) answer to ``repro.kernels.qmac.ops``.  There is no fallback:
 a CUDA tensor launches ``csrc/qmac.cu`` or raises.  Each wrapper counts
 its kernel launches in a plain integer attribute (``qmac_i8.launches``)
 so a run can show that its path went through the kernel.
+
+The kernel splits K across blocks and reduces the slices inside the
+same launch (see the source's note).  :func:`split_plan` picks the
+split; the int32 workspace and the per-tile counters it needs are
+allocated once per (device, stream) and grown when a larger shape needs
+them, so a call stays one ctypes call and one launch with no PyTorch op
+beside the output's ``torch.empty``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,14 +29,89 @@ Tensor = torch.Tensor
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# the kernel's output tile and K chunk (qmac.cu: kBM, kBN, kKC); the
+# launcher refuses a workspace too small for its own tile
+TILE_M, TILE_N, CHUNK_K = 32, 16, 128
+# a split is worth its reduction only when the card would be empty
+# without it: aim for about one block per SM of an H100 (132)
+TARGET_BLOCKS = 132
+# slices shorter than one 128-byte chunk cost more in the reduction than
+# they save; more than 64 slices make the last block's sum the longest
+# step
+MIN_SLICE = CHUNK_K
+MAX_SPLITS = 64
+MAX_K = 131072          # |acc| <= K * 127 * 128 stays inside int32
+
 
 @functools.cache
 def _lib():
-    lib = _build.load("qmac")
-    fn = lib.qforce_qmac_i8
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I]
+    fn = _build.load("qmac").qforce_qmac_i8
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                   _P, ctypes.c_longlong, _P, _I]
     fn.restype = _I
     return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How one product is cut: ``splits`` slices of K of ``slice`` bytes
+    (the last one shorter) over ``tiles`` output tiles."""
+
+    splits: int
+    slice: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def workspace(self) -> int:
+        """int32 partials the reduction needs (0 without a split)."""
+        return self.blocks * TILE_M * TILE_N if self.splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(m: int, k: int, n: int) -> SplitPlan:
+    """Cut K so that ``ceil(M/32) * ceil(N/16) * splits`` reaches about
+    ``TARGET_BLOCKS``; no split where the tiles alone fill the card or K
+    is shorter than two chunks.  Every slice but the last is a multiple
+    of 16 bytes, so the kernel's 16-byte loads never straddle two."""
+    if min(m, n) < 1 or k < 0:
+        raise ValueError(f"split_plan takes M, N >= 1 and K >= 0, got "
+                         f"{(m, k, n)}")
+    if _cdiv(m, TILE_M) > 65535:
+        raise ValueError(f"M={m} needs more than 65535 row tiles")
+    tiles = _cdiv(m, TILE_M) * _cdiv(n, TILE_N)
+    want = min(_cdiv(TARGET_BLOCKS, tiles), MAX_SPLITS)
+    if want <= 1 or k < 2 * MIN_SLICE:
+        return SplitPlan(1, k, tiles)
+    sl = max(MIN_SLICE, _cdiv(_cdiv(k, want), 16) * 16)
+    splits = _cdiv(k, sl)
+    return SplitPlan(splits, sl if splits > 1 else k, tiles)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# (device index, stream handle) -> (int32 workspace, int32 counters)
+_workspaces: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, plan: SplitPlan):
+    """The split's scratch on this device and stream, grown on demand.
+    Counters start at 0 and every launch leaves them at 0; a second
+    stream gets its own, so two launches never share a counter."""
+    key = (dev.index, stream)
+    ws, cnt = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < plan.workspace or cnt.numel() < plan.tiles:
+        need_ws = max(plan.workspace, 0 if ws is None else ws.numel())
+        need_cnt = max(plan.tiles, 0 if cnt is None else cnt.numel())
+        ws = torch.empty(need_ws, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(need_cnt, dtype=torch.int32, device=dev)
+        _workspaces[key] = (ws, cnt)
+    return ws, cnt
 
 
 # ---------------------------------------------------------------------------
@@ -64,8 +147,8 @@ def _check_operands(qx: Tensor, qw: Tensor):
                          f"{tuple(qx.shape)} x {tuple(qw.shape)}")
     if qx.device != qw.device:
         raise ValueError(f"operands on {qx.device} and {qw.device}")
-    if qx.shape[1] > 131072:
-        raise ValueError(f"K={qx.shape[1]} > 131072 can overflow the "
+    if qx.shape[1] > MAX_K:
+        raise ValueError(f"K={qx.shape[1]} > {MAX_K} can overflow the "
                          "int32 accumulator")
     if qx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"Q-MAC runs on cpu or cuda, not {qx.device}")
@@ -81,11 +164,19 @@ def _check_cuda(name: str, *ts: Tensor):
 def _launch(qx, qw, sx, sw, sw_stride, out, m, n, k, deq):
     dev = qx.device
     stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = split_plan(m, k, n)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = _workspace(dev, stream, plan)
     code = _lib()(dev.index if dev.index is not None else 0, stream,
                   qx.data_ptr(), qw.data_ptr(),
                   sx.data_ptr() if sx is not None else None,
                   sw.data_ptr() if sw is not None else None, sw_stride,
-                  out.data_ptr(), m, n, k, deq)
+                  out.data_ptr(), m, n, k, deq, plan.splits, plan.slice,
+                  ws.data_ptr() if ws is not None else None,
+                  ws.numel() if ws is not None else 0,
+                  cnt.data_ptr() if cnt is not None else None,
+                  cnt.numel() if cnt is not None else 0)
     _build.check(code, "qmac")
 
 

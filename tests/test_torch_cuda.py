@@ -186,3 +186,135 @@ def test_hrl_apply_on_the_card_equals_the_cpu(dev, kind, backend):
     assert counts["qconv_i8_taps"] > 0 and counts["qmac_i8"] > 0
     assert (counts["qlstm_cell"] > 0) == (kind == "lstm"
                                           and backend == "pallas")
+
+
+# --- the split-K Q-MAC and the band-staged Q-Conv at their edges -------
+
+QMAC_K = [1, 15, 16, 17, 40, 2047, 2048, 2049, 131072]
+QMAC_M = [1, 2, 31, 32, 33, 512]
+QMAC_N = [1, 4, 33, 128]
+
+
+def _qmac_case(gen, dev, m, k, n):
+    qx, qw = _i8(gen, dev, (m, k)), _i8(gen, dev, (k, n))
+    sx = torch.rand((m, 1), generator=gen, device=dev) + 1e-3
+    sw = torch.rand((1, n), generator=gen, device=dev) + 1e-3
+    return qx, qw, sx, sw
+
+
+def _assert_qmac_equal(qx, qw, sx, sw):
+    assert torch.equal(qmac_ops.qmac_i8(qx, qw),
+                       qmac_ops.qmac_i8_plain(qx, qw))
+    for s in (sw, sw[:, :1].contiguous()):       # per-channel, per-tensor
+        got = qmac_ops.qmac_i8_deq(qx, sx, qw, s)
+        want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, s)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k", QMAC_K)
+def test_qmac_split_k_edges_equal_plain(dev, k):
+    """Every M and N of the grid at this K: slices that end mid-word,
+    mid-chunk and past the 16-byte loads, one and many splits."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    for m in QMAC_M:
+        for n in QMAC_N:
+            _assert_qmac_equal(*_qmac_case(gen, dev, m, k, n))
+    torch.cuda.synchronize()
+
+
+def test_qmac_split_counters_reset_and_streams(dev):
+    """The same split call twice gives the same bits (the counters went
+    back to 0); calls at other shapes in between, and a call on a second
+    stream with its own workspace, give the same bits too."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fc = _qmac_case(gen, dev, 32, 2048, 128)
+    other = _qmac_case(gen, dev, 512, 512, 32)
+    head = _qmac_case(gen, dev, 8, 4096, 4)
+    qx, qw, sx, sw = fc
+    assert qmac_ops.split_plan(32, 2048, 128).splits > 1
+    first = qmac_ops.qmac_i8_deq(qx, sx, qw, sw)
+    again = qmac_ops.qmac_i8_deq(qx, sx, qw, sw)
+    assert torch.equal(_bits(first), _bits(again))
+    want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, sw)
+    assert torch.equal(_bits(first), _bits(want))
+    for _ in range(3):
+        for case in (other, fc, head):
+            cx, cw, csx, csw = case
+            got = qmac_ops.qmac_i8_deq(cx, csx, cw, csw)
+            assert torch.equal(_bits(got), _bits(
+                qmac_ops.qmac_i8_deq_plain(cx, csx, cw, csw)))
+            assert torch.equal(qmac_ops.qmac_i8(cx, cw),
+                               qmac_ops.qmac_i8_plain(cx, cw))
+    # both streams run the split product at once: a shared counter or
+    # workspace would mix their partials
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    on_main = [qmac_ops.qmac_i8_deq(qx, sx, qw, sw) for _ in range(8)]
+    with torch.cuda.stream(side):
+        on_side = [qmac_ops.qmac_i8_deq(qx, sx, qw, sw) for _ in range(8)]
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    for got in on_main + on_side:
+        assert torch.equal(_bits(got), _bits(want))
+    keys = [key for key in qmac_ops._workspaces if key[0] == dev.index]
+    assert len(keys) >= 2
+
+
+QCONV_C = [3, 5, 12, 16, 40, 130]
+
+
+@pytest.mark.parametrize("c", QCONV_C)
+def test_qconv_band_edges_equal_plain(dev, c):
+    """Strides 1-3, SAME and VALID, 2x2/3x3/5x5 kernels, N in {3, 16, 33,
+    48}, images whose rows and columns are not multiples of a band."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    i = 0
+    for stride in (1, 2, 3):
+        for k in (2, 3, 5):
+            for padding in ("SAME", "VALID"):
+                n = (3, 16, 33, 48)[i % 4]
+                b, h, w = 1 + i % 3, 13 + i % 4, 11 + 2 * (i % 3)
+                i += 1
+                qx, qw = _i8(gen, dev, (b, h, w, c)), _i8(gen, dev,
+                                                          (k, k, c, n))
+                sx = torch.rand((b, h, w, 1), generator=gen,
+                                device=dev) * 0.01
+                sw = torch.rand((n,), generator=gen, device=dev) * 0.01
+                bias = torch.randn((n,), generator=gen, device=dev) * 0.1
+                kw = dict(stride=stride, padding=padding,
+                          fuse_relu=bool(i % 2))
+                got = qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias, **kw)
+                want = qconv_ops.qconv2d_i8_plain(qx, sx, qw, sw, bias,
+                                                  **kw)
+                assert torch.equal(_bits(got), _bits(want)), (
+                    b, h, w, c, k, n, stride, padding)
+    torch.cuda.synchronize()
+
+
+def test_qconv_band_past_48kb_and_row_past_227kb(dev):
+    """A band over 48 KB runs in dynamic shared memory (the launcher
+    accepts only the shared memory its own layout takes, so the planner's
+    count is checked at every launch); a shape whose one output row needs
+    more than 227 KB raises and launches nothing."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h, w, c, n = 1, 8, 512, 40, 16
+    plan = qconv_ops.band_plan(b, h, w, c, 3, 3, n, 1, "SAME")
+    assert plan.smem > 48 * 1024
+    qx, qw = _i8(gen, dev, (b, h, w, c)), _i8(gen, dev, (3, 3, c, n))
+    sx = torch.rand((b, h, w, 1), generator=gen, device=dev) * 0.01
+    sw = torch.rand((n,), generator=gen, device=dev) * 0.01
+    bias = torch.randn((n,), generator=gen, device=dev) * 0.1
+    got = qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias)
+    assert torch.equal(_bits(got), _bits(qconv_ops.qconv2d_i8_plain(
+        qx, sx, qw, sw, bias)))
+    big = torch.zeros((1, 4, 2048, 40), dtype=torch.int8, device=dev)
+    before = qconv_ops.qconv2d_i8.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        qconv_ops.qconv2d_i8(big, torch.ones((1, 4, 2048, 1), device=dev),
+                             torch.zeros((3, 3, 40, 16), dtype=torch.int8,
+                                         device=dev),
+                             torch.ones(16, device=dev),
+                             torch.zeros(16, device=dev))
+    assert qconv_ops.qconv2d_i8.launches == before
+    torch.cuda.synchronize()

@@ -1,0 +1,165 @@
+"""The launch planners of the port's redesigned kernels, on the CPU.
+
+``split_plan`` cuts Q-MAC's K across blocks (``kernels/qmac/ops.py``);
+``band_plan`` sizes Q-Conv's bands of output rows and the shared memory
+each block stages (``kernels/qconv/ops.py``).  Both are pure Python, so
+the kernels' launch geometry is checked here; the kernels themselves
+run only on the card (``tests/test_torch_cuda.py``).
+"""
+import pytest
+
+from repro_torch.kernels.qconv import ops as qconv_ops
+from repro_torch.kernels.qconv.ref import same_pads, valid_out
+from repro_torch.kernels.qmac import ops as qmac_ops
+
+SERVING_BUCKETS = [1, 2, 4, 8, 16, 32]
+
+SPLIT_SHAPES = [(m, k, n) for m in (1, 2, 31, 32, 33, 512)
+                for k in (1, 15, 16, 17, 40, 255, 256, 2047, 2048, 2049,
+                          131072)
+                for n in (1, 4, 33, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES[::7] + [(32, 2048, 128)])
+def test_split_plan_slices_cover_k_once(m, k, n):
+    plan = qmac_ops.split_plan(m, k, n)
+    bounds = [(z * plan.slice, min(k, (z + 1) * plan.slice))
+              for z in range(plan.splits)]
+    assert len(bounds) == plan.splits <= qmac_ops.MAX_SPLITS
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    for (_, end), (start, _) in zip(bounds, bounds[1:]):
+        assert end == start                    # no gap, no overlap
+    for start, end in bounds:
+        assert end > start or k == 0
+    for start, end in bounds[:-1]:
+        assert (end - start) % 16 == 0         # whole 16-byte loads
+    assert plan.tiles == -(-m // 32) * -(-n // 16)
+    want_ws = plan.tiles * plan.splits * 32 * 16 if plan.splits > 1 else 0
+    assert plan.workspace == want_ws
+
+
+@pytest.mark.parametrize("m", SERVING_BUCKETS)
+def test_split_plan_fills_the_card_at_the_serving_fc(m):
+    """The served fc (K = 2048, N = 128) at every bucket runs about one
+    block per SM of an H100 (132)."""
+    plan = qmac_ops.split_plan(m, 2048, 128)
+    assert plan.splits > 1
+    assert 0.9 * 132 <= plan.blocks <= 2 * 132
+
+
+@pytest.mark.parametrize("m,k,n", [(m, 128, 4) for m in SERVING_BUCKETS]
+                         + [(512, 40, 4), (128, 32, 128), (512, 32, 32),
+                            (5, 255, 7), (1, 0, 3)])
+def test_split_plan_takes_one_slice_where_k_is_short(m, k, n):
+    """The Q head, the HRL head and every product with K under two
+    128-byte chunks run unsplit: a split would only add its reduction."""
+    plan = qmac_ops.split_plan(m, k, n)
+    assert (plan.splits, plan.slice, plan.workspace) == (1, k, 0)
+
+
+def test_split_plan_splits_where_the_tiles_leave_the_card_empty():
+    # 32 output tiles at the HRL stem fc: four slices, 128 blocks
+    assert qmac_ops.split_plan(512, 512, 32).splits == 4
+    # enough tiles to fill the card alone: no split
+    assert qmac_ops.split_plan(4096, 2048, 512).splits == 1
+    with pytest.raises(ValueError):
+        qmac_ops.split_plan(0, 16, 4)
+
+
+def _plan(b, h, w, c, k, n, stride, padding):
+    return qconv_ops.band_plan(b, h, w, c, k, k, n, stride, padding)
+
+
+PLAN_CASES = [
+    (32, 32, 32, 12, 3, 16, 2, "SAME"),     # DQN conv1, bucket 32
+    (32, 16, 16, 16, 3, 32, 2, "SAME"),     # DQN conv2
+    (1, 32, 32, 12, 3, 16, 2, "SAME"),      # DQN conv1, bucket 1
+    (512, 32, 32, 3, 3, 16, 2, "SAME"),     # HRL conv1, 512 frames
+    (512, 16, 16, 16, 3, 32, 2, "SAME"),    # HRL conv2
+    (512, 8, 8, 32, 3, 32, 2, "SAME"),      # HRL conv3
+    (2, 13, 11, 130, 5, 48, 1, "SAME"),
+    (3, 15, 13, 5, 3, 7, 1, "SAME"),
+    (2, 17, 9, 20, 2, 33, 2, "VALID"),
+    (1, 7, 7, 12, 5, 3, 3, "VALID"),
+    (2, 16, 11, 40, 5, 3, 3, "SAME"),
+    (1, 8, 512, 40, 3, 16, 1, "SAME"),      # a band past 48 KB
+    (2, 9, 8, 256, 5, 64, 1, "SAME"),       # the N tile must halve
+]
+
+
+def _geometry(h, w, k, stride, padding):
+    if padding == "SAME":
+        ho, (pt, _) = same_pads(h, k, stride)
+        wo, _ = same_pads(w, k, stride)
+        return ho, wo, pt
+    return valid_out(h, k, stride), valid_out(w, k, stride), 0
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_band_plan_covers_rows_once_and_fits_its_shared_memory(case):
+    b, h, w, c, k, n, stride, padding = case
+    plan = _plan(*case)
+    ho, wo, pt = _geometry(h, w, k, stride, padding)
+    bands = [(lo, min(ho, lo + plan.rows))
+             for lo in range(0, ho, plan.rows)]
+    assert bands[0][0] == 0 and bands[-1][1] == ho
+    covered = [r for lo, hi in bands for r in range(lo, hi)]
+    assert covered == list(range(ho))          # every row once, in order
+    assert all(hi - lo <= plan.rows for lo, hi in bands)
+    # every band's input rows fit the staged span the smem count assumes
+    for lo, hi in bands:
+        ih_lo = max(0, lo * stride - pt)
+        ih_hi = min(h, (hi - 1) * stride - pt + k)
+        assert 0 < ih_hi - ih_lo <= plan.in_rows <= h
+    assert plan.smem == qconv_ops.smem_bytes(plan.in_rows, w, c, k, k,
+                                             plan.n_tile)
+    assert plan.smem <= qconv_ops.SMEM_LIMIT
+    n_tiles = -(-n // plan.n_tile)
+    assert plan.n_tile % 4 == 0 and n_tiles * plan.n_tile >= n
+    assert 128 <= plan.threads <= 256 and plan.threads % 32 == 0
+    assert plan.blocks == b * len(bands) * n_tiles
+
+
+def test_band_plan_smem_counts_the_kernel_layout():
+    """Hand counts of qconv.cu's layout: input bytes at C padded to 4
+    (+16), fp32 scales (+16), weights at an odd word pitch, each region
+    rounded to 16 bytes."""
+    # DQN conv1 at bucket 32: 5 input rows of 32 x 12 bytes, 9 taps x 16
+    # outputs x 3 words
+    plan = _plan(32, 32, 32, 12, 3, 16, 2, "SAME")
+    assert (plan.rows, plan.in_rows) == (2, 5)
+    assert plan.smem == ((5 * 32 * 12 + 16) + (5 * 32 * 4 + 16)
+                         + 9 * 16 * 3 * 4)
+    # HRL conv1: C = 3 padded to 4 in shared memory, one word a column
+    plan = _plan(512, 32, 32, 3, 3, 16, 2, "SAME")
+    assert (plan.rows, plan.in_rows) == (16, 32)
+    assert plan.smem == (32 * 32 * 4 + 16) + (32 * 32 * 4 + 16) + 9 * 16 * 4
+    # C = 16: four channel words at a pitch of five
+    plan = _plan(32, 16, 16, 16, 3, 32, 2, "SAME")
+    assert (plan.rows, plan.in_rows) == (1, 3)
+    assert plan.smem == ((3 * 16 * 16 + 16) + (3 * 16 * 4 + 16)
+                         + 9 * 32 * 5 * 4)
+
+
+@pytest.mark.parametrize("case,blocks", [
+    ((32, 32, 32, 12, 3, 16, 2, "SAME"), 256),
+    ((32, 16, 16, 16, 3, 32, 2, "SAME"), 256),
+    ((512, 32, 32, 3, 3, 16, 2, "SAME"), 512),
+    ((512, 16, 16, 16, 3, 32, 2, "SAME"), 512)])
+def test_band_plan_keeps_the_card_full_at_the_stems(case, blocks):
+    """About two blocks per SM or more: 256 at the DQN stem's bucket 32,
+    where R = 2 rows a band; whole images at 512 HRL frames."""
+    assert _plan(*case).blocks == blocks
+
+
+def test_band_plan_halves_the_n_tile_before_refusing():
+    plan = _plan(2, 9, 8, 256, 5, 64, 1, "SAME")
+    assert plan.n_tile < 64
+    assert plan.blocks == 2 * -(-9 // plan.rows) * -(-64 // plan.n_tile)
+
+
+def test_band_plan_raises_past_227_kb():
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(1, 4, 2048, 40, 3, 16, 1, "SAME")
+    # the same rows at 1700 columns still fit one block
+    assert _plan(1, 4, 1700, 40, 3, 16, 1, "SAME").smem <= 232448
