@@ -17,10 +17,20 @@ non-zero:
    over the edges of its slices, its counters and two streams, and the
    band-staged Q-Conv over channel counts, strides, kernels, paddings,
    a band past 48 KB of shared memory and a row past 227 KB (refused);
+   V-ACT's elementwise kernel at 1, 6, 13 and 24 iterations, sizes
+   around its float4 items, and strided views read in place (the LSTM's
+   gate slices at each offset, a view off 16-byte alignment, a row
+   stride not a multiple of 4), one launch and no copy on a gate slice;
+   the Q-LSTM cell over batch and hidden edges of its grid, Din = 37,
+   a stripe off 4-byte alignment and a footprint past 227 KB (refused);
+   the LSTM cell's xla and pallas branches on the card against the CPU;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
-   enter), and compute each kernel's bound on an H100;
+   enter), with each call's launch plan, and compute each kernel's bound
+   on an H100; V-ACT also on a gate slice as the LSTM's xla branch
+   passes it, and a 1-element V-ACT call as the launch floor under this
+   timing;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -36,7 +46,8 @@ non-zero:
    logits and values on the card bitwise equal to the plain path on
    the CPU, probabilities within rtol=1e-6; 64 greedy keydoor steps;
    frames/s per variant; counting kernel launches;
-8. profile LSTM-HRL forwards (device time by kernel, idle share);
+8. profile LSTM-HRL forwards at pallas and at xla (device time by
+   kernel, idle share, launches per forward);
 9. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -438,6 +449,172 @@ def check_split_and_band_edges(torch, dev, worst):
     return worst
 
 
+def check_ew_and_cell_edges(torch, dev, worst):
+    """Phase 3, the redesigned V-ACT elementwise kernel and Q-LSTM cell
+    at their edges, bitwise against the plain versions: every kind at
+    n in {1, 6, 13, 24} and 1, 3, 4095, 4096, 4097 elements; strided
+    views read in place (gate slices of [B, 4H] at each offset, views
+    off 16-byte alignment, a row stride of 130, a 3-D view, and views
+    past one wave and past the grid's cap, where threads stride), with one
+    device launch and no copy on a gate slice (profiler); the cell at B
+    in {1, 7, 128, 129, 512} x H in {1, 3, 32, 33, 64}, Din = H and Din
+    = 37, a stripe off 4-byte alignment, and a footprint past 227 KB
+    refused with no launch; the LSTM cell's two branches against the
+    CPU."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import FXP8
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+    from repro_torch.kernels.vact import ops as vact_ops
+    from repro_torch.nn import lstm
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    edge = torch.tensor([0.0, 1e-8, -1e-8, 1.0, -1.0, 30.0, -30.0, 100.0,
+                         -100.0, 88.5, -88.5], device=dev)
+
+    def fp(shape):
+        x = torch.randn(shape, generator=g, device=dev) * 4
+        flat = x.view(-1)
+        k = min(edge.numel(), flat.numel())
+        flat[:k] = edge[:k]
+        return x
+
+    def ew_check(x, kind, n, what):
+        before = vact_ops.vact_ew.launches
+        got = vact_ops.vact_ew(x, kind, n)
+        if vact_ops.vact_ew.launches != before + 1:
+            raise AssertionError(f"vact_ew at {what}: not one launch")
+        want = vact_ops.vact_ew_plain(x.contiguous(), kind, n)
+        err = (got - want).abs().max().item()
+        worst["vact_ew"] = max(worst["vact_ew"], err)
+        if not (got.is_contiguous() and bits_equal(torch, got, want)):
+            raise AssertionError(f"vact_ew {kind} n={n} != plain at {what} "
+                                 f"(max abs err {err})")
+
+    n_ew = 0
+    for numel in (1, 3, 4095, 4096, 4097):
+        x = fp((numel,))
+        for n in (1, 6, 13, 24):
+            for kind in ("relu", "sigmoid", "tanh"):
+                ew_check(x, kind, n, f"{numel} elements")
+                n_ew += 1
+    views = []
+    for b, h in ((128, 32), (7, 3), (129, 33)):
+        gates = fp((b, 4 * h))
+        views += [(f"gate {k} of [{b}, {4 * h}]",
+                   gates[:, k * h:(k + 1) * h]) for k in range(4)]
+    flat = fp((4099,))
+    views += [("a contiguous view 4 B off alignment", flat[1:4098]),
+              ("rows of 40, 4 B off alignment",
+               flat[1:4001].view(100, 40)[:, :32]),
+              ("row stride 130", fp((128, 130))[:, 2:34]),
+              ("3-D, leading axes folded", fp((4, 32, 12))[:, :, 4:12])]
+    # past one wave of one-element threads (132 x 256) and past the
+    # grid's cap, where a thread strides over rows
+    wave = vact_ops.SMS * vact_ops.EW_MAX_THREADS
+    rows = -(-vact_ops.EW_MAX_BLOCKS * vact_ops.EW_MAX_THREADS // 32) + 100
+    wide = fp((rows * 40 + 1,))
+    views += [(f"[{wave + 3}] contiguous", fp((wave + 3,))),
+              (f"[{rows}, 32] slice of [{rows}, 128]",
+               fp((rows, 128))[:, 32:64]),
+              (f"[{rows}, 32] at row stride 130", fp((rows, 130))[:, 2:34]),
+              (f"[{rows}, 32] at row stride 40, 4 B off alignment",
+               wide[1:].view(rows, 40)[:, :32])]
+    for what, x in views:
+        op = vact_ops.ew_operand(tuple(x.shape), x.stride())
+        if op is None:
+            raise AssertionError(f"vact_ew would copy {what}")
+        for n in (6, 13):
+            for kind in ("relu", "sigmoid", "tanh"):
+                ew_check(x, kind, n, what)
+                n_ew += 1
+    # a gate slice is one device launch: the kernel, no copy before it
+    gates = fp((128, 128))
+    _, rows, per_call = _profiled(
+        torch, lambda: vact_ops.vact_ew(gates[:, 32:64], "sigmoid", 6), 5)
+    names = [name for _, _, name in rows]
+    if per_call != 1 or not all("vact_ew" in name for name in names):
+        raise AssertionError(f"vact_ew on a gate slice ran {per_call} "
+                             f"device launches a call: {names}")
+    print(f"V-ACT elementwise edges: {n_ew} cases bitwise equal to the "
+          f"plain version ({len(views)} views read in place); a "
+          f"gate slice is {per_call:g} device launch a call ({names[0]})")
+
+    n_cell = 0
+    for b in (1, 7, 128, 129, 512):
+        for h in (1, 3, 32, 33, 64):
+            for d_in, n, offset in ((h, 6, 0), (37, 13, 0), (37, 24, 1)):
+                def i8_at(shape):
+                    q = _i8(torch, g, dev, (offset + shape[0] * shape[1],))
+                    return q[offset:].view(shape)
+                args = (_i8(torch, g, dev, (b, d_in)),
+                        torch.rand((), generator=g, device=dev) * 0.02,
+                        _i8(torch, g, dev, (b, h)),
+                        torch.rand((), generator=g, device=dev) * 0.02,
+                        i8_at((d_in, 4 * h)),
+                        torch.rand((1, 4 * h), generator=g,
+                                   device=dev) * 0.004,
+                        i8_at((h, 4 * h)),
+                        torch.rand((1, 4 * h), generator=g,
+                                   device=dev) * 0.004,
+                        torch.randn(4 * h, generator=g, device=dev) * 0.1,
+                        torch.randn((b, h), generator=g, device=dev))
+                got = qlstm_ops.qlstm_cell(*args, n_iters=n)
+                want = qlstm_ops.qlstm_cell_plain(*args, n)
+                for gt, wt, what in zip(got, want, ("h'", "c'")):
+                    err = (gt - wt).abs().max().item()
+                    worst["qlstm_cell"] = max(worst["qlstm_cell"], err)
+                    if not bits_equal(torch, gt, wt):
+                        plan = qlstm_ops.cell_plan(b, d_in, h)
+                        raise AssertionError(
+                            f"qlstm {what} != plain at B={b} Din={d_in} "
+                            f"H={h} n={n} offset {offset} ({plan}; max "
+                            f"abs err {err})")
+                n_cell += 1
+    big = (torch.zeros((4, 8192), dtype=torch.int8, device=dev),
+           torch.ones((), device=dev),
+           torch.zeros((4, 8), dtype=torch.int8, device=dev),
+           torch.ones((), device=dev),
+           torch.zeros((8192, 32), dtype=torch.int8, device=dev),
+           torch.ones(32, device=dev),
+           torch.zeros((8, 32), dtype=torch.int8, device=dev),
+           torch.ones(32, device=dev), torch.zeros(32, device=dev),
+           torch.zeros((4, 8), device=dev))
+    before = qlstm_ops.qlstm_cell.launches
+    try:
+        qlstm_ops.qlstm_cell(*big, n_iters=6)
+    except ValueError as e:
+        print(f"Q-LSTM refused a block past 227 KB: {e}")
+    else:
+        raise AssertionError("Q-LSTM ran a block past 227 KB of shared "
+                             "memory")
+    if qlstm_ops.qlstm_cell.launches != before:
+        raise AssertionError("the refused Q-LSTM cell launched")
+    print(f"Q-LSTM edges: {n_cell} cases, h' and c' bitwise equal to the "
+          "plain version")
+
+    p_cpu = lstm.lstm_init(torch.Generator().manual_seed(0), 32, 32)
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    xs = torch.randn((128, 4, 32), generator=torch.Generator().manual_seed(1))
+    for backend in ("xla", "pallas"):
+        pol = FXP8.replace(backend=backend, act_backend="cordic")
+        kernels.reset_launch_counts()
+        hs, (h, c) = lstm.lstm_apply(p_dev, xs.to(dev), pol)
+        counts = kernels.launch_counts()
+        want_hs, (want_h, want_c) = lstm.lstm_apply(p_cpu, xs, pol)
+        for got, want in ((hs, want_hs), (h, want_h), (c, want_c)):
+            if not bits_equal(torch, got.cpu(), want):
+                raise AssertionError(f"LSTM {backend}: card and CPU differ")
+        # xla: four gates and tanh(c') a step; pallas: one fused cell
+        if (counts["vact_ew"], counts["qlstm_cell"]) != (
+                (20, 0) if backend == "xla" else (0, 4)):
+            raise AssertionError(f"LSTM {backend}: launches {counts}")
+        print(f"LSTM cell, {backend}, 4 steps of B=128 Din=H=32: card "
+              f"bitwise equal to the CPU; vact_ew {counts['vact_ew']}, "
+              f"qlstm_cell {counts['qlstm_cell']} launches")
+    torch.cuda.synchronize()
+    return worst
+
+
 def _i8(torch, g, dev, shape):
     return torch.randint(-127, 128, shape, generator=g, device=dev,
                          dtype=torch.int32).to(torch.int8)
@@ -532,6 +709,39 @@ def vact_flops(kind: str, n: int) -> int:
     return {"relu": 1, "sigmoid": sig, "tanh": sig + 3}[kind]
 
 
+def ew_plan_text(x) -> str:
+    """How ``vact_ew`` launches on ``x``."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    op = vact_ops.ew_operand(tuple(x.shape), x.stride())
+    rows, cols, ld = op if op is not None else (1, x.numel(), x.numel())
+    p = vact_ops.ew_plan(rows * cols)
+    return (f"{'in place' if op is not None else 'contiguous copy first'}"
+            f" as [{rows}, {cols}] at row stride {ld}, one element a "
+            f"thread, {p.threads} threads x {p.blocks} blocks")
+
+
+def cell_plan_text(b, d_in, hid) -> str:
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+    p = qlstm_ops.cell_plan(b, d_in, hid)
+    return (f"{p.row_groups} x {p.unit_groups} blocks of {p.rows} rows x "
+            f"{p.units} units, {p.threads} threads, {p.smem} B shared")
+
+
+def time_ew(torch, x, n_iters, what):
+    """``vact_ew`` tanh on ``x`` (contiguous or a view) beside its plain
+    version and its bound."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    el = x.numel()
+    b_ms, b_by = bound_ms(8 * el, fp32_ops=el * vact_flops("tanh", n_iters))
+    return dict(shape=f"{what} n={n_iters} tanh", plan=ew_plan_text(x),
+                ms=device_ms(torch, lambda: vact_ops.vact_ew(x, "tanh",
+                                                             n_iters)),
+                plain_ms=device_ms(torch, lambda: vact_ops.vact_ew_plain(
+                    x, "tanh", n_iters)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def _time_vact(torch, g, dev, m, n_col, n_iters, softmax=False):
     """V-ACT at one shape: (elementwise tanh, q8 tanh) rows, or the
     softmax row."""
@@ -552,13 +762,7 @@ def _time_vact(torch, g, dev, m, n_col, n_iters, softmax=False):
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     qx = _i8(torch, g, dev, (m, n_col))
     sx = torch.full((), 0.02, device=dev)
-    b_ms, b_by = bound_ms(8 * el, fp32_ops=el * vact_flops("tanh", n_iters))
-    ew = dict(shape=shape + " tanh",
-              ms=device_ms(torch, lambda: vact_ops.vact_ew(x, "tanh",
-                                                           n_iters)),
-              plain_ms=device_ms(torch, lambda: vact_ops.vact_ew_plain(
-                  x, "tanh", n_iters)),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    ew = time_ew(torch, x, n_iters, f"[{m}, {n_col}]")
     # the int8 variant adds a dequantizing multiply and the requant's
     # multiply, round and two clamps per element
     b_ms, b_by = bound_ms(2 * el + 4, fp32_ops=el * (
@@ -570,6 +774,20 @@ def _time_vact(torch, g, dev, m, n_col, n_iters, softmax=False):
                   qx, sx, "tanh", n_iters)),
               bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return ew, q8
+
+
+def time_gate_slice_and_floor(torch, g, dev, n_iters=6):
+    """``vact_ew`` on the [128, 32] column slice of a [128, 128] gate
+    tensor, as the LSTM's xla branch passes it, and on one element: the
+    launch floor under ``device_ms``'s timing."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    gates = torch.randn((128, 128), generator=g, device=dev) * 2
+    row = time_ew(torch, gates[:, 32:64], n_iters,
+                  "[128, 32] gate slice of [128, 128]")
+    one = torch.randn((1,), generator=g, device=dev)
+    floor = device_ms(torch, lambda: vact_ops.vact_ew(one, "tanh", n_iters))
+    return row, floor
 
 
 def _time_qlstm(torch, g, dev, b, d_in, hid, n_iters):
@@ -595,6 +813,7 @@ def _time_qlstm(torch, g, dev, b, d_in, hid, n_iters):
                           b * hid * per_unit)
     return dict(
         shape=f"B={b} Din={d_in} H={hid} n={n_iters}",
+        plan=cell_plan_text(b, d_in, hid),
         ms=device_ms(torch, lambda: qlstm_ops.qlstm_cell(*args,
                                                          n_iters=n_iters)),
         plain_ms=device_ms(torch, lambda: qlstm_ops.qlstm_cell_plain(
@@ -629,6 +848,8 @@ def time_kernels(torch, dev):
         ew, q8 = _time_vact(torch, g, dev, m, n_col, 6)
         rows["vact_ew"].append(ew)
         rows["vact_ew_q8"].append(q8)
+    gate_slice, floor = time_gate_slice_and_floor(torch, g, dev)
+    rows["vact_ew"].append(gate_slice)
     rows["vact_softmax"].append(_time_vact(torch, g, dev, 512, 4, 6,
                                            softmax=True))
     rows["qlstm_cell"].append(_time_qlstm(torch, g, dev, 128, 32, 32, 6))
@@ -646,6 +867,8 @@ def time_kernels(torch, dev):
                   f"{'n/a' if lib is None else f'{lib:.5f}'}  bound_ms "
                   f"{r['bound_ms']:.6f} ({r['bound_by']})"
                   + (f"  [{r['plan']}]" if "plan" in r else ""))
+    print(f"launch floor under this timing: vact_ew on 1 element "
+          f"{floor:.5f} ms")
     return rows
 
 
@@ -899,23 +1122,35 @@ def hrl_path(torch, dev):
         fps[name] = o.shape[0] * (o.shape[1] if o.ndim == 5 else 1) / sec
         print(f"{name}: {fps[name]:.1f} frames/s ({sec * 1e3:.4f} ms per "
               f"call of {o.shape[0]} {'windows' if o.ndim == 5 else 'frames'})")
-    return launches, fps, (dev_params["LSTM-HRL pallas"], cfg_lstm, pallas,
-                           windows)
+    return launches, fps, (dev_params["LSTM-HRL pallas"], cfg_lstm,
+                           {"pallas": pallas, "xla": xla}, windows)
 
 
 def profile_hrl(torch, lstm, n=20):
     """Phase 8: where an LSTM-HRL forward's time goes (128 windows of 4
-    frames, pallas + CORDIC at FxP8), as ``profile_forward`` reads it."""
+    frames, CORDIC at FxP8) at pallas (fused Q-LSTM) and at xla (Q-MAC
+    gates + V-ACT on the gate slices), as ``profile_forward`` reads it,
+    with the port's kernel launches of one forward.  Returns the device
+    launches per forward by branch."""
+    from repro_torch import kernels
     from repro_torch.models import hrl
 
-    params, cfg, pol, windows = lstm
+    params, cfg, policies, windows = lstm
+    per_forward = {}
+    for branch, pol in policies.items():
+        def fwd():
+            hrl.apply(params, windows, cfg, pol)
+            torch.cuda.synchronize()
 
-    def fwd():
-        hrl.apply(params, windows, cfg, pol)
-        torch.cuda.synchronize()
-
-    _print_profile("LSTM-HRL forward, 128 windows x 4 frames, pallas",
-                   *_profiled(torch, fwd, n), top=12)
+        kernels.reset_launch_counts()
+        fwd()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        wall, rows, launches = _profiled(torch, fwd, n)
+        _print_profile(f"LSTM-HRL forward, 128 windows x 4 frames, {branch}",
+                       wall, rows, launches, top=12)
+        print(f"  the port's kernels in one {branch} forward: {counts}")
+        per_forward[branch] = launches
+    return per_forward
 
 
 def main() -> int:
@@ -943,8 +1178,8 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_split_and_band_edges(
-        torch, dev, check_hrl_kernels(torch, dev, check_kernels(torch, dev)))
+    worst = check_ew_and_cell_edges(torch, dev, check_split_and_band_edges(
+        torch, dev, check_hrl_kernels(torch, dev, check_kernels(torch, dev))))
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -957,7 +1192,9 @@ def main() -> int:
               f"p50 {s['p50_ms']:.4f} ms, p99 {s['p99_ms']:.4f} ms, "
               f"{st.episodes} episodes")
     hrl_launches, fps, lstm = hrl_path(torch, dev)
-    profile_hrl(torch, lstm)
+    per_forward = profile_hrl(torch, lstm)
+    print("LSTM-HRL device launches per forward: " + ", ".join(
+        f"{b} {v:g}" for b, v in per_forward.items()))
     for name, v in fps.items():
         print(f"{name} on {card}: {v:.1f} frames/s")
 

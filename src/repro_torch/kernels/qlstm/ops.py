@@ -4,15 +4,18 @@ plain PyTorch version on CPU tensors.
 ``qlstm_cell`` answers to ``repro.kernels.qlstm.ops.qlstm_cell``: one
 quantized LSTM step with int8 input/hidden codes and per-tensor scales,
 int8 gate weights with per-column scales, CORDIC gates and fp32
-(h', c') out.  The kernel masks the batch edge itself (the reference
-pads the batch to a multiple of 8), and the reference's VMEM budget
-becomes the card's shared-memory limit per block.  There is no
-fallback: a CUDA tensor launches ``csrc/qlstm.cu`` or raises, and
+(h', c') out.  The kernel masks the batch and hidden edges itself (the
+reference pads the batch to a multiple of 8), and the reference's VMEM
+budget becomes the card's shared-memory limit per block.
+:func:`cell_plan` cuts the step into blocks of batch rows by hidden
+units, and the launcher accepts only that plan.  There is no fallback:
+a CUDA tensor launches ``csrc/qlstm.cu`` or raises, and
 ``qlstm_cell.launches`` counts the launches.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -29,7 +32,13 @@ _I = ctypes.c_int
 
 # shared memory a block may use on Hopper (227 KB of the SM's 256 KB)
 SMEM_BUDGET_BYTES = 232448
-_ROWS = 8          # batch rows per block (kRows in csrc/qlstm.cu)
+# a block's most batch rows and hidden units (csrc/qlstm.cu: kMaxRows,
+# kMaxUnits): four lanes a (row, unit), so 8 units of one row are a warp
+MAX_ROWS = 8
+UNITS = 8
+# about one block per SM of an H100 (132): the most rows a block while
+# the grid keeps at least this many blocks
+TARGET_BLOCKS = 128
 
 
 def _pitch(k: int) -> int:
@@ -37,17 +46,68 @@ def _pitch(k: int) -> int:
     return 4 * (((k + 3) // 4) | 1)
 
 
-def smem_bytes(d_in: int, hidden: int) -> int:
-    """Shared memory the kernel's block takes: the transposed int8
-    stripe [4H, Din + H] and the block's 8 rows of x and h codes."""
-    return (4 * hidden + _ROWS) * (_pitch(d_in) + _pitch(hidden))
+def smem_bytes(d_in: int, hidden: int, rows: int, units: int) -> int:
+    """Shared memory a block takes (csrc/qlstm.cu ``Layout``): its
+    units' four gate columns of the int8 stripe, transposed to
+    [4 * units, Din + H], and its rows of x and h codes."""
+    return (4 * units + rows) * (_pitch(d_in) + _pitch(hidden))
+
+
+@dataclasses.dataclass(frozen=True)
+class CellPlan:
+    """One Q-LSTM launch: blocks of ``rows`` batch rows by ``units``
+    hidden units over a ``row_groups`` x ``unit_groups`` grid,
+    ``threads`` a block (four lanes a (row, unit)), ``smem`` bytes of
+    shared memory a block."""
+
+    rows: int
+    units: int
+    threads: int
+    row_groups: int
+    unit_groups: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_groups * self.unit_groups
+
+
+@functools.lru_cache(maxsize=256)
+def cell_plan(batch: int, d_in: int, hidden: int) -> CellPlan:
+    """Cut one step over (batch-row groups) x (hidden-unit groups).
+
+    A block takes ``min(H, UNITS)`` units and the most rows (8, 4, 2 or
+    1) that keep the grid at ``TARGET_BLOCKS`` blocks or more, else one
+    row.  A footprint past one block's shared memory raises a
+    ValueError (the wrapper never falls back to the plain version)."""
+    if batch < 1 or hidden < 1 or d_in < 0:
+        raise ValueError(f"cell_plan takes B, H >= 1 and Din >= 0, got "
+                         f"{(batch, d_in, hidden)}")
+    units = min(hidden, UNITS)
+    unit_groups = _cdiv(hidden, units)
+    if unit_groups > 65535:
+        raise ValueError(f"H={hidden} needs more than 65535 unit groups")
+    rows = next((r for r in (MAX_ROWS, 4, 2)
+                 if _cdiv(batch, r) * unit_groups >= TARGET_BLOCKS), 1)
+    smem = smem_bytes(d_in, hidden, rows, units)
+    if smem > SMEM_BUDGET_BYTES:
+        raise ValueError(
+            f"qlstm needs {smem} B of shared memory a block for "
+            f"Din={d_in}, H={hidden} (> {SMEM_BUDGET_BYTES}); tile Din or "
+            "fall back to qmac+vact")
+    return CellPlan(rows, units, 32 * _cdiv(4 * rows * units, 32),
+                    _cdiv(batch, rows), unit_groups, smem)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 @functools.cache
 def _lib():
     lib = _build.load("qlstm")
     fn = lib.qforce_qlstm_cell
-    fn.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, CordicParams]
+    fn.argtypes = [_I] + [_P] * 13 + [_I] * 7 + [CordicParams]
     fn.restype = _I
     return fn
 
@@ -70,14 +130,15 @@ def qlstm_cell_plain(qx, sx, qh, sh, qw, sw, qu, su, b, c, n_iters: int):
 
 def qlstm_cell(qx, sx, qh, sh, qw, sw, qu, su, b, c, *,
                n_iters: int = 13):
-    """Fused quantized LSTM cell step (one timestep, full stripe).
+    """Fused quantized LSTM cell step (one timestep).
 
     Dtype contract: int8 input/hidden (qx [B, Din], qh [B, H]) with
     per-tensor fp32 scales (one element each), int8 gate weights
     (qw [Din, 4H], qu [H, 4H]) with per-column fp32 scales (4H each),
     fp32 bias b [4H] and cell state c [B, H]; int32 MACs, CORDIC gate
-    nonlinearities (``n_iters`` rounds), fp32 (h', c') out.  The whole
-    [Din + H, 4H] stripe must fit one block's shared memory (checked).
+    nonlinearities (``n_iters`` rounds), fp32 (h', c') out.  A block's
+    share of the stripe (:func:`cell_plan`) must fit its shared memory
+    (checked).
     """
     if any(t.dtype != torch.int8 for t in (qx, qh, qw, qu)):
         raise TypeError("qlstm_cell takes int8 qx, qh, qw, qu")
@@ -95,12 +156,7 @@ def qlstm_cell(qx, sx, qh, sh, qw, sw, qu, su, b, c, *,
         raise ValueError("sx and sh are per-tensor scales (one element)")
     if sw.numel() != 4 * H or su.numel() != 4 * H or b.numel() != 4 * H:
         raise ValueError(f"sw, su and b need 4H={4 * H} elements")
-    footprint = smem_bytes(Din, H)
-    if footprint > SMEM_BUDGET_BYTES:
-        raise ValueError(
-            f"qlstm full-stripe blocking needs {footprint} B of shared "
-            f"memory (> {SMEM_BUDGET_BYTES}); tile H or fall back to "
-            "qmac+vact")
+    plan = cell_plan(B, Din, H) if B and H else None
     params = cordic_params(n_iters)
     ts = (qx, sx, qh, sh, qw, sw, qu, su, b, c)
     devs = {t.device for t in ts}
@@ -128,7 +184,8 @@ def qlstm_cell(qx, sx, qh, sh, qw, sw, qu, su, b, c, *,
                   fsh.data_ptr(), qw.data_ptr(), fsw.data_ptr(),
                   qu.data_ptr(), fsu.data_ptr(), fb.data_ptr(),
                   fc.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-                  B, Din, H, params)
+                  B, Din, H, plan.rows, plan.units, plan.threads, plan.smem,
+                  params)
     _build.check(code, "qlstm")
     qlstm_cell.launches += 1
     return h_out, c_out

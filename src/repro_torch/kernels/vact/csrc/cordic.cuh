@@ -29,13 +29,17 @@ struct CordicParams {
   float atanh[kMaxIters];   // fp32(atanh(2^-i)) for the k-th scheduled i
 };
 
-__device__ __forceinline__ float cordic_exp(float x, const CordicParams& p) {
+// e^x.  kN > 0: exactly kN iterations, fully unrolled with no exit test
+// (the caller dispatches on p.n, so p.n == kN); kN == 0: p.n iterations
+// behind a uniform exit, for any n in 1..kMaxIters.
+template <int kN>
+__device__ __forceinline__ float cordic_exp_n(float x, const CordicParams& p) {
   const float m = floorf(__fdiv_rn(x, p.ln2));
   const float r = __fsub_rn(x, __fmul_rn(m, p.ln2));
   float cx = p.inv_gain, cy = 0.f, zz = r;
 #pragma unroll
-  for (int k = 0; k < kMaxIters; ++k) {
-    if (k >= p.n) break;                 // uniform across the grid
+  for (int k = 0; k < (kN > 0 ? kN : kMaxIters); ++k) {
+    if (kN == 0 && k >= p.n) break;     // uniform across the grid
     const bool pos = zz >= 0.f;
     const float dy = __fmul_rn(pos ? cy : -cy, p.shift[k]);
     const float dx = __fmul_rn(pos ? cx : -cx, p.shift[k]);
@@ -48,25 +52,28 @@ __device__ __forceinline__ float cordic_exp(float x, const CordicParams& p) {
   return __fmul_rn(e_r, __int_as_float((mi + 127) << 23));
 }
 
-__device__ __forceinline__ float cordic_sigmoid(float x,
-                                                const CordicParams& p) {
-  const float e = cordic_exp(-fabsf(x), p);     // e^{-|x|} in (0, 1]
+template <int kN>
+__device__ __forceinline__ float cordic_sigmoid_n(float x,
+                                                  const CordicParams& p) {
+  const float e = cordic_exp_n<kN>(-fabsf(x), p);   // e^{-|x|} in (0, 1]
   const float pos = __fdiv_rn(1.f, __fadd_rn(1.f, e));
   return x >= 0.f ? pos : __fsub_rn(1.f, pos);
 }
 
-__device__ __forceinline__ float cordic_tanh(float x, const CordicParams& p) {
-  return __fsub_rn(__fmul_rn(2.f, cordic_sigmoid(__fmul_rn(2.f, x), p)),
+// tanh(x) = 2 sigmoid(2x) - 1, as the reference composes it
+template <int kN>
+__device__ __forceinline__ float cordic_tanh_n(float x, const CordicParams& p) {
+  return __fsub_rn(__fmul_rn(2.f, cordic_sigmoid_n<kN>(__fmul_rn(2.f, x), p)),
                    1.f);
 }
 
 // kind: 0 relu (a mux, as jax.nn.relu: NaN passes, -0 gives +0),
-// 1 sigmoid, 2 tanh
-template <int kKind>
+// 1 sigmoid, 2 tanh; kN as for cordic_exp_n
+template <int kKind, int kN = 0>
 __device__ __forceinline__ float vact_apply(float x, const CordicParams& p) {
   if (kKind == 0) return (x > 0.f || x != x) ? x : 0.f;
-  if (kKind == 1) return cordic_sigmoid(x, p);
-  return cordic_tanh(x, p);
+  if (kKind == 1) return cordic_sigmoid_n<kN>(x, p);
+  return cordic_tanh_n<kN>(x, p);
 }
 
 }  // namespace qforce

@@ -2,9 +2,11 @@
 plain PyTorch version on a CPU tensor.
 
 ``vact`` and ``vact_q8`` answer to ``repro.kernels.vact.ops`` on any
-shape: the input is flattened (elementwise kinds) or folded to
-``[rows, last axis]`` (softmax), and the kernels mask their own tails,
-so nothing is padded.  ``vact`` dispatches to ``vact_ew`` (relu,
+shape: the input is flattened (``vact_q8``), read in place as strided
+``[rows, last axis]`` rows (``vact_ew``: see :func:`ew_operand`) or
+folded to ``[rows, last axis]`` (softmax), and the kernels mask their
+own tails, so nothing is padded.  Outputs are fresh contiguous tensors
+of the input's shape.  ``vact`` dispatches to ``vact_ew`` (relu,
 sigmoid, tanh) or ``vact_softmax``.  There is no fallback: a CUDA tensor
 launches ``csrc/vact.cu`` or raises.  Each wrapper counts its launches
 in a plain integer attribute (``vact_ew.launches``).
@@ -16,7 +18,9 @@ the card and the CPU compute with the same bits.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -33,6 +37,13 @@ _L = ctypes.c_longlong
 
 # relu, sigmoid, tanh as the kernel's template index
 EW_KINDS = {"relu": 0, "sigmoid": 1, "tanh": 2}
+
+# vact_ew's launch (csrc/vact.cu: kMaxEwThreads): threads a block at
+# most, and the grid's cap, past which it strides (16 resident blocks on
+# each of an H100's 132 SMs)
+EW_MAX_THREADS = 256
+SMS = 132
+EW_MAX_BLOCKS = 16 * SMS
 
 
 class CordicParams(ctypes.Structure):
@@ -65,7 +76,8 @@ def cordic_params(n_iters: int) -> CordicParams:
 @functools.cache
 def _lib():
     lib = _build.load("vact")
-    lib.qforce_vact_ew.argtypes = [_I, _P, _P, _P, _L, _I, CordicParams]
+    lib.qforce_vact_ew.argtypes = [_I, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+                                   CordicParams]
     lib.qforce_vact_ew_q8.argtypes = [_I, _P, _P, _P, _P, _L, _I,
                                       CordicParams]
     lib.qforce_vact_softmax.argtypes = [_I, _P, _P, _P, _I, _I,
@@ -74,6 +86,64 @@ def _lib():
                lib.qforce_vact_softmax):
         fn.restype = _I
     return lib
+
+
+def ew_operand(shape, strides):
+    """How ``vact_ew``'s kernel reads a non-empty tensor of ``shape`` and
+    ``strides`` (in elements) without a copy: ``(rows, cols, ld)``, rows
+    of ``cols`` unit-stride elements ``ld`` apart, or None where it needs
+    a contiguous copy.
+
+    A contiguous tensor is one row of all its elements.  Otherwise the
+    last axis must be unit-stride (or of size 1) and the leading axes
+    must fold into one row stride (each one's stride the next one's
+    times its size; axes of size 1 are ignored), as the LSTM's column
+    slices of its [B, 4H] gate tensor do."""
+    n = math.prod(shape)
+    expect = 1
+    for size, st in zip(reversed(shape), reversed(strides)):
+        if size != 1 and st != expect:
+            break
+        expect *= size
+    else:
+        return 1, n, n
+    cols = shape[-1]
+    if cols != 1 and strides[-1] != 1:
+        return None
+    lead = [(s, st) for s, st in zip(shape[:-1], strides[:-1]) if s != 1]
+    for (_, outer), (size, inner) in zip(lead, lead[1:]):
+        if outer != inner * size:
+            return None
+    return math.prod(s for s, _ in lead), cols, lead[-1][1]
+
+
+@dataclasses.dataclass(frozen=True)
+class EwPlan:
+    """One ``vact_ew`` launch: ``threads`` a block, ``blocks`` blocks,
+    one element a thread."""
+
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def ew_plan(n: int) -> EwPlan:
+    """Size ``vact_ew``'s launch over ``n`` elements.
+
+    One element a thread: a thread's time is its chain of dependent
+    CORDIC steps, and a second chain in the same thread lengthens it
+    (``tools/kernel_probe.py ew``).  The threads a block are the threads
+    wanted over 132 SMs, rounded up to a warp, at most
+    ``EW_MAX_THREADS``, so a small tensor spreads over many SMs; past
+    ``EW_MAX_BLOCKS`` the grid strides."""
+    if n < 1:
+        raise ValueError(f"ew_plan takes at least one element, got {n}")
+    threads = min(EW_MAX_THREADS, 32 * _cdiv(_cdiv(n, SMS), 32))
+    return EwPlan(threads, min(_cdiv(n, threads), EW_MAX_BLOCKS))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _stream(dev: torch.device):
@@ -117,19 +187,28 @@ def vact_q8_plain(qx: Tensor, sx: Tensor, kind: str, n_iters: int) -> Tensor:
 
 def vact_ew(x: Tensor, kind: str, n_iters: int) -> Tensor:
     """Elementwise V-ACT (relu, sigmoid, tanh) by ``n_iters``-round
-    CORDIC on any shape: fp32 in (cast), fp32 out."""
+    CORDIC on any shape: fp32 in (cast), fp32 out, contiguous.  A view
+    that :func:`ew_operand` accepts is read in place; anything else is
+    made contiguous first."""
     if kind not in EW_KINDS:
         raise KeyError(kind)
     params = cordic_params(n_iters)
     if not _on_cuda("vact_ew", x):
         return vact_ew_plain(x, kind, n_iters)
-    xc = x.to(torch.float32).contiguous()
-    out = torch.empty_like(xc)
+    xf = x.to(torch.float32)
+    out = torch.empty(xf.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    code = _lib().qforce_vact_ew(*_stream(x.device), xc.data_ptr(),
-                                 out.data_ptr(), xc.numel(),
-                                 EW_KINDS[kind], params)
+    op = ew_operand(tuple(xf.shape), xf.stride())
+    if op is None:
+        xf = xf.contiguous()
+        op = (1, xf.numel(), xf.numel())
+    rows, cols, ld = op
+    plan = ew_plan(rows * cols)
+    code = _lib().qforce_vact_ew(*_stream(x.device), xf.data_ptr(),
+                                 out.data_ptr(), rows, cols, ld,
+                                 EW_KINDS[kind], plan.threads, plan.blocks,
+                                 params)
     _build.check(code, "vact_ew")
     vact_ew.launches += 1
     return out

@@ -318,3 +318,151 @@ def test_qconv_band_past_48kb_and_row_past_227kb(dev):
                              torch.zeros(16, device=dev))
     assert qconv_ops.qconv2d_i8.launches == before
     torch.cuda.synchronize()
+
+
+# --- V-ACT's strided elementwise kernel and the Q-LSTM cell at edges ----
+
+@pytest.mark.parametrize("numel", [1, 3, 4095, 4096, 4097])
+@pytest.mark.parametrize("n", [1, 6, 13, 24])
+def test_vact_ew_iterations_and_sizes_equal_plain(dev, numel, n):
+    """Every kind at the two unrolled counts (6, 13) and the generic
+    instance (1, 24), at sizes around the path's 4096-element calls."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(numel * 31 + n)
+    x = _special(gen, dev, (numel,))
+    for kind in ("relu", "sigmoid", "tanh"):
+        before = vact_ops.vact_ew.launches
+        got = vact_ops.vact_ew(x, kind, n)
+        assert vact_ops.vact_ew.launches == before + 1
+        assert torch.equal(_bits(got), _bits(vact_ops.vact_ew_plain(
+            x, kind, n)))
+    torch.cuda.synchronize()
+
+
+def _strided_cases(gen, dev):
+    """(what, view): the LSTM's gate slices of [B, 4H] at each gate
+    offset, a view off 16-byte alignment, a row stride not a multiple of
+    4, a 3-D view whose leading axes fold."""
+    cases = []
+    for b, h in ((128, 32), (7, 3), (129, 33)):
+        gates = _special(gen, dev, (b, 4 * h))
+        cases += [(f"gate {g} of [{b}, {4 * h}]", gates[:, g * h:(g + 1) * h])
+                  for g in range(4)]
+    flat = _special(gen, dev, (4099,))
+    cases += [("offset 4 B, contiguous", flat[1:4098]),
+              ("offset 4 B, rows of 40", flat[1:4001].view(100, 40)[:, :32]),
+              ("row stride 130", _special(gen, dev, (128, 130))[:, 2:34]),
+              ("3-D", _special(gen, dev, (4, 32, 12))[:, :, 4:12])]
+    return cases
+
+
+@pytest.mark.parametrize("n", [6, 13])
+def test_vact_ew_reads_strided_views_in_place(dev, n):
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(n)
+    for what, x in _strided_cases(gen, dev):
+        assert not x.is_contiguous() or x.data_ptr() % 16, what
+        assert vact_ops.ew_operand(tuple(x.shape), x.stride()) is not None
+        for kind in ("relu", "sigmoid", "tanh"):
+            got = vact_ops.vact_ew(x, kind, n)
+            assert got.is_contiguous() and got.shape == x.shape
+            want = vact_ops.vact_ew_plain(x.contiguous(), kind, n)
+            assert torch.equal(_bits(got), _bits(want)), (what, kind)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [6, 13])
+def test_vact_ew_past_one_wave_and_the_grid_cap(dev, n):
+    """Past one wave of one-element threads (132 x 256) and past the
+    grid's cap, where each thread strides over rows: a contiguous row, a
+    gate-like slice, a row stride of 130 and rows 4 B off alignment."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(100 + n)
+    wave = vact_ops.SMS * vact_ops.EW_MAX_THREADS
+    rows = -(-vact_ops.EW_MAX_BLOCKS * vact_ops.EW_MAX_THREADS // 32) + 100
+    assert rows * 32 > vact_ops.EW_MAX_BLOCKS * vact_ops.EW_MAX_THREADS
+    wide = _special(gen, dev, (rows * 40 + 1,))
+    cases = [("contiguous", _special(gen, dev, (wave + 3,))),
+             ("slice of [rows, 128]",
+              _special(gen, dev, (rows, 128))[:, 32:64]),
+             ("row stride 130", _special(gen, dev, (rows, 130))[:, 2:34]),
+             ("offset 4 B, rows of 40", wide[1:].view(rows, 40)[:, :32])]
+    for what, x in cases:
+        assert vact_ops.ew_operand(tuple(x.shape), x.stride()) is not None
+        for kind in ("relu", "sigmoid", "tanh"):
+            got = vact_ops.vact_ew(x, kind, n)
+            assert got.is_contiguous() and got.shape == x.shape
+            want = vact_ops.vact_ew_plain(x.contiguous(), kind, n)
+            assert torch.equal(_bits(got), _bits(want)), (what, kind)
+    torch.cuda.synchronize()
+
+
+def _cell_args(gen, dev, b, d_in, h, offset=0):
+    """Cell operands; ``offset`` > 0 puts qw and qu at that many bytes
+    into their storage, off 4-byte alignment."""
+    def i8_at(shape):
+        flat = _i8(gen, dev, (offset + shape[0] * shape[1],))
+        return flat[offset:].view(shape)
+    return (_i8(gen, dev, (b, d_in)),
+            torch.rand((), generator=gen, device=dev) * 0.02,
+            _i8(gen, dev, (b, h)),
+            torch.rand((), generator=gen, device=dev) * 0.02,
+            i8_at((d_in, 4 * h)),
+            torch.rand((1, 4 * h), generator=gen, device=dev) * 0.004,
+            i8_at((h, 4 * h)),
+            torch.rand((1, 4 * h), generator=gen, device=dev) * 0.004,
+            torch.randn((4 * h,), generator=gen, device=dev) * 0.1,
+            torch.randn((b, h), generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("b", [1, 7, 128, 129, 512])
+@pytest.mark.parametrize("h", [1, 3, 32, 33, 64])
+def test_qlstm_cell_edges_equal_plain(dev, b, h):
+    """Batch and hidden edges of the (row group x unit group) grid, Din
+    equal to H and Din = 37 (not a multiple of 4), the unrolled counts
+    and the generic instance, and a weight stripe off 4-byte alignment
+    (staged by bytes)."""
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h)
+    for d_in, n, offset in ((h, 6, 0), (37, 13, 0), (37, 24, 1)):
+        args = _cell_args(gen, dev, b, d_in, h, offset)
+        before = qlstm_ops.qlstm_cell.launches
+        got = qlstm_ops.qlstm_cell(*args, n_iters=n)
+        assert qlstm_ops.qlstm_cell.launches == before + 1
+        want = qlstm_ops.qlstm_cell_plain(*args, n)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w)), (b, d_in, h, n, offset)
+    torch.cuda.synchronize()
+
+
+def test_qlstm_cell_refuses_past_227kb_without_a_launch(dev):
+    from repro_torch.kernels.qlstm import ops as qlstm_ops
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = _cell_args(gen, dev, 4, 8192, 8)
+    before = qlstm_ops.qlstm_cell.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        qlstm_ops.qlstm_cell(*args, n_iters=6)
+    assert qlstm_ops.qlstm_cell.launches == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_lstm_cell_on_the_card_equals_the_cpu(dev, backend):
+    """Four steps of ``nn/lstm.lstm_cell`` at the agent's width (B = 128,
+    Din = H = 32) under FxP8 with CORDIC gates: the xla branch's gate
+    activations read column slices of the gate tensor in place."""
+    from repro_torch.nn import lstm
+    pol = tpolicy.FXP8.replace(backend=backend, act_backend="cordic")
+    p = lstm.lstm_init(torch.Generator().manual_seed(0), 32, 32)
+    xs = torch.randn((128, 4, 32), generator=torch.Generator().manual_seed(1))
+    p_dev = {k: v.to(dev) for k, v in p.items()}
+    kernels.reset_launch_counts()
+    hs, (h, c) = lstm.lstm_apply(p_dev, xs.to(dev), pol)
+    counts = kernels.launch_counts()
+    want_hs, (want_h, want_c) = lstm.lstm_apply(p, xs, pol)
+    for got, want in ((hs, want_hs), (h, want_h), (c, want_c)):
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    if backend == "xla":
+        assert counts["vact_ew"] == 4 * 5 and counts["qlstm_cell"] == 0
+    else:
+        assert counts["qlstm_cell"] == 4 and counts["vact_ew"] == 0

@@ -2,15 +2,22 @@
 
 ``split_plan`` cuts Q-MAC's K across blocks (``kernels/qmac/ops.py``);
 ``band_plan`` sizes Q-Conv's bands of output rows and the shared memory
-each block stages (``kernels/qconv/ops.py``).  Both are pure Python, so
-the kernels' launch geometry is checked here; the kernels themselves
-run only on the card (``tests/test_torch_cuda.py``).
+each block stages (``kernels/qconv/ops.py``); ``cell_plan`` cuts a
+Q-LSTM step into blocks of batch rows by hidden units
+(``kernels/qlstm/ops.py``); ``ew_operand`` decides which views V-ACT's
+elementwise kernel reads in place and ``ew_plan`` sizes its launch
+(``kernels/vact/ops.py``).  All are pure Python, so the kernels' launch
+geometry is checked here; the kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 import pytest
+import torch
 
 from repro_torch.kernels.qconv import ops as qconv_ops
 from repro_torch.kernels.qconv.ref import same_pads, valid_out
+from repro_torch.kernels.qlstm import ops as qlstm_ops
 from repro_torch.kernels.qmac import ops as qmac_ops
+from repro_torch.kernels.vact import ops as vact_ops
 
 SERVING_BUCKETS = [1, 2, 4, 8, 16, 32]
 
@@ -163,3 +170,142 @@ def test_band_plan_raises_past_227_kb():
         _plan(1, 4, 2048, 40, 3, 16, 1, "SAME")
     # the same rows at 1700 columns still fit one block
     assert _plan(1, 4, 1700, 40, 3, 16, 1, "SAME").smem <= 232448
+
+
+# --- the Q-LSTM cell's blocks of batch rows x hidden units --------------
+
+CELL_CASES = [(b, d_in, h) for b in (1, 7, 128, 129, 512)
+              for h in (1, 3, 32, 33, 64) for d_in in (37, h)]
+
+
+@pytest.mark.parametrize("b,d_in,h", CELL_CASES)
+def test_cell_plan_covers_every_row_and_unit_once(b, d_in, h):
+    plan = qlstm_ops.cell_plan(b, d_in, h)
+    seen = {}
+    for rg in range(plan.row_groups):
+        for ug in range(plan.unit_groups):
+            for t in range(plan.threads):
+                # csrc/qlstm.cu: lane t & 3 is the gate, t >> 2 the pair
+                pair = t >> 2
+                if pair >= plan.rows * plan.units:
+                    continue
+                row = rg * plan.rows + pair // plan.units
+                unit = ug * plan.units + pair % plan.units
+                if row < b and unit < h:
+                    seen.setdefault((row, unit), []).append(t & 3)
+    assert sorted(seen) == [(r, j) for r in range(b) for j in range(h)]
+    assert all(sorted(g) == [0, 1, 2, 3] for g in seen.values())
+    assert plan.units == min(h, qlstm_ops.UNITS)
+    assert 1 <= plan.rows <= qlstm_ops.MAX_ROWS
+    assert plan.threads % 32 == 0 and plan.threads < 4 * plan.rows \
+        * plan.units + 32
+    assert plan.blocks == plan.row_groups * plan.unit_groups
+
+
+@pytest.mark.parametrize("b,d_in,h", CELL_CASES[::3] + [(128, 32, 32)])
+def test_cell_plan_smem_counts_the_kernel_layout(b, d_in, h):
+    """qlstm.cu's ``Layout``: the block's 4 * units gate columns of the
+    [Din + H, 4H] stripe at an odd word pitch, then its rows of x and h
+    codes at the same pitches."""
+    plan = qlstm_ops.cell_plan(b, d_in, h)
+
+    def pitch(k):
+        words = -(-k // 4)
+        return 4 * (words if words % 2 else words + 1)
+
+    want = (4 * plan.units * (pitch(d_in) + pitch(h))
+            + plan.rows * (pitch(d_in) + pitch(h)))
+    assert plan.smem == want == qlstm_ops.smem_bytes(d_in, h, plan.rows,
+                                                     plan.units)
+    assert pitch(d_in) % 8 == 4 and pitch(d_in) >= d_in
+
+
+def test_cell_plan_fills_the_card_at_the_agent_shape():
+    """The LSTM-HRL step (B = 128 windows, Din = H = 32): 128 blocks of
+    4 rows x 8 units, not the 16 blocks a block of 8 rows over all units
+    gave."""
+    plan = qlstm_ops.cell_plan(128, 32, 32)
+    assert (plan.rows, plan.units, plan.threads) == (4, 8, 128)
+    assert plan.blocks == 128
+    assert qlstm_ops.cell_plan(512, 32, 32).rows == 8
+    assert qlstm_ops.cell_plan(1, 32, 32).blocks == 4
+
+
+def test_cell_plan_raises_past_227_kb():
+    # 8 units' columns over Din = 8192 codes: 33 x (8196 + 12) bytes
+    with pytest.raises(ValueError, match="shared memory"):
+        qlstm_ops.cell_plan(1, 8192, 8)
+    assert qlstm_ops.cell_plan(1, 5000, 8).smem <= \
+        qlstm_ops.SMEM_BUDGET_BYTES
+    with pytest.raises(ValueError):
+        qlstm_ops.cell_plan(0, 32, 32)
+
+
+# --- which views V-ACT's elementwise kernel reads in place --------------
+
+def _views():
+    base = torch.zeros((128, 128))
+    return {
+        "contiguous": (torch.zeros((512, 8)), (1, 4096, 4096)),
+        "gate slice": (base[:, 32:64], (128, 32, 128)),
+        "last gate": (base[:, 96:128], (128, 32, 128)),
+        "3-D slice": (torch.zeros((2, 3, 10))[:, :, 1:5], (6, 4, 10)),
+        "width-1 column": (torch.zeros((3, 10))[:, 2:3], (3, 1, 10)),
+        "broadcast rows": (torch.zeros((1, 8)).expand(4, 8), (4, 8, 0)),
+        "size-1 lead": (torch.zeros((1, 5, 12))[:, :, :7], (5, 7, 12)),
+        "0-d": (torch.zeros(()), (1, 1, 1)),
+        "odd offset": (torch.zeros(37)[1:34], (1, 33, 33)),
+        "transposed": (torch.zeros((4, 6)).t(), None),
+        "strided last axis": (torch.zeros((4, 8))[:, ::2], None),
+        "leading axes apart": (torch.zeros((2, 3, 10))[:, :2, :4], None),
+        "broadcast middle": (torch.zeros((2, 1, 8)).expand(2, 3, 8), None),
+    }
+
+
+@pytest.mark.parametrize("name", list(_views()))
+def test_ew_operand_passes_views_without_a_copy(name):
+    x, want = _views()[name]
+    got = vact_ops.ew_operand(tuple(x.shape), x.stride())
+    assert got == want
+    if got is None:
+        return
+    rows, cols, ld = got
+    assert rows * cols == x.numel()
+    # the kernel's addressing reads exactly the view's elements, in order
+    flat = torch.arange(x.untyped_storage().nbytes() // 4,
+                        dtype=torch.float32)
+    view = flat.as_strided(x.shape, x.stride(), x.storage_offset())
+    idx = torch.tensor([x.storage_offset() + r * ld + c
+                        for r in range(rows) for c in range(cols)])
+    assert torch.equal(flat[idx], view.reshape(-1))
+
+
+WAVE = 132 * 256               # one wave of one-element threads
+CAP = vact_ops.EW_MAX_BLOCKS * vact_ops.EW_MAX_THREADS  # grid strides past
+
+
+@pytest.mark.parametrize("n", [1, 3, 4095, 4096, 4097, WAVE, WAVE + 1,
+                               CAP + 1])
+def test_ew_plan_gives_each_element_one_thread(n):
+    """Whole warps, at most EW_MAX_THREADS a block, and blocks for every
+    element up to the grid's cap, past which the grid strides."""
+    plan = vact_ops.ew_plan(n)
+    assert plan.threads % 32 == 0
+    assert 32 <= plan.threads <= vact_ops.EW_MAX_THREADS
+    assert plan.blocks == min(-(-n // plan.threads),
+                              vact_ops.EW_MAX_BLOCKS)
+    assert plan.threads * plan.blocks >= min(n, CAP)
+    # no block could be dropped: the last one holds an element
+    assert (plan.blocks - 1) * plan.threads < n
+
+
+def test_ew_plan_spreads_small_tensors_over_many_sms():
+    """The path's 4096-element calls run in one-warp blocks on 128 SMs,
+    where 256 threads a block ran 16 blocks; a large tensor takes full
+    blocks and a capped grid that strides."""
+    assert vact_ops.ew_plan(128 * 32) == vact_ops.EwPlan(32, 128)
+    big = vact_ops.ew_plan(1 << 26)
+    assert big.threads == vact_ops.EW_MAX_THREADS
+    assert big.blocks == vact_ops.EW_MAX_BLOCKS
+    with pytest.raises(ValueError):
+        vact_ops.ew_plan(0)

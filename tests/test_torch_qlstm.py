@@ -83,13 +83,14 @@ def test_cell_refuses_what_it_does_not_take():
         tops.qlstm_cell(ops[0].float(), *ops[1:])
     with pytest.raises(ValueError, match="shapes"):
         tops.qlstm_cell(ops[0], ops[1], ops[2][:, :4], *ops[3:])
-    # a stripe past one block's shared memory: the VMEM guard's place
+    # a block's share of the stripe past its shared memory: the VMEM
+    # guard's place (a block stages 8 units' columns over all of Din)
     with pytest.raises(ValueError, match="shared memory"):
-        h = 256
-        tops.qlstm_cell(torch.zeros((1, 256), dtype=torch.int8),
+        h, d_in = 8, 8192
+        tops.qlstm_cell(torch.zeros((1, d_in), dtype=torch.int8),
                         torch.ones(()), torch.zeros((1, h), dtype=torch.int8),
                         torch.ones(()),
-                        torch.zeros((256, 4 * h), dtype=torch.int8),
+                        torch.zeros((d_in, 4 * h), dtype=torch.int8),
                         torch.ones(4 * h),
                         torch.zeros((h, 4 * h), dtype=torch.int8),
                         torch.ones(4 * h), torch.zeros(4 * h),

@@ -195,3 +195,22 @@ def test_cpu_wrappers_launch_nothing():
     tops.vact_q8(x.to(torch.int8), torch.tensor(0.1), "relu", 6)
     assert (tops.vact_ew.launches, tops.vact_softmax.launches,
             tops.vact_q8.launches) == before
+
+
+@pytest.mark.parametrize("gate", range(4))
+@pytest.mark.parametrize("kind", EW_KINDS)
+def test_cpu_wrapper_on_a_gate_slice_equals_a_contiguous_copy(gate, kind):
+    """The LSTM's xla branch hands ``vact_ew`` column slices of its
+    [B, 4H] gate tensor; the CPU wrapper gives the bits it gives on a
+    contiguous copy of the slice, and the reference's on that copy."""
+    h = 32
+    gates = _x((16, 4 * h), seed=40 + gate)
+    sl = torch.from_numpy(gates)[:, gate * h:(gate + 1) * h]
+    assert not sl.is_contiguous()
+    got = tops.vact_ew(sl, kind, 6)
+    want = tops.vact_ew(sl.contiguous(), kind, 6)
+    assert got.shape == sl.shape
+    _bits_equal(got.numpy(), want.numpy())
+    _bits_equal(got.numpy(), jref.vact(
+        jnp.asarray(np.ascontiguousarray(gates[:, gate * h:(gate + 1) * h])),
+        kind, 6))

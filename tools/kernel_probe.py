@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Probes of the port's two redesigned kernels on one CUDA card.
+"""Probes of the port's redesigned kernels on one CUDA card.
 
-    python3 tools/kernel_probe.py split    # Q-MAC ms against K slices
-    python3 tools/kernel_probe.py stages   # Q-Conv block stage cycles
+    python3 tools/kernel_probe.py split       # Q-MAC ms against K slices
+    python3 tools/kernel_probe.py stages      # Q-Conv block stage cycles
+    python3 tools/kernel_probe.py ew          # V-ACT ms against its plan
+    python3 tools/kernel_probe.py cell        # Q-LSTM ms against its plan
+    python3 tools/kernel_probe.py pair [SRC]  # V-ACT, Q-LSTM, LSTM-HRL of
+                                              # the tree at SRC
 
 Run from a checkout on the machine with the card (it needs ``nvcc``).
 
@@ -14,8 +18,17 @@ version.  ``stages`` builds a copy of ``qconv.cu`` that stamps
 weights staged, after the barrier; taps and output done) into
 ``build/kernel_probe/``, runs it at the four stem shapes of
 ``chip_smoke.py`` phase 4 and prints the median and largest cycles of
-each stage over the blocks.  Both print the card's name and power
-limit first.
+each stage over the blocks.  ``ew`` times V-ACT's elementwise kernel at
+the HRL path's three calls ([512, 8], [128, 32] and the [128, 32] gate
+slice of [128, 128], tanh, n = 6) and at 2^24 elements, for 32-256
+threads a block; ``cell`` times the Q-LSTM cell at
+(B, Din, H) = (128, 32, 32), n = 6, for 1-8 rows by 4 or 8 units a
+block; both hold every plan bitwise against the plain version and mark
+what the planner picks.  ``pair`` runs phase 4's V-ACT and Q-LSTM rows
+and phase 8's LSTM-HRL profiles at pallas and xla with the
+``repro_torch`` package under SRC (default: this checkout's ``src``),
+so a parent tree unpacked beside this one is timed by the same code on
+the same card.  All print the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -157,19 +170,171 @@ def stages(torch, cs, dev):
               f"({top[2]})")
 
 
+EW_CALLS = (("[512, 8]", lambda t, g, dev: t.randn(
+                 (512, 8), generator=g, device=dev) * 2),
+            ("[128, 32]", lambda t, g, dev: t.randn(
+                (128, 32), generator=g, device=dev) * 2),
+            ("[128, 32] gate slice", lambda t, g, dev: (t.randn(
+                (128, 128), generator=g, device=dev) * 2)[:, 32:64]),
+            ("[16777216]", lambda t, g, dev: t.randn(
+                (1 << 24,), generator=g, device=dev) * 2))
+
+
+def ew(torch, cs, dev):
+    from repro_torch.kernels.vact import ops as V
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = V.cordic_params(6)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for what, make in EW_CALLS:
+        x = make(torch, g, dev)
+        rows, cols, ld = V.ew_operand(tuple(x.shape), x.stride())
+        picked = V.ew_plan(rows * cols)
+        want = V.vact_ew_plain(x, "tanh", 6).view(torch.int32)
+        out = torch.empty(x.shape, device=dev)
+        cells = []
+        for threads in (32, 64, 128, 256):
+            plan = V.EwPlan(threads, min(-(-rows * cols // threads),
+                                         V.EW_MAX_BLOCKS))
+
+            def run():
+                code = V._lib().qforce_vact_ew(
+                    0, stream, x.data_ptr(), out.data_ptr(), rows, cols,
+                    ld, V.EW_KINDS["tanh"], plan.threads, plan.blocks, p)
+                if code:
+                    raise RuntimeError(f"launch failed with {code}")
+
+            out.zero_()
+            run()
+            if not torch.equal(out.view(torch.int32), want):
+                raise AssertionError(f"vact_ew differs at {what} {plan}")
+            mark = "*" if plan == picked else ""
+            cells.append(f"{threads}x{plan.blocks}{mark}: "
+                         f"{cs.device_ms(torch, run):.5f}")
+        print(f"vact_ew {what} tanh n=6, threads x blocks (* planned): "
+              + ", ".join(cells))
+
+
+def cell(torch, cs, dev):
+    from repro_torch.kernels.qlstm import ops as Q
+    from repro_torch.kernels.vact.ops import cordic_params
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, d_in, h = 128, 32, 32
+    args = [cs._i8(torch, g, dev, (b, d_in)), torch.full((), 0.01,
+                                                          device=dev),
+            cs._i8(torch, g, dev, (b, h)), torch.full((), 0.01, device=dev),
+            cs._i8(torch, g, dev, (d_in, 4 * h)),
+            torch.rand((4 * h,), generator=g, device=dev) * 0.004,
+            cs._i8(torch, g, dev, (h, 4 * h)),
+            torch.rand((4 * h,), generator=g, device=dev) * 0.004,
+            torch.randn((4 * h,), generator=g, device=dev) * 0.1,
+            torch.randn((b, h), generator=g, device=dev)]
+    want = Q.qlstm_cell_plain(*args, 6)
+    h_out = torch.empty((b, h), device=dev)
+    c_out = torch.empty((b, h), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    picked = Q.cell_plan(b, d_in, h)
+    cells = []
+    for units in (4, 8):
+        for rows in (1, 2, 4, 8):
+            threads = 32 * -(-4 * rows * units // 32)
+            smem = Q.smem_bytes(d_in, h, rows, units)
+
+            def run():
+                code = Q._lib()(0, stream, *[t.data_ptr() for t in args],
+                                h_out.data_ptr(), c_out.data_ptr(), b, d_in,
+                                h, rows, units, threads, smem,
+                                cordic_params(6))
+                if code:
+                    raise RuntimeError(f"launch failed with {code}")
+
+            run()
+            for got, w in zip((h_out, c_out), want):
+                if not torch.equal(got.view(torch.int32),
+                                   w.view(torch.int32)):
+                    raise AssertionError(f"qlstm differs at {rows} rows x "
+                                         f"{units} units")
+            blocks = -(-b // rows) * -(-h // units)
+            mark = "*" if (rows, units) == (picked.rows, picked.units) else ""
+            cells.append(f"{rows}x{units} ({blocks} blocks){mark}: "
+                         f"{cs.device_ms(torch, run):.5f}")
+    print(f"qlstm_cell B={b} Din={d_in} H={h} n=6, rows x units a block "
+          f"(* planned): " + ", ".join(cells))
+
+
+def pair(torch, cs, dev):
+    from repro_torch.configs.e2hrl import HRLConfig
+    from repro_torch.core.fxp import QTensor
+    from repro_torch.core.policy import FXP8
+    from repro_torch.models import hrl
+    from repro_torch.tree import tree_map
+
+    import repro_torch
+    from repro_torch.kernels.qlstm import ops as Q
+    from repro_torch.kernels.vact import ops as V
+    print(f"repro_torch from {os.path.dirname(repro_torch.__file__)}")
+    # a tree from before the launch planners: its kernels' own launch
+    if not hasattr(V, "ew_plan"):
+        cs.ew_plan_text = lambda x: "no launch planner in this tree"
+    if not hasattr(Q, "cell_plan"):
+        cs.cell_plan_text = lambda b, d_in, hid: ("no launch planner in "
+                                                  "this tree")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = [cs.time_ew(torch, torch.randn((m, n), generator=g, device=dev)
+                       * 2, 6, f"[{m}, {n}]") for m, n in ((512, 8),
+                                                          (128, 32))]
+    gate, floor = cs.time_gate_slice_and_floor(torch, g, dev)
+    rows.append(gate)
+    rows.append(dict(cs._time_qlstm(torch, g, dev, 128, 32, 32, 6),
+                     name="qlstm_cell"))
+    for r in rows:
+        print(f"{r.get('name', 'vact_ew'):10s} {r['shape']}: kernel_ms "
+              f"{r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  bound_ms "
+              f"{r['bound_ms']:.6f} ({r['bound_by']})  [{r['plan']}]")
+    print(f"launch floor under this timing: vact_ew on 1 element "
+          f"{floor:.5f} ms")
+    env, _, _, windows = cs._keydoor_frames(torch, dev)
+    cfg = HRLConfig(obs_shape=tuple(env.obs_shape),
+                    n_actions=env.spec.n_actions, subgoal_kind="lstm")
+    params = tree_map(lambda x: x.to(dev),
+                      hrl.init(torch.Generator().manual_seed(0), cfg,
+                               device="cpu"),
+                      is_leaf=lambda x: isinstance(x, QTensor))
+    policies = {b: FXP8.replace(backend=b, act_backend="cordic")
+                for b in ("pallas", "xla")}
+    per_forward = cs.profile_hrl(torch, (params, cfg, policies, windows))
+    print("LSTM-HRL device launches per forward: " + ", ".join(
+        f"{b} {v:g}" for b, v in per_forward.items()))
+
+
+MODES = {"split": split, "stages": stages, "ew": ew, "cell": cell,
+         "pair": pair}
+
+
 def main() -> int:
     import torch
-    import chip_smoke as cs
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("split", "stages"):
+    args = sys.argv[1:]
+    if not args or args[0] not in MODES or len(args) > (2 if args[0] ==
+                                                        "pair" else 1):
         print(__doc__, file=sys.stderr)
         return 2
+    if len(args) == 2:
+        src = os.path.abspath(args[1])
+        if not os.path.isdir(os.path.join(src, "repro_torch")):
+            print(f"kernel_probe: no repro_torch under {src}",
+                  file=sys.stderr)
+            return 2
+        sys.path.insert(0, src)
+    import chip_smoke as cs
+
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA card", file=sys.stderr)
         return 2
     print(cs.card_line())
     dev = torch.device("cuda", 0)
-    {"split": split, "stages": stages}[sys.argv[1]](torch, cs, dev)
+    MODES[args[0]](torch, cs, dev)
     return 0
 
 
