@@ -24,13 +24,19 @@ non-zero:
    the Q-LSTM cell over batch and hidden edges of its grid, Din = 37,
    a stripe off 4-byte alignment and a footprint past 227 KB (refused);
    the LSTM cell's xla and pallas branches on the card against the CPU;
+   V-ACT's softmax in each of its three kernels at their bounds (rows
+   of 1-65,536 elements, -inf and +-3e38 entries, row-strided views in
+   one launch and no copy) and its int8 table kernel over every code,
+   four scales, sizes to 2^26 + 3 and views off 16-byte alignment;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
-   enter), with each call's launch plan, and compute each kernel's bound
-   on an H100; V-ACT also on a gate slice as the LSTM's xla branch
-   passes it, and a 1-element V-ACT call as the launch floor under this
-   timing;
+   enter; ``torch.tanh`` and ``torch.softmax`` as approximate yardsticks
+   of the CORDIC kernels), with each call's launch plan, and compute
+   each kernel's bound on an H100; V-ACT also on a gate slice as the
+   LSTM's xla branch passes it, softmax at LSTM-HRL's [128, 4], at
+   [4096, 8192] and [256, 65536], int8 at 2^26 elements, and a
+   1-element V-ACT call as the launch floor under this timing;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -47,7 +53,10 @@ non-zero:
    the CPU, probabilities within rtol=1e-6; 64 greedy keydoor steps;
    frames/s per variant; counting kernel launches;
 8. profile LSTM-HRL forwards at pallas and at xla (device time by
-   kernel, idle share, launches per forward);
+   kernel, idle share, launches per forward: the port's from its
+   wrappers' counters, PyTorch's from a trace whose every kernel row is
+   a whole multiple of the forwards, traced again up to three times,
+   else "not measured");
 9. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -529,12 +538,13 @@ def check_ew_and_cell_edges(torch, dev, worst):
                 n_ew += 1
     # a gate slice is one device launch: the kernel, no copy before it
     gates = fp((128, 128))
-    _, rows, per_call = _profiled(
-        torch, lambda: vact_ops.vact_ew(gates[:, 32:64], "sigmoid", 6), 5)
+    _, rows, per_call, why = _profiled(torch, lambda: (
+        vact_ops.vact_ew(gates[:, 32:64], "sigmoid", 6),
+        torch.cuda.synchronize()), 5)
     names = [name for _, _, name in rows]
     if per_call != 1 or not all("vact_ew" in name for name in names):
         raise AssertionError(f"vact_ew on a gate slice ran {per_call} "
-                             f"device launches a call: {names}")
+                             f"device launches a call ({why}): {names}")
     print(f"V-ACT elementwise edges: {n_ew} cases bitwise equal to the "
           f"plain version ({len(views)} views read in place); a "
           f"gate slice is {per_call:g} device launch a call ({names[0]})")
@@ -612,6 +622,151 @@ def check_ew_and_cell_edges(torch, dev, worst):
               f"bitwise equal to the CPU; vact_ew {counts['vact_ew']}, "
               f"qlstm_cell {counts['qlstm_cell']} launches")
     torch.cuda.synchronize()
+    return worst
+
+
+SOFTMAX_COLS = (1, 2, 3, 4, 5, 31, 32, 33, 1023, 1024, 1025, 58079, 58080,
+                58081, 65536)
+# past each softmax kernel's grid cap, where its rows stride over the
+# grid: the rows kernel at 1, 4 and 32 lanes, the block kernel at one
+# warp, staging a whole row and past shared memory
+SOFTMAX_STRIDED = ((600000, 1), (200000, 4), (20000, 32), (20000, 100),
+                   (4096, 1025), (4096, 8192), (2113, 58081))
+
+
+def check_softmax_and_q8_edges(torch, dev, worst):
+    """Phase 3, V-ACT's redesigned softmax and int8 kernels at their
+    edges.  Softmax within rtol=1e-6 of the plain version (NaN where it
+    gives NaN): each kernel at its bounds (cols 1-5, 31-33, the block
+    kernel's one-warp bound +-1, shared memory's limit +-1, a
+    65,536-float row past it) over 1, 7, 512 and 1000 rows at n in {1, 6,
+    13, 24}; rows past each kernel's grid cap (``SOFTMAX_STRIDED``) at n
+    in {6, 13}; rows with -inf entries and entries near +-3e38; row-strided views
+    read in place, one device launch and no copy.  The int8 kernel
+    bitwise: every code (-128 included) at scales 1e-30, 0.003, 0.05 and
+    3.0 for each kind, sizes 1-2^26 + 3 around its 16-byte chunks, and
+    views off 16-byte alignment."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    g = torch.Generator(device=dev).manual_seed(9753)
+    edge = torch.tensor([0.0, 1e-8, -1e-8, 30.0, -30.0, 100.0, -100.0],
+                        device=dev)
+
+    def fp(shape):
+        x = torch.randn(shape, generator=g, device=dev) * 4
+        flat = x.view(-1)
+        k = min(edge.numel(), flat.numel())
+        flat[:k] = edge[:k]
+        return x
+
+    rel = 0.0
+
+    def sm_check(x, n, what):
+        nonlocal rel
+        before = vact_ops.vact_softmax.launches
+        got = vact_ops.vact_softmax(x, n)
+        if vact_ops.vact_softmax.launches != before + 1:
+            raise AssertionError(f"vact_softmax at {what}: not one launch")
+        want = vact_ops.vact_softmax_plain(x.contiguous(), n)
+        fin = torch.isfinite(want)
+        err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
+        worst["vact_softmax"] = max(worst["vact_softmax"], err)
+        if fin.any():
+            rel = max(rel, ((got - want).abs() / want.abs().clamp_min(
+                FLT_MIN))[fin].max().item())
+        if not (got.is_contiguous() and torch.allclose(
+                got, want, rtol=1e-6, atol=FLT_MIN, equal_nan=True)):
+            raise AssertionError(f"vact_softmax n={n} at {what} off its "
+                                 f"plain version by {err} > rtol 1e-6")
+
+    n_sm = 0
+    for cols in SOFTMAX_COLS:
+        for rows in (1, 7, 512, 1000):
+            x = fp((rows, cols))
+            for n in (1, 6, 13, 24):
+                sm_check(x, n, f"[{rows}, {cols}] "
+                         f"({vact_ops.softmax_plan(rows, cols)})")
+                n_sm += 1
+    for rows, cols in SOFTMAX_STRIDED:
+        plan = vact_ops.softmax_plan(rows, cols)
+        lanes = max(plan.lanes, 1)
+        if rows <= (plan.blocks * plan.threads // 32 * (32 // lanes)
+                    if plan.regime == "rows" else plan.blocks):
+            raise AssertionError(f"[{rows}, {cols}] fits one grid ({plan})")
+        x = fp((rows, cols))
+        for n in (6, 13):
+            sm_check(x, n, f"[{rows}, {cols}] past the grid cap ({plan})")
+            n_sm += 1
+        del x
+    for cols in (4, 33, 1000, 2048, 65536):
+        x = fp((64, cols))
+        x[0::4, 0] = -float("inf")
+        x[1::4, -1] = -float("inf")
+        x[2::4, 0] = 3e38
+        x[2::4, -1] = -3e38
+        x[3::4] = torch.where(torch.rand((16, cols), generator=g,
+                                         device=dev) < 0.5, 3.3e38, -3.3e38)
+        x[3::4, 0] = 3.4e38
+        for n in (6, 13):
+            sm_check(x, n, f"[64, {cols}] with -inf and +-3e38 entries")
+            n_sm += 1
+    views = [("[128, 32] at row stride 130", fp((128, 130))[:, 2:34]),
+             ("3-D, leading axes folded", fp((4, 32, 12))[:, :, 4:8]),
+             ("[64, 100] at row stride 257, 4 B off alignment",
+              fp((64, 257))[:, 1:101]),
+             ("[64, 1000] at row stride 1024", fp((64, 1024))[:, 8:1008]),
+             ("[16, 4096] at row stride 8192", fp((16, 8192))[:, 4096:]),
+             ("[4, 65536] at row stride 65540", fp((4, 65540))[:, 4:])]
+    for what, x in views:
+        op = vact_ops.softmax_operand(tuple(x.shape), x.stride())
+        if op is None or op[2] != x.stride(-2):
+            raise AssertionError(f"vact_softmax would copy {what}")
+        for n in (6, 13):
+            sm_check(x, n, what)
+            n_sm += 1
+        _, rows, per_call, why = _profiled(torch, lambda: (
+            vact_ops.vact_softmax(x, 6), torch.cuda.synchronize()), 5)
+        names = [name for _, _, name in rows]
+        if per_call != 1 or "vact_softmax" not in names[0]:
+            raise AssertionError(
+                f"vact_softmax on {what} ran {per_call} device launches a "
+                f"call ({why}): {names}; {torch.cuda.memory_reserved()} B "
+                "reserved")
+    print(f"V-ACT softmax edges: {n_sm} cases within rtol=1e-6 of the plain "
+          f"version (max abs err {worst['vact_softmax']}, max rel err "
+          f"{rel}); {len(views)} row-strided views one device launch a "
+          "call, no copy")
+
+    n_q8 = 0
+    codes = torch.arange(-128, 128, device=dev,
+                         dtype=torch.int32).to(torch.int8).repeat(3)
+
+    def q8_check(qx, sx, kind, n, what):
+        got = vact_ops.vact_q8(qx, sx, kind, n)
+        want = vact_ops.vact_q8_plain(qx, sx, kind, n)
+        err = (got.int() - want.int()).abs().max().item()
+        worst["vact_ew_q8"] = max(worst["vact_ew_q8"], err)
+        if not (got.is_contiguous() and bits_equal(torch, got, want)):
+            raise AssertionError(f"vact_q8 {kind} n={n} != plain at {what} "
+                                 f"(max code err {err})")
+
+    for scale in (1e-30, 0.003, 0.05, 3.0):
+        sx = torch.tensor(scale, device=dev)
+        for kind in ("relu", "sigmoid", "tanh"):
+            for n in (1, 6, 13, 24):
+                q8_check(codes, sx, kind, n, f"every code, scale {scale}")
+                n_q8 += 1
+    sx = torch.tensor(0.05, device=dev)
+    for numel in (1, 15, 16, 17, 4095, 4096, (1 << 26) + 3):
+        flat = _i8(torch, g, dev, (numel + 1,))
+        for what, qx in (("aligned", flat[:numel]), ("offset 1", flat[1:])):
+            for kind in ("relu", "sigmoid", "tanh"):
+                q8_check(qx, sx, kind, 6, f"{numel} elements, {what}")
+                n_q8 += 1
+    torch.cuda.synchronize()
+    print(f"V-ACT int8 edges: {n_q8} cases bitwise equal to the plain "
+          "version (every code at four scales, sizes around the 16-byte "
+          "chunks, views off alignment)")
     return worst
 
 
@@ -720,6 +875,30 @@ def ew_plan_text(x) -> str:
             f"thread, {p.threads} threads x {p.blocks} blocks")
 
 
+def softmax_plan_text(x) -> str:
+    """How ``vact_softmax`` launches on ``x``."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    op = vact_ops.softmax_operand(tuple(x.shape), x.stride())
+    cols = x.shape[-1]
+    rows, cols, ld = op if op is not None else (x.numel() // cols, cols,
+                                                cols)
+    p = vact_ops.softmax_plan(rows, cols)
+    how = {"rows": f"{p.lanes} lanes a row, {32 // max(p.lanes, 1)} rows "
+                   "a warp",
+           "block": f"one block a row, {p.staged} of {cols} staged in "
+                    f"{p.smem} B shared"}[p.regime]
+    return (f"{'in place' if op is not None else 'contiguous copy first'}"
+            f" at row stride {ld}; {p.regime} kernel, {how}, {p.threads} "
+            f"threads x {p.blocks} blocks")
+
+
+def q8_plan_text(n: int) -> str:
+    from repro_torch.kernels.vact import ops as vact_ops
+    p = vact_ops.q8_plan(n)
+    return (f"256-code table a block, {p.threads} threads x {p.blocks} "
+            f"blocks, {p.items} 16-byte chunks a thread")
+
+
 def cell_plan_text(b, d_in, hid) -> str:
     from repro_torch.kernels.qlstm import ops as qlstm_ops
     p = qlstm_ops.cell_plan(b, d_in, hid)
@@ -727,9 +906,12 @@ def cell_plan_text(b, d_in, hid) -> str:
             f"{p.units} units, {p.threads} threads, {p.smem} B shared")
 
 
+APPROX = "approximate: not CORDIC"
+
+
 def time_ew(torch, x, n_iters, what):
     """``vact_ew`` tanh on ``x`` (contiguous or a view) beside its plain
-    version and its bound."""
+    version, ``torch.tanh`` and its bound."""
     from repro_torch.kernels.vact import ops as vact_ops
 
     el = x.numel()
@@ -739,41 +921,68 @@ def time_ew(torch, x, n_iters, what):
                                                              n_iters)),
                 plain_ms=device_ms(torch, lambda: vact_ops.vact_ew_plain(
                     x, "tanh", n_iters)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(torch, lambda: torch.tanh(x)),
+                library=f"torch.tanh, {APPROX}")
+
+
+def time_softmax(torch, x, n_iters, what):
+    """``vact_softmax`` on ``x`` beside its plain version,
+    ``torch.softmax`` and its bound."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    el = x.numel()
+    # per element: subtract the max, e^x, add to the sum, divide
+    b_ms, b_by = bound_ms(8 * el, fp32_ops=el * (
+        cordic_exp_flops(n_iters) + 4))
+    return dict(shape=f"{what} n={n_iters} softmax",
+                plan=softmax_plan_text(x),
+                ms=device_ms(torch, lambda: vact_ops.vact_softmax(x,
+                                                                  n_iters)),
+                plain_ms=device_ms(torch, lambda: vact_ops.vact_softmax_plain(
+                    x, n_iters)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(torch, lambda: torch.softmax(x, -1)),
+                library=f"torch.softmax, {APPROX}")
+
+
+def time_q8(torch, qx, n_iters, what):
+    """``vact_ew_q8`` tanh on ``qx`` beside its plain version and its
+    bound: the bytes (n in, n out, the scale), since a call's output is
+    a function of at most 256 codes and the least work is 256
+    evaluations and a gather."""
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    sx = torch.full((), 0.02, device=qx.device)
+    b_ms, b_by = bound_ms(2 * qx.numel() + 4)
+    return dict(shape=f"{what} n={n_iters} tanh, int8",
+                plan=q8_plan_text(qx.numel()),
+                ms=device_ms(torch, lambda: vact_ops.vact_q8(
+                    qx, sx, "tanh", n_iters)),
+                plain_ms=device_ms(torch, lambda: vact_ops.vact_q8_plain(
+                    qx, sx, "tanh", n_iters)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def _time_vact(torch, g, dev, m, n_col, n_iters, softmax=False):
-    """V-ACT at one shape: (elementwise tanh, q8 tanh) rows, or the
-    softmax row."""
-    from repro_torch.kernels.vact import ops as vact_ops
-
+def _time_vact(torch, g, dev, m, n_col, n_iters):
+    """V-ACT at one shape: (elementwise tanh, q8 tanh) rows."""
     x = torch.randn((m, n_col), generator=g, device=dev) * 2
-    el = m * n_col
-    shape = f"[{m}, {n_col}] n={n_iters}"
-    if softmax:
-        # per element: subtract the max, e^x, add to the sum, divide
-        b_ms, b_by = bound_ms(8 * el, fp32_ops=el * (
-            cordic_exp_flops(n_iters) + 4))
-        return dict(
-            shape=shape + " softmax",
-            ms=device_ms(torch, lambda: vact_ops.vact_softmax(x, n_iters)),
-            plain_ms=device_ms(torch, lambda: vact_ops.vact_softmax_plain(
-                x, n_iters)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
     qx = _i8(torch, g, dev, (m, n_col))
-    sx = torch.full((), 0.02, device=dev)
-    ew = time_ew(torch, x, n_iters, f"[{m}, {n_col}]")
-    # the int8 variant adds a dequantizing multiply and the requant's
-    # multiply, round and two clamps per element
-    b_ms, b_by = bound_ms(2 * el + 4, fp32_ops=el * (
-        vact_flops("tanh", n_iters) + 5))
-    q8 = dict(shape=shape + " tanh, int8",
-              ms=device_ms(torch, lambda: vact_ops.vact_q8(qx, sx, "tanh",
-                                                           n_iters)),
-              plain_ms=device_ms(torch, lambda: vact_ops.vact_q8_plain(
-                  qx, sx, "tanh", n_iters)),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    return ew, q8
+    return (time_ew(torch, x, n_iters, f"[{m}, {n_col}]"),
+            time_q8(torch, qx, n_iters, f"[{m}, {n_col}]"))
+
+
+def time_vact_large(torch, g, dev, n_iters=6):
+    """Softmax and int8 rows past the path's sizes, each larger than the
+    50 MB L2 so the timed launches read device memory: softmax at
+    [4096, 8192] (block kernel, rows staged) and [256, 65536] (rows past
+    shared memory), int8 at 2^26 elements."""
+    sm = [time_softmax(torch, torch.randn((r, c), generator=g, device=dev)
+                       * 2, n_iters, f"[{r}, {c}]")
+          for r, c in ((4096, 8192), (256, 65536))]
+    q8 = time_q8(torch, _i8(torch, g, dev, (1 << 26,)), n_iters,
+                 "[67108864]")
+    return sm, q8
 
 
 def time_gate_slice_and_floor(torch, g, dev, n_iters=6):
@@ -825,9 +1034,12 @@ def time_kernels(torch, dev):
     """Phase 4: every kernel beside its plain version and a library call,
     at each shape the two paths give it: the serving path at its largest
     bucket (32), the HRL path at its largest call (512 frames; the
-    LSTM's 128 rows per step).  No single PyTorch call computes a
-    CORDIC activation or the fused cell, so those have no library time.
-    Each kernel's first row is the one the JSON line reports."""
+    LSTM's 128 rows per step), and V-ACT's softmax and int8 kernels also
+    past the path's sizes.  No single PyTorch call computes a CORDIC
+    activation bit for bit: ``torch.tanh`` and ``torch.softmax`` are the
+    approximate yardsticks of ``vact_ew`` and ``vact_softmax``; the int8
+    kernel and the fused cell have none.  Each kernel's first row is the
+    one the JSON line reports."""
     g = torch.Generator(device=dev).manual_seed(7)
     rows = {"qmac_i8": [], "qmac_i8_deq": [], "qconv_i8_taps": [],
             "vact_ew": [], "vact_ew_q8": [], "vact_softmax": [],
@@ -843,33 +1055,53 @@ def time_kernels(torch, dev):
         rows["qconv_i8_taps"].append(_time_qconv(torch, g, dev, bsz, h, c,
                                                  nc))
     # the HRL path: sub-goal tanh [512, 8], LSTM gates [128, 32], the
-    # action softmax [512, 4], all at FxP8's 6 iterations
+    # action softmax of FC-HRL [512, 4] and of LSTM-HRL [128, 4], all at
+    # FxP8's 6 iterations; then softmax and int8 past the path's sizes
     for m, n_col in ((512, 8), (128, 32)):
         ew, q8 = _time_vact(torch, g, dev, m, n_col, 6)
         rows["vact_ew"].append(ew)
         rows["vact_ew_q8"].append(q8)
     gate_slice, floor = time_gate_slice_and_floor(torch, g, dev)
     rows["vact_ew"].append(gate_slice)
-    rows["vact_softmax"].append(_time_vact(torch, g, dev, 512, 4, 6,
-                                           softmax=True))
+    for m in (512, 128):
+        rows["vact_softmax"].append(time_softmax(torch, torch.randn(
+            (m, 4), generator=g, device=dev) * 2, 6, f"[{m}, 4]"))
+    sm, q8 = time_vact_large(torch, g, dev)
+    rows["vact_softmax"] += sm
+    rows["vact_ew_q8"].append(q8)
     rows["qlstm_cell"].append(_time_qlstm(torch, g, dev, 128, 32, 32, 6))
-    print("bound_ms = max(bytes / 3.35e12 B/s, int8 ops / 1.979e15 + fp32 "
-          "ops / 6.7e13) in ms; bytes = inputs read once + outputs written "
-          "once; V-ACT fp32 ops per element: relu 1, sigmoid 14 + 5n, tanh "
-          "17 + 5n, softmax 13 + 5n (n CORDIC iterations); Q-LSTM: int8 "
-          "ops 2 B (Din + H) 4H, fp32 ops per hidden unit 24 + 3 sigmoids "
-          "+ 2 tanhs + 4")
+    print(BOUND_TEXT)
     for name, shapes in rows.items():
         for r in shapes:
-            lib = r["library_ms"]
-            print(f"{name:14s} {r['shape']}: kernel_ms {r['ms']:.5f}  "
-                  f"plain_ms {r['plain_ms']:.5f}  library_ms "
-                  f"{'n/a' if lib is None else f'{lib:.5f}'}  bound_ms "
-                  f"{r['bound_ms']:.6f} ({r['bound_by']})"
-                  + (f"  [{r['plan']}]" if "plan" in r else ""))
+            print_row(name, r)
     print(f"launch floor under this timing: vact_ew on 1 element "
           f"{floor:.5f} ms")
     return rows
+
+
+BOUND_TEXT = (
+    "bound_ms = max(bytes / 3.35e12 B/s, int8 ops / 1.979e15 + fp32 ops / "
+    "6.7e13) in ms; bytes = inputs read once + outputs written once; V-ACT "
+    "fp32 ops per element: relu 1, sigmoid 14 + 5n, tanh 17 + 5n, softmax "
+    "13 + 5n (n CORDIC iterations); vact_ew_q8: bytes only (n in, n out, "
+    "the scale), since its output is a function of at most 256 codes a "
+    "call and the least work is 256 evaluations and a gather, so a per-"
+    "element operation count would let a table kernel read above its "
+    "bound; Q-LSTM: int8 ops 2 B (Din + H) 4H, fp32 ops per hidden unit "
+    "24 + 3 sigmoids + 2 tanhs + 4; library_ms marked approximate "
+    "computes the same function in fp32 (torch.tanh, torch.softmax), "
+    "not CORDIC bit for bit, and the port never calls it")
+
+
+def print_row(name, r):
+    lib = r["library_ms"]
+    lib = "n/a" if lib is None else f"{lib:.5f}"
+    if "library" in r:
+        lib += f" ({r['library']})"
+    print(f"{name:14s} {r['shape']}: kernel_ms {r['ms']:.5f}  plain_ms "
+          f"{r['plain_ms']:.5f}  library_ms {lib}  bound_ms "
+          f"{r['bound_ms']:.6f} ({r['bound_by']})"
+          + (f"  [{r['plan']}]" if "plan" in r else ""))
 
 
 SERVING_KERNELS = ("qmac_i8", "qmac_i8_deq", "qconv_i8_taps")
@@ -944,45 +1176,93 @@ def main_path(torch, dev, work):
     return launches, served
 
 
+# the port's kernels in a trace, by name, and the wrappers that launch them
+PORT_KERNELS = (("qmac_kernel", ("qmac_i8", "qmac_i8_deq")),
+                ("qconv_kernel", ("qconv_i8_taps",)),
+                ("vact_ew_kernel", ("vact_ew",)),
+                ("vact_ew_q8_kernel", ("vact_ew_q8",)),
+                (r"vact_softmax_\w*kernel", ("vact_softmax",)),
+                ("qlstm_cell_kernel", ("qlstm_cell",)))
+TRACE_TRIES = 3
+
+
+def _port_kernel(name: str):
+    """The index in PORT_KERNELS of the kernel a trace row names, or
+    None for PyTorch's own kernels."""
+    import re
+    for i, (pattern, _) in enumerate(PORT_KERNELS):
+        if re.search(rf"\b{pattern}\b", name):
+            return i
+    return None
+
+
 def _profiled(torch, fn, n):
     """``n`` calls of ``fn`` (each ending in a synchronize) under
-    ``torch.profiler``, after three calls the profiler traces and drops
-    (CUPTI can miss the first launches of a trace): (host wall ms per
-    call, [(device ms per call, launches per call, kernel name)] sorted
-    by time, device launches per call)."""
+    ``torch.profiler``, after three calls the profiler traces and drops:
+    (host wall ms per call, [(device ms per call, launches per call,
+    kernel name)] sorted by time, device launches per call, and why that
+    count is None; then each row holds the launches read in all ``n``
+    calls).
+
+    CUPTI can drop kernel records from a trace.  The port's launches are
+    the wrappers' counters over the ``n`` traced calls; a trace is taken
+    only when every kernel row counts a whole multiple of ``n`` launches
+    and the port's rows count what the counters do.  Otherwise it traces
+    again, up to ``TRACE_TRIES`` times, and then gives no launch count,
+    only the rows as read and the port's launches by counter and by
+    trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=2, active=n)) as prof:
-        for i in range(3 + n):
-            if i == 3:
-                t0 = time.perf_counter()
-            fn()
-            if i == 2 + n:
-                wall_ms = (time.perf_counter() - t0) * 1e3 / n
-            prof.step()
-    rows = []
-    for ev in prof.key_averages():
-        # the kernels themselves (operators' rows would count them twice;
-        # the schedule's step annotation spans the whole call)
-        if (ev.device_type != DeviceType.CUDA
-                or ev.key.startswith("ProfilerStep")):
-            continue
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
-        rows.append((dev_us / n / 1e3, ev.count / n, ev.key))
-    rows.sort(reverse=True)
-    return wall_ms, rows, sum(r[1] for r in rows)
+    from repro_torch import kernels
+
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=1, warmup=2, active=n)) as prof:
+            for i in range(3 + n):
+                if i == 3:
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                fn()
+                if i == 2 + n:
+                    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+                    counts = kernels.launch_counts()
+                prof.step()
+        rows, traced = [], [0] * len(PORT_KERNELS)
+        for ev in prof.key_averages():
+            # the kernels themselves (operators' rows would count them
+            # twice; the schedule's step annotation spans the whole call)
+            if (ev.device_type != DeviceType.CUDA
+                    or ev.key.startswith("ProfilerStep")):
+                continue
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.cuda_time_total
+            rows.append((dev_us / n / 1e3, ev.count, ev.key))
+            k = _port_kernel(ev.key)
+            if k is not None:
+                traced[k] += ev.count
+        rows.sort(reverse=True)
+        want = [sum(counts[w] for w in wrappers)
+                for _, wrappers in PORT_KERNELS]
+        if all(c % n == 0 for _, c, _ in rows) and traced == want:
+            return (wall_ms, [(ms, c // n, name) for ms, c, name in rows],
+                    sum(c for _, c, _ in rows) // n, None)
+    return (wall_ms, rows, None,
+            f"trace not whole after {TRACE_TRIES} tries; the port's "
+            f"kernels: {sum(want)} launches by the wrappers' counters, "
+            f"{sum(traced)} in the trace; rows below: launches read in "
+            f"{n} calls")
 
 
-def _print_profile(what, wall_ms, rows, launches, top):
+def _print_profile(what, wall_ms, rows, launches, why, top):
     busy_ms = sum(r[0] for r in rows)
+    count = (f"{launches} device launches per forward" if why is None else
+             f"launches per forward: not measured ({why})")
     print(f"{what}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {launches:g} device "
-          "launches per forward")
-    for ms, count, name in rows[:top]:
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {count}")
+    for ms, count, name in rows[:top if why is None else len(rows)]:
         print(f"  {ms:.5f} ms  x{count:g}  {name[:90]}")
     if not rows:
         print("  the profiler recorded no device time (not measured)")
@@ -1000,8 +1280,9 @@ def profile_forward(torch, dev, ckpt, n=50):
                           max_bucket=32)
     _, obs = init_envs(server.policy.env, 4, 32, dev)
     server.warmup(32)
-    _print_profile("served forward, bucket 32, w8",
-                   *_profiled(torch, lambda: server.act(obs), n), top=10)
+    wall, rows, launches, why = _profiled(torch, lambda: server.act(obs), n)
+    _print_profile("served forward, bucket 32, w8", wall, rows, launches,
+                   why, top=10)
 
 
 def _keydoor_frames(torch, dev):
@@ -1131,7 +1412,8 @@ def profile_hrl(torch, lstm, n=20):
     frames, CORDIC at FxP8) at pallas (fused Q-LSTM) and at xla (Q-MAC
     gates + V-ACT on the gate slices), as ``profile_forward`` reads it,
     with the port's kernel launches of one forward.  Returns the device
-    launches per forward by branch."""
+    launches per forward by branch: a whole count, or "not measured" and
+    why (``_profiled``)."""
     from repro_torch import kernels
     from repro_torch.models import hrl
 
@@ -1145,11 +1427,12 @@ def profile_hrl(torch, lstm, n=20):
         kernels.reset_launch_counts()
         fwd()
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
-        wall, rows, launches = _profiled(torch, fwd, n)
+        wall, rows, launches, why = _profiled(torch, fwd, n)
         _print_profile(f"LSTM-HRL forward, 128 windows x 4 frames, {branch}",
-                       wall, rows, launches, top=12)
+                       wall, rows, launches, why, top=12)
         print(f"  the port's kernels in one {branch} forward: {counts}")
-        per_forward[branch] = launches
+        per_forward[branch] = (launches if why is None
+                               else f"not measured ({why})")
     return per_forward
 
 
@@ -1178,8 +1461,9 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_ew_and_cell_edges(torch, dev, check_split_and_band_edges(
-        torch, dev, check_hrl_kernels(torch, dev, check_kernels(torch, dev))))
+    worst = check_softmax_and_q8_edges(torch, dev, check_ew_and_cell_edges(
+        torch, dev, check_split_and_band_edges(torch, dev, check_hrl_kernels(
+            torch, dev, check_kernels(torch, dev)))))
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -1194,7 +1478,7 @@ def main() -> int:
     hrl_launches, fps, lstm = hrl_path(torch, dev)
     per_forward = profile_hrl(torch, lstm)
     print("LSTM-HRL device launches per forward: " + ", ".join(
-        f"{b} {v:g}" for b, v in per_forward.items()))
+        f"{b} {v}" for b, v in per_forward.items()))
     for name, v in fps.items():
         print(f"{name} on {card}: {v:.1f} frames/s")
 

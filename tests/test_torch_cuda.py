@@ -466,3 +466,169 @@ def test_lstm_cell_on_the_card_equals_the_cpu(dev, backend):
         assert counts["vact_ew"] == 4 * 5 and counts["qlstm_cell"] == 0
     else:
         assert counts["qlstm_cell"] == 4 and counts["vact_ew"] == 0
+
+
+# --- V-ACT's softmax kernels and its int8 table kernel at edges ---------
+
+FLT_MIN = 1.1754944e-38        # smallest normal fp32
+# the rows kernel's lane counts, the bound between the rows and block
+# kernels, the block kernel's one-warp bound, its shared-memory limit,
+# and a row past it
+SOFTMAX_COLS = [1, 2, 3, 4, 5, 31, 32, 33, 1023, 1024, 1025, 58079, 58080,
+                58081, 65536]
+
+
+def _softmax_close(got, want, what):
+    """rtol 1e-6 (the row sum runs in another order), atol the smallest
+    normal fp32 (a subnormal quotient keeps fewer significant bits), NaN
+    where the plain version gives NaN."""
+    assert got.shape == want.shape and got.is_contiguous(), what
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=FLT_MIN,
+                               equal_nan=True, msg=what)
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages()
+            for _ in range(ev.count) if ev.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("cols", SOFTMAX_COLS)
+@pytest.mark.parametrize("n", [1, 6, 13, 24])
+def test_vact_softmax_regimes_equal_plain(dev, cols, n):
+    """Each kernel (rows, block, and the block kernel past shared
+    memory) at its bounds, the unrolled counts and the generic instance,
+    over 1, 7, 512 and 1000 rows."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(cols * 31 + n)
+    for rows in (1, 7, 512, 1000):
+        x = _special(gen, dev, (rows, cols))
+        before = vact_ops.vact_softmax.launches
+        got = vact_ops.vact_softmax(x, n)
+        assert vact_ops.vact_softmax.launches == before + 1
+        plan = vact_ops.softmax_plan(rows, cols)
+        _softmax_close(got, vact_ops.vact_softmax_plain(x, n),
+                       f"[{rows}, {cols}] n={n} {plan}")
+    torch.cuda.synchronize()
+
+
+# past each kernel's grid cap, where its rows stride over the grid: the
+# rows kernel at 1, 4 and 32 lanes (540,672, 135,168 and 16,896 rows),
+# the block kernel at one warp, staging a whole row and past shared
+# memory (2,112 rows), so staged shared memory is reused row after row
+SOFTMAX_STRIDED = [(600000, 1), (200000, 4), (20000, 32), (20000, 100),
+                   (4096, 1025), (4096, 8192), (2113, 58081)]
+
+
+@pytest.mark.parametrize("rows,cols", SOFTMAX_STRIDED)
+@pytest.mark.parametrize("n", [6, 13])
+def test_vact_softmax_past_the_grid_cap(dev, rows, cols, n):
+    from repro_torch.kernels.vact import ops as vact_ops
+    plan = vact_ops.softmax_plan(rows, cols)
+    lanes = max(plan.lanes, 1)
+    rows_a_grid = (plan.blocks * plan.threads // 32 * (32 // lanes)
+                   if plan.regime == "rows" else plan.blocks)
+    assert rows > rows_a_grid, plan
+    gen = torch.Generator(device=dev).manual_seed(rows + cols + n)
+    x = _special(gen, dev, (rows, cols))
+    _softmax_close(vact_ops.vact_softmax(x, n),
+                   vact_ops.vact_softmax_plain(x, n),
+                   f"[{rows}, {cols}] n={n} {plan}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cols", [4, 33, 1000, 2048, 65536])
+def test_vact_softmax_rows_with_infinities_and_huge_entries(dev, cols):
+    """Rows holding some -inf entries (their exponentials are the plain
+    version's, not zero: x - max is -inf, the CORDIC's reduction NaN)
+    and rows with entries near +-3e38 (x - max overflows to -inf)."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(cols)
+    x = _special(gen, dev, (64, cols))
+    x[0::4, 0] = -float("inf")
+    x[1::4, -1] = -float("inf")
+    x[2::4, 0] = 3e38
+    x[2::4, -1] = -3e38
+    x[3::4] = torch.where(torch.rand((16, cols), generator=gen, device=dev)
+                          < 0.5, 3.3e38, -3.3e38)
+    x[3::4, 0] = 3.4e38
+    for n in (6, 13):
+        _softmax_close(vact_ops.vact_softmax(x, n),
+                       vact_ops.vact_softmax_plain(x, n), f"cols {cols}")
+    torch.cuda.synchronize()
+
+
+def test_vact_softmax_reads_row_strided_views_in_place(dev):
+    """A view whose leading axes fold into one row stride is read at that
+    stride by every kernel: one device launch, the softmax kernel, no
+    copy before it."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(5)
+    views = [("[128, 32] at row stride 130",
+              _special(gen, dev, (128, 130))[:, 2:34]),
+             ("3-D, leading axes folded",
+              _special(gen, dev, (4, 32, 12))[:, :, 4:8]),
+             ("[64, 100] at row stride 257, 4 B off alignment",
+              _special(gen, dev, (64, 257))[:, 1:101]),
+             ("[64, 1000] at row stride 1024",
+              _special(gen, dev, (64, 1024))[:, 8:1008]),
+             ("[16, 4096] at row stride 8192",
+              _special(gen, dev, (16, 8192))[:, 4096:]),
+             ("[4, 65536] at row stride 65540",
+              _special(gen, dev, (4, 65540))[:, 4:])]
+    for what, x in views:
+        assert not x.is_contiguous()
+        op = vact_ops.softmax_operand(tuple(x.shape), x.stride())
+        assert op is not None and op[2] == x.stride(-2), what
+        got = vact_ops.vact_softmax(x, 6)
+        _softmax_close(got, vact_ops.vact_softmax_plain(x.contiguous(), 6),
+                       what)
+        names = _device_kernels(lambda: vact_ops.vact_softmax(x, 6))
+        assert len(names) == 1 and "vact_softmax" in names[0], (what, names)
+    torch.cuda.synchronize()
+
+
+def _all_codes(dev, reps=3):
+    """Every int8 code, -128 included, ``reps`` times over."""
+    return torch.arange(-128, 128, device=dev,
+                        dtype=torch.int32).to(torch.int8).repeat(reps)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 0.003, 0.05, 3.0])
+@pytest.mark.parametrize("kind", ["relu", "sigmoid", "tanh"])
+def test_vact_q8_every_code_equals_plain(dev, scale, kind):
+    from repro_torch.kernels.vact import ops as vact_ops
+    qx = _all_codes(dev)
+    sx = torch.tensor(scale, device=dev)
+    for n in (1, 6, 13, 24):
+        before = vact_ops.vact_q8.launches
+        got = vact_ops.vact_q8(qx, sx, kind, n)
+        assert vact_ops.vact_q8.launches == before + 1
+        assert torch.equal(got, vact_ops.vact_q8_plain(qx, sx, kind, n)), n
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("numel", [1, 15, 16, 17, 4095, 4096, (1 << 26) + 3])
+def test_vact_q8_sizes_and_offsets_equal_plain(dev, numel):
+    """Sizes around the 16-byte chunks, the grid's cap, and the same
+    sizes read from a view at byte offset 1 (its head taken alone)."""
+    from repro_torch.kernels.vact import ops as vact_ops
+    gen = torch.Generator(device=dev).manual_seed(numel % 1000)
+    flat = _i8(gen, dev, (numel + 1,))
+    sx = torch.tensor(0.05, device=dev)
+    for what, qx in (("aligned", flat[:numel]), ("offset 1", flat[1:])):
+        assert qx.is_contiguous()
+        for kind in ("relu", "sigmoid", "tanh"):
+            got = vact_ops.vact_q8(qx, sx, kind, 6)
+            assert got.is_contiguous() and got.shape == qx.shape
+            assert torch.equal(got, vact_ops.vact_q8_plain(qx, sx, kind, 6)), \
+                (what, kind)
+    torch.cuda.synchronize()

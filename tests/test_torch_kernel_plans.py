@@ -309,3 +309,147 @@ def test_ew_plan_spreads_small_tensors_over_many_sms():
     assert big.blocks == vact_ops.EW_MAX_BLOCKS
     with pytest.raises(ValueError):
         vact_ops.ew_plan(0)
+
+
+# --- V-ACT's softmax: which kernel, and which views it reads in place ---
+
+@pytest.mark.parametrize("cols", range(1, 33))
+def test_softmax_plan_takes_the_rows_kernel_up_to_a_warp(cols):
+    """cols <= 32: lanes a row a power of two at or above cols, whole
+    warps, and enough of them for every row up to the grid's cap."""
+    for rows in (1, 7, 128, 512, 10 ** 6):
+        plan = vact_ops.softmax_plan(rows, cols)
+        assert plan.regime == "rows" and plan.staged == 0
+        lanes = plan.lanes
+        assert lanes & (lanes - 1) == 0 and cols <= lanes < 2 * cols
+        assert plan.threads % 32 == 0
+        assert 32 <= plan.threads <= vact_ops.EW_MAX_THREADS
+        warps = plan.threads * plan.blocks // 32
+        assert plan.blocks == vact_ops.EW_MAX_BLOCKS or \
+            warps * (32 // lanes) >= rows
+        # no block could be dropped
+        assert (plan.blocks - 1) * plan.threads // 32 * (32 // lanes) < rows
+
+
+def test_softmax_plan_spreads_the_agents_heads_over_many_sms():
+    """FC-HRL's [512, 4] runs 8 rows a warp in one-warp blocks on 64 SMs,
+    not 64 warps of 28 idle lanes; LSTM-HRL's [128, 4] on 16."""
+    assert vact_ops.softmax_plan(512, 4) == vact_ops.SoftmaxPlan(
+        "rows", 4, 32, 64)
+    assert vact_ops.softmax_plan(128, 4) == vact_ops.SoftmaxPlan(
+        "rows", 4, 32, 16)
+
+
+@pytest.mark.parametrize("cols,regime,threads", [
+    (32, "rows", 32), (33, "block", 32), (1023, "block", 32),
+    (1024, "block", 32), (1025, "block", 64), (58079, "block", 1024),
+    (58080, "block", 1024), (58081, "block", 1024), (65536, "block", 1024)])
+def test_softmax_plan_bounds(cols, regime, threads):
+    """The rows kernel up to 32 elements; the block kernel past that,
+    one warp a row up to 32 elements a lane (1024), then
+    ``next_pow2(cols / 32)`` threads up to 1024."""
+    plan = vact_ops.softmax_plan(7, cols)
+    assert plan.regime == regime and plan.threads == threads
+    if regime == "block":
+        assert plan.lanes == 0
+        assert 32 * plan.threads >= min(cols, 32 * 1024)
+        assert plan.threads == 32 or 16 * plan.threads < cols
+        assert plan.blocks == 7
+
+
+@pytest.mark.parametrize("cols", [1025, 8192, 58079, 58080])
+def test_softmax_plan_stages_a_row_that_fits_shared_memory(cols):
+    plan = vact_ops.softmax_plan(4096, cols)
+    assert plan.regime == "block" and plan.staged == cols
+    assert plan.smem == 4 * cols + vact_ops.SOFTMAX_SCRATCH
+    assert plan.smem <= 232448
+    assert plan.blocks == min(4096, vact_ops.EW_MAX_BLOCKS)
+
+
+@pytest.mark.parametrize("cols", [58081, 65536, 1 << 20])
+def test_softmax_plan_reads_a_row_past_shared_memory_again(cols):
+    """A row past 227 KB stages what fits (58,080 floats beside the
+    32-float scratch) and reads the rest again, in the same kernel."""
+    plan = vact_ops.softmax_plan(256, cols)
+    assert plan.regime == "block" and plan.threads == 1024
+    assert plan.staged == vact_ops.SOFTMAX_STAGE_MAX == 58080
+    assert plan.smem == 232448
+    assert cols - plan.staged == {58081: 1, 65536: 7456}.get(
+        cols, cols - 58080)
+
+
+def test_softmax_plan_refuses_what_the_kernels_do_not_take():
+    for rows, cols in ((0, 4), (4, 0), (1, vact_ops.SOFTMAX_MAX_COLS + 1)):
+        with pytest.raises(ValueError):
+            vact_ops.softmax_plan(rows, cols)
+
+
+def _softmax_views():
+    base = torch.zeros((128, 130))
+    return {
+        "contiguous [512, 4]": (torch.zeros((512, 4)), (512, 4, 4)),
+        "contiguous 3-D": (torch.zeros((3, 5, 11)), (15, 11, 11)),
+        "1-D": (torch.zeros(7), (1, 7, 7)),
+        "column": (torch.zeros((4, 1)), (4, 1, 1)),
+        "row stride 130": (base[:, 2:34], (128, 32, 130)),
+        "rows of 4 of 8": (torch.zeros((2, 8))[:, :4], (2, 4, 8)),
+        "3-D slice": (torch.zeros((4, 32, 12))[:, :, 4:8], (128, 4, 12)),
+        "width-1 column": (torch.zeros((3, 10))[:, 2:3], (3, 1, 10)),
+        "broadcast rows": (torch.zeros((1, 8)).expand(4, 8), (4, 8, 0)),
+        "transposed": (torch.zeros((4, 6)).t(), None),
+        "strided last axis": (torch.zeros((4, 8))[:, ::2], None),
+        "leading axes apart": (torch.zeros((2, 3, 10))[:, :2, :4], None),
+    }
+
+
+@pytest.mark.parametrize("name", list(_softmax_views()))
+def test_softmax_operand_reads_rows_of_the_last_axis(name):
+    """A softmax row is the last axis: a contiguous tensor is numel/cols
+    rows at ld = cols, a view is read at its folded row stride, and the
+    kernel's addressing reads exactly the view's rows, in order."""
+    x, want = _softmax_views()[name]
+    got = vact_ops.softmax_operand(tuple(x.shape), x.stride())
+    assert got == want
+    if got is None:
+        return
+    rows, cols, ld = got
+    assert cols == x.shape[-1] and rows * cols == x.numel()
+    flat = torch.arange(x.untyped_storage().nbytes() // 4,
+                        dtype=torch.float32)
+    view = flat.as_strided(x.shape, x.stride(), x.storage_offset())
+    idx = torch.tensor([x.storage_offset() + r * ld + c
+                        for r in range(rows) for c in range(cols)])
+    assert torch.equal(flat[idx], view.reshape(-1))
+
+
+# --- V-ACT's int8 kernel: the grid over 16-byte chunks ------------------
+
+WAVE_Q8 = 256 * 6 * 132 * 16          # one chunk a thread, one wave
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 1 << 20, WAVE_Q8,
+                               WAVE_Q8 + 1, 1 << 26, (1 << 26) + 3,
+                               1 << 34])
+def test_q8_plan_covers_every_element_within_the_grid_cap(n):
+    plan = vact_ops.q8_plan(n)
+    assert plan.threads == vact_ops.Q8_THREADS == 256
+    assert 1 <= plan.blocks <= vact_ops.Q8_MAX_BLOCKS
+    assert plan.threads * plan.blocks * plan.items * 16 >= n
+    # below the cap no block to spare, at it no chunk a thread to spare
+    if plan.blocks < vact_ops.Q8_MAX_BLOCKS:
+        assert plan.items == (1 if n <= WAVE_Q8 else vact_ops.Q8_ITEMS)
+        assert (plan.blocks - 1) * plan.threads * plan.items * 16 < n
+    else:
+        assert plan.threads * plan.blocks * (plan.items - 1) * 16 < n
+
+
+def test_q8_plan_runs_small_tensors_in_one_block_and_large_ones_in_items():
+    """[512, 8] is 256 chunks: one block, a chunk a thread, one table;
+    2^26 elements take four chunks a thread over 4096 blocks, and
+    2^34 stride over the capped grid."""
+    assert vact_ops.q8_plan(512 * 8) == vact_ops.Q8Plan(256, 1, 1)
+    assert vact_ops.q8_plan(1 << 26) == vact_ops.Q8Plan(256, 4096, 4)
+    huge = vact_ops.q8_plan(1 << 34)
+    assert huge.blocks == vact_ops.Q8_MAX_BLOCKS == 16 * 6 * 132
+    with pytest.raises(ValueError):
+        vact_ops.q8_plan(0)

@@ -214,3 +214,45 @@ def test_cpu_wrapper_on_a_gate_slice_equals_a_contiguous_copy(gate, kind):
     _bits_equal(got.numpy(), jref.vact(
         jnp.asarray(np.ascontiguousarray(gates[:, gate * h:(gate + 1) * h])),
         kind, 6))
+
+
+ALL_CODES = np.arange(-128, 128, dtype=np.int32).astype(np.int8)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 0.003, 0.05, 3.0])
+@pytest.mark.parametrize("kind", EW_KINDS)
+@pytest.mark.parametrize("n", [6, 13])
+def test_plain_vact_q8_every_code_bitwise_to_oracle(scale, kind, n):
+    """The table the int8 kernel builds is the plain version at every
+    code, -128 included (no quantizer emits it; an input may hold it),
+    at a scale that flushes everything to 0, two of the agent's and one
+    that saturates."""
+    sx = np.float32(scale)
+    want = np.asarray(jref.vact_q8(jnp.asarray(ALL_CODES), jnp.asarray(sx),
+                                   kind, n))
+    got = tops.vact_q8(torch.from_numpy(ALL_CODES), torch.tensor(sx), kind,
+                       n)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cols", [1, 4, 32, 33, 1025])
+def test_plain_softmax_row_lengths_to_oracle(cols):
+    """The row lengths at the softmax kernels' bounds (one element, the
+    agent's 4 actions, a warp, a warp and one, past one warp a row)."""
+    x = _x((5, cols), seed=cols)
+    want = np.asarray(jref.vact(jnp.asarray(x), "softmax", 6))
+    got = tops.vact_softmax(torch.from_numpy(x), 6).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=TINY)
+
+
+@pytest.mark.parametrize("cols", [4, 33])
+def test_cpu_softmax_on_a_row_strided_view_equals_a_contiguous_copy(cols):
+    """The wrappers read a row-strided view in place on the card; on the
+    CPU the plain version gives the bits of a contiguous copy."""
+    base = torch.from_numpy(_x((16, cols + 7), seed=cols + 1))
+    view = base[:, 3:3 + cols]
+    assert not view.is_contiguous()
+    got = tops.vact_softmax(view, 6)
+    _bits_equal(got.numpy(), tops.vact_softmax(view.contiguous(), 6).numpy())
+    assert got.is_contiguous() and got.shape == view.shape

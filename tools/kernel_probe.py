@@ -5,6 +5,8 @@
     python3 tools/kernel_probe.py stages      # Q-Conv block stage cycles
     python3 tools/kernel_probe.py ew          # V-ACT ms against its plan
     python3 tools/kernel_probe.py cell        # Q-LSTM ms against its plan
+    python3 tools/kernel_probe.py softmax     # V-ACT softmax by kernel plan
+    python3 tools/kernel_probe.py q8          # V-ACT int8 by chunks a thread
     python3 tools/kernel_probe.py pair [SRC]  # V-ACT, Q-LSTM, LSTM-HRL of
                                               # the tree at SRC
 
@@ -24,11 +26,19 @@ slice of [128, 128], tanh, n = 6) and at 2^24 elements, for 32-256
 threads a block; ``cell`` times the Q-LSTM cell at
 (B, Din, H) = (128, 32, 32), n = 6, for 1-8 rows by 4 or 8 units a
 block; both hold every plan bitwise against the plain version and mark
-what the planner picks.  ``pair`` runs phase 4's V-ACT and Q-LSTM rows
-and phase 8's LSTM-HRL profiles at pallas and xla with the
-``repro_torch`` package under SRC (default: this checkout's ``src``),
-so a parent tree unpacked beside this one is timed by the same code on
-the same card.  All print the card's name and power limit first.
+what the planner picks.  ``softmax`` times V-ACT's softmax at [512, 4]
+(the rows kernel at 4-32 lanes a row and 32-256 threads a block),
+[4096, 1024], [4096, 8192] and [256, 65536] (the block kernel at 32-1024
+threads with the row staged whole, half staged or not at all, and the
+planned launch with rows 16-byte aligned or not), within rtol 1e-6 of
+the plain version; ``q8`` times the int8 table kernel at [512, 8] and
+2^26 elements for 1-64 16-byte chunks a thread, bitwise; both mark what
+the planner picks.  ``pair`` runs phase 4's V-ACT and Q-LSTM rows (the
+softmax and int8 rows past the path's sizes too) and phase 8's LSTM-HRL
+profiles at pallas and xla with the ``repro_torch`` package under SRC
+(default: this checkout's ``src``), so a parent tree unpacked beside
+this one is timed by the same code on the same card.  All print the
+card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -215,6 +225,133 @@ def ew(torch, cs, dev):
               + ", ".join(cells))
 
 
+def _plan_cells(torch, cs, plans, run_plan, check, picked):
+    """Time each plan of ``plans`` (label, plan) by ``run_plan``, after
+    ``check`` holds its output against the plain version; the planner's
+    choice is marked with *."""
+    cells = []
+    for label, plan in plans:
+        def run(plan=plan):
+            code = run_plan(plan)
+            if code:
+                raise RuntimeError(f"launch failed with {code}")
+
+        run()
+        check(label)
+        mark = "*" if plan == picked else ""
+        cells.append(f"{label}{mark}: {cs.device_ms(torch, run):.5f}")
+    return cells
+
+
+SOFTMAX_CALLS = ((512, 4), (4096, 1024), (4096, 8192), (256, 65536))
+
+
+def softmax(torch, cs, dev):
+    """Each softmax kernel's alternatives at FC-HRL's [512, 4] (lanes a
+    row x threads a block), [4096, 1024], [4096, 8192] and [256, 65536]
+    (threads a block up to 1024 with at most 256 elements a thread, the
+    row staged whole, half or not at all), n = 6,
+    within rtol 1e-6 of the plain version.  For the block kernel also
+    the planned launch on the same rows at a row stride of cols + 4
+    (float4 loads and stores) and of cols + 1 (one float at a time)."""
+    from repro_torch.kernels.vact import ops as V
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = V.cordic_params(6)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for rows, cols in SOFTMAX_CALLS:
+        x = torch.randn((rows, cols), generator=g, device=dev) * 2
+        want = V.vact_softmax_plain(x, 6)
+        out = torch.empty_like(x)
+        picked = V.softmax_plan(rows, cols)
+        plans = []
+        if picked.regime == "rows":
+            for lanes in (4, 8, 16, 32):
+                for threads in (32, 64, 128, 256):
+                    total = -(-rows // (32 // lanes)) * 32
+                    plans.append((f"{lanes} lanes x {threads} threads",
+                                  V.SoftmaxPlan("rows", lanes, threads,
+                                                -(-total // threads))))
+        else:
+            stages = sorted({min(cols, V.SOFTMAX_STAGE_MAX),
+                             min(cols, V.SOFTMAX_STAGE_MAX) // 8 * 4, 0},
+                            reverse=True)
+            # a thread's serial share of the row sum at most 256
+            # elements: a longer chain strays past rtol 1e-6 ([256, 65536]
+            # at 32 threads)
+            for threads in (t for t in (32, 64, 128, 256, 512, 1024)
+                            if cols <= 256 * t):
+                for staged in stages:
+                    plans.append((f"{threads} threads, {staged} staged",
+                                  V.SoftmaxPlan(
+                                      "block", 0, threads,
+                                      min(rows, V.EW_MAX_BLOCKS), staged)))
+        src = [x]
+
+        def run_plan(plan):
+            return V._lib().qforce_vact_softmax(
+                0, stream, src[0].data_ptr(), out.data_ptr(), rows, cols,
+                src[0].stride(0), V.SOFTMAX_REGIMES[plan.regime],
+                plan.lanes, plan.threads, plan.blocks, plan.staged, p)
+
+        def check(label):
+            torch.testing.assert_close(out, want, rtol=1e-6,
+                                       atol=cs.FLT_MIN, msg=label)
+
+        cells = _plan_cells(torch, cs, plans, run_plan, check, picked)
+        print(f"vact_softmax [{rows}, {cols}] n=6 (* planned: {picked}); "
+              "ms by plan: " + ", ".join(cells))
+        if picked.regime != "block":
+            continue
+        cells = []
+        for label, pad in (("float4, row stride cols + 4", 4),
+                           ("one float at a time, row stride cols + 1", 1)):
+            src[0] = torch.zeros((rows, cols + pad), device=dev)
+            src[0][:, :cols] = x
+            cells += _plan_cells(torch, cs, [(label, picked)], run_plan,
+                                 check, None)
+        print(f"vact_softmax [{rows}, {cols}] n=6, planned launch by row "
+              "alignment: " + ", ".join(cells))
+        src[0] = None
+
+
+def q8(torch, cs, dev):
+    """The int8 table kernel at [512, 8] and 2^26 elements, tanh, n = 6,
+    for 1-64 16-byte chunks a thread (the grid uncapped), bitwise
+    against the plain version."""
+    from repro_torch.kernels.vact import ops as V
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = V.cordic_params(6)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sx = torch.full((1,), 0.02, device=dev)
+    for n in (512 * 8, 1 << 26):
+        qx = cs._i8(torch, g, dev, (n,))
+        want = V.vact_q8_plain(qx, sx, "tanh", 6)
+        out = torch.empty_like(qx)
+        picked = V.q8_plan(n)
+        chunks = -(-n // V.Q8_CHUNK)
+        plans = [(f"{items} chunks a thread", V.Q8Plan(
+            V.Q8_THREADS, -(-chunks // (V.Q8_THREADS * items)), items))
+                 for items in (1, 2, 4, 8, 16, 32, 64)]
+        if picked not in [pl for _, pl in plans]:
+            plans.append((f"{picked.items} chunks a thread, capped",
+                          picked))
+
+        def run_plan(plan):
+            return V._lib().qforce_vact_ew_q8(
+                0, stream, qx.data_ptr(), sx.data_ptr(), out.data_ptr(), n,
+                V.EW_KINDS["tanh"], plan.threads, plan.blocks, p)
+
+        def check(label):
+            if not torch.equal(out, want):
+                raise AssertionError(f"vact_q8 differs at {n}, {label}")
+
+        cells = _plan_cells(torch, cs, plans, run_plan, check, picked)
+        print(f"vact_ew_q8 [{n}] tanh n=6 (* planned: {picked}); ms by "
+              "plan: " + ", ".join(cells))
+
+
 def cell(torch, cs, dev):
     from repro_torch.kernels.qlstm import ops as Q
     from repro_torch.kernels.vact.ops import cordic_params
@@ -280,18 +417,28 @@ def pair(torch, cs, dev):
     if not hasattr(Q, "cell_plan"):
         cs.cell_plan_text = lambda b, d_in, hid: ("no launch planner in "
                                                   "this tree")
+    if not hasattr(V, "softmax_plan"):
+        cs.softmax_plan_text = lambda x: "no launch planner in this tree"
+    if not hasattr(V, "q8_plan"):
+        cs.q8_plan_text = lambda n: "no launch planner in this tree"
     g = torch.Generator(device=dev).manual_seed(7)
     rows = [cs.time_ew(torch, torch.randn((m, n), generator=g, device=dev)
                        * 2, 6, f"[{m}, {n}]") for m, n in ((512, 8),
                                                           (128, 32))]
     gate, floor = cs.time_gate_slice_and_floor(torch, g, dev)
-    rows.append(gate)
-    rows.append(dict(cs._time_qlstm(torch, g, dev, 128, 32, 32, 6),
-                     name="qlstm_cell"))
-    for r in rows:
-        print(f"{r.get('name', 'vact_ew'):10s} {r['shape']}: kernel_ms "
-              f"{r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  bound_ms "
-              f"{r['bound_ms']:.6f} ({r['bound_by']})  [{r['plan']}]")
+    rows = [("vact_ew", r) for r in rows + [gate]]
+    rows += [("vact_softmax", cs.time_softmax(torch, torch.randn(
+        (m, 4), generator=g, device=dev) * 2, 6, f"[{m}, 4]"))
+             for m in (512, 128)]
+    rows.append(("vact_ew_q8", cs.time_q8(
+        torch, cs._i8(torch, g, dev, (512, 8)), 6, "[512, 8]")))
+    sm, q8_row = cs.time_vact_large(torch, g, dev)
+    rows += [("vact_softmax", r) for r in sm] + [("vact_ew_q8", q8_row)]
+    rows.append(("qlstm_cell", cs._time_qlstm(torch, g, dev, 128, 32, 32,
+                                              6)))
+    print(cs.BOUND_TEXT)
+    for name, r in rows:
+        cs.print_row(name, r)
     print(f"launch floor under this timing: vact_ew on 1 element "
           f"{floor:.5f} ms")
     env, _, _, windows = cs._keydoor_frames(torch, dev)
@@ -305,11 +452,11 @@ def pair(torch, cs, dev):
                 for b in ("pallas", "xla")}
     per_forward = cs.profile_hrl(torch, (params, cfg, policies, windows))
     print("LSTM-HRL device launches per forward: " + ", ".join(
-        f"{b} {v:g}" for b, v in per_forward.items()))
+        f"{b} {v}" for b, v in per_forward.items()))
 
 
 MODES = {"split": split, "stages": stages, "ew": ew, "cell": cell,
-         "pair": pair}
+         "softmax": softmax, "q8": q8, "pair": pair}
 
 
 def main() -> int:
