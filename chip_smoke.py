@@ -28,6 +28,11 @@ non-zero:
    of 1-65,536 elements, -inf and +-3e38 entries, row-strided views in
    one launch and no copy) and its int8 table kernel over every code,
    four scales, sizes to 2^26 + 3 and views off 16-byte alignment;
+   Q-MAC's int32 product at the fxp8 actor's four shapes ([M, 4] x
+   [4, 64], [M, 64] x [64, 64], [M, 64] x [64, 2], [M, 64] x [64, 1]) at
+   M = 32 and ragged M; V-ACT at the pinned CORDIC input x = 4.2331 and
+   its neighbours (tanh at x, sigmoid at 2x, n 6, 7, 13), tanh at n = 6
+   equal to the JAX reference's eager value;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -36,7 +41,8 @@ non-zero:
    each kernel's bound on an H100; V-ACT also on a gate slice as the
    LSTM's xla branch passes it, softmax at LSTM-HRL's [128, 4], at
    [4096, 8192] and [256, 65536], int8 at 2^26 elements, and a
-   1-element V-ACT call as the launch floor under this timing;
+   1-element V-ACT call as the launch floor under this timing; Q-MAC
+   also at the fxp8 actor's [32, 64] x [64, 64] and [32, 4] x [4, 64];
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -57,7 +63,19 @@ non-zero:
    wrappers' counters, PyTorch's from a trace whose every kernel row is
    a whole multiple of the forwards, traced again up to three times,
    else "not measured");
-9. print the kernels' JSON line, then the device line last.
+9. the training path: ``rl_train``'s default run (ppo on cartpole, the
+   mlp agent at hidden 64, fxp8 actors on Q-MAC, an fp32 learner, an
+   8-bit weight sync, 40 iterations of 32 envs x 128 steps) at seeds 0,
+   1 and 2: greedy return (the median must reach half the JAX
+   reference's median at seeds 0-4), env steps/s, the wall split between
+   weight sync, rollout and learner, and Q-MAC's launches, exactly
+   4 x 129 in every iteration; then one default iteration on the card
+   against the CPU with the same params, states and draws (every action
+   equal; log-probs and values within rtol 1e-5 but where an int8 code
+   flipped at a rounding tie between the devices' libm, at most 1% of
+   them, each within 0.01; params within atol 1e-5 + rtol 1e-4), and a
+   profile of the iteration's rollout and learner phases;
+10. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -770,6 +788,66 @@ def check_softmax_and_q8_edges(torch, dev, worst):
     return worst
 
 
+# the fxp8 actor's four products at M = n_envs (torso.fc1, torso.fc2, pi,
+# v of the mlp actor-critic on cartpole, hidden 64): (K, N)
+ACTOR_KN = ((4, 64), (64, 64), (64, 2), (64, 1))
+# x = 4.2331 (fp32 bits 0x4087758e) and its neighbours, where the JAX
+# reference's eager and compiled CORDIC differ (the port follows eager)
+PINNED_BITS = (0x4087758C, 0x4087758D, 0x4087758E, 0x4087758F, 0x40877590)
+
+
+def check_training_kernels(torch, dev, worst):
+    """Phase 3, the training path's kernel: Q-MAC's int32 product at the
+    fxp8 actor's four shapes, at M = 32 (the default run's envs) and at
+    ragged M, bitwise against its plain version; and V-ACT's
+    elementwise kernel at the pinned CORDIC input, tanh at x and sigmoid
+    at 2x, n 6, 7 and 13, bitwise against its plain version (which the
+    CPU tests hold bitwise to the eager reference)."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+    from repro_torch.kernels.vact import ops as vact_ops
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    cases = 0
+    for m in (32, 1, 4, 7, 33, 100):
+        for k, n in ACTOR_KN:
+            qx, qw = _i8(torch, g, dev, (m, k)), _i8(torch, g, dev, (k, n))
+            got = qmac_ops.qmac_i8(qx, qw)
+            want = qmac_ops.qmac_i8_plain(qx, qw)
+            worst["qmac_i8"] = max(worst["qmac_i8"], float(
+                (got.long() - want.long()).abs().max().item()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8 != plain at the actor's "
+                                     f"M,K,N={m},{k},{n}")
+            cases += 1
+    print(f"Q-MAC at the fxp8 actor's shapes: {cases} cases, int32 equal "
+          "to the plain version")
+    x = torch.tensor(PINNED_BITS, dtype=torch.int64).to(torch.int32).view(
+        torch.float32).to(dev)
+    x = torch.cat([x, -x])
+    for n_it in (6, 7, 13):
+        for kind, arg in (("tanh", x), ("sigmoid", 2.0 * x)):
+            got = vact_ops.vact_ew(arg, kind, n_it)
+            want = vact_ops.vact_ew_plain(arg, kind, n_it)
+            err = (got - want).abs().max().item()
+            worst["vact_ew"] = max(worst["vact_ew"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"vact_ew {kind} != plain at the "
+                                     f"pinned input, n={n_it} (max abs err "
+                                     f"{err})")
+    # the JAX reference's eager cordic_tanh at x, n = 6 (its compiled
+    # one gives 0.9995922): the shortest decimal of the fp32 value
+    tanh6 = vact_ops.vact_ew(x[2:3], "tanh", 6)
+    if not bits_equal(torch, tanh6, torch.tensor([0.9995657], device=dev)):
+        raise AssertionError(f"vact_ew tanh at the pinned input, n=6: "
+                             f"{tanh6.item()!r}, not the eager reference's "
+                             "0.9995657")
+    print("V-ACT at the pinned input x = 4.2331 and its neighbours: 6 "
+          "cases bitwise equal to the plain version; tanh(x) at n=6 is "
+          "0.9995657, the eager reference's value")
+    torch.cuda.synchronize()
+    return worst
+
+
 def _i8(torch, g, dev, shape):
     return torch.randint(-127, 128, shape, generator=g, device=dev,
                          dtype=torch.int32).to(torch.int8)
@@ -1050,6 +1128,8 @@ def time_kernels(torch, dev):
         i32, deq = _time_qmac(torch, g, dev, m, k, n)
         rows["qmac_i8"].append(i32)
         rows["qmac_i8_deq"].append(deq)
+    for k, n in ((64, 64), (4, 64)):      # the fxp8 actor's fc2, fc1
+        rows["qmac_i8"].append(_time_qmac(torch, g, dev, 32, k, n)[0])
     for bsz, h, c, nc in ((32, 32, 12, 16), (32, 16, 16, 32),  # DQN
                           (512, 32, 3, 16), (512, 16, 16, 32)):  # HRL
         rows["qconv_i8_taps"].append(_time_qconv(torch, g, dev, bsz, h, c,
@@ -1256,10 +1336,10 @@ def _profiled(torch, fn, n):
             f"{n} calls")
 
 
-def _print_profile(what, wall_ms, rows, launches, why, top):
+def _print_profile(what, wall_ms, rows, launches, why, top, per="forward"):
     busy_ms = sum(r[0] for r in rows)
-    count = (f"{launches} device launches per forward" if why is None else
-             f"launches per forward: not measured ({why})")
+    count = (f"{launches} device launches per {per}" if why is None else
+             f"launches per {per}: not measured ({why})")
     print(f"{what}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, {count}")
     for ms, count, name in rows[:top if why is None else len(rows)]:
@@ -1436,6 +1516,283 @@ def profile_hrl(torch, lstm, n=20):
     return per_forward
 
 
+# the JAX reference's default run (``repro.rl.trainer.onpolicy.
+# OnPolicyTrainer("cartpole", iters=40, seed=s)`` then its
+# ``eval_policy``: 16 envs, 625 greedy steps) at seeds 0-4, by
+# tools/ref_greedy_returns.py on a CPU with jax 0.9.0; the training phase
+# fails if the port's median over its seeds falls under half the median
+REF_GREEDY_RETURNS = (500.0, 156.43637084960938, 170.3541717529297, 500.0,
+                      158.69387817382812)
+REF_GREEDY_MEDIAN = statistics.median(REF_GREEDY_RETURNS)
+TRAIN_SEEDS = (0, 1, 2)
+
+
+def _counting_trainer(torch, kernels):
+    """``OnPolicyTrainer`` (what ``rl_train`` runs) reading the port's
+    launch counters around each iteration and timing its phases on the
+    host clock: the weight sync (``pack``), the rollout and the learner,
+    each ended by a wait for the card so the time is the phase's own.
+    ``step`` runs the iteration's own two phases, as its body does."""
+    from repro_torch.obs import SpanClock
+    from repro_torch.rl.rollout import episode_returns
+    from repro_torch.rl.trainer import OnPolicyTrainer
+    from repro_torch.rl.trainer.state import onpolicy_state
+
+    class Counted(OnPolicyTrainer):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.per_iter, self.clock = [], SpanClock()
+
+        def pack(self, state):
+            with self.clock("sync"):
+                packed = super().pack(state)
+                torch.cuda.synchronize()
+            return packed
+
+        def step(self, iteration, state, packed, gen, g, alive):
+            before = kernels.launch_counts()
+            draws = self.draws(gen)
+            with self.clock("rollout"):
+                res = iteration.rollout_phase(packed, draws, state.est,
+                                              state.obs)
+                torch.cuda.synchronize()
+            with self.clock("learn"):
+                params, opt = iteration.learn_phase(
+                    state.params, state.opt, res, draws, None, alive)
+                torch.cuda.synchronize()
+            ret, n_ep = episode_returns(res.traj)
+            after = kernels.launch_counts()
+            self.per_iter.append({k: after[k] - before[k] for k in after})
+            return (onpolicy_state(params, opt, res.final_env,
+                                   res.final_obs), ret, n_ep)
+
+    return Counted
+
+
+def training_path(torch, dev, card):
+    """Phase 9: the training main path, ``rl_train``'s default run (ppo
+    on cartpole, the mlp agent at hidden 64, fxp8 actors, an 8-bit sync,
+    40 iterations of 32 envs x 128 steps) on the card at three seeds:
+    greedy return, env steps/s, the wall split between sync, rollout and
+    learner, and the Q-MAC launches of every iteration, which must be
+    exactly 4 x (128 + 1)."""
+    from repro_torch import kernels
+
+    trainer_cls = _counting_trainer(torch, kernels)
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    returns = []
+    for seed in TRAIN_SEEDS:
+        tr = trainer_cls(seed=seed, device=dev, verbose=False)
+        t0 = time.perf_counter()
+        state, history = tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = 4 * (tr.rollout_len + 1)
+        qmac = [c["qmac_i8"] for c in tr.per_iter]
+        if len(qmac) != tr.iters or any(q != want for q in qmac):
+            raise AssertionError(f"seed {seed}: qmac_i8 launches per "
+                                 f"iteration {sorted(set(qmac))}, not "
+                                 f"{want} in each of {tr.iters}")
+        others = {k: sum(c[k] for c in tr.per_iter) for k in totals
+                  if k != "qmac_i8" and any(c[k] for c in tr.per_iter)}
+        if others:
+            raise AssertionError(f"seed {seed}: kernels off the training "
+                                 f"path launched: {others}")
+        for c in tr.per_iter:
+            for k, v in c.items():
+                totals[k] += v
+        t1 = time.perf_counter()
+        ret, n_ep = tr.eval_policy(state.params)
+        eval_s = time.perf_counter() - t1
+        if not all(torch.isfinite(x).all() for x in
+                   _leaves(state.params)):
+            raise AssertionError(f"seed {seed}: non-finite params")
+        returns.append(ret)
+        spans = tr.clock.drain()
+        steps = tr.iters * tr.n_envs * tr.rollout_len
+        split = ", ".join(f"{k} {v:.3f} s ({v / wall:.3f})"
+                          for k, v in spans.items())
+        print(f"training seed {seed} on {card}: greedy return {ret} over "
+              f"{n_ep} episodes (eval {eval_s:.2f} s); last train return "
+              f"{history[-1]:.2f}; {steps} env steps in {wall:.3f} s = "
+              f"{steps / wall:.1f} env steps/s; wall split: {split}; "
+              f"qmac_i8 {want} launches in each of {tr.iters} iterations")
+    median = statistics.median(returns)
+    bar = REF_GREEDY_MEDIAN / 2
+    print(f"training: median greedy return {median} over seeds "
+          f"{TRAIN_SEEDS} (bar {bar}: half the reference's median "
+          f"{REF_GREEDY_MEDIAN} at seeds 0-4)")
+    if median < bar:
+        raise AssertionError(f"median greedy return {median} < {bar}")
+    return totals
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _phases(torch, dev, device):
+    """A default trainer's first iteration on ``device``: the trainer,
+    its state, the iteration and its inputs, with the draws made on the
+    CPU (so every device gets the same ones)."""
+    from repro_torch.rl.train_steps import IterationDraws, iteration_generator
+    from repro_torch.rl.trainer import OnPolicyTrainer
+
+    tr = OnPolicyTrainer(seed=0, device=device, verbose=False)
+    cpu = OnPolicyTrainer(seed=0, device="cpu", verbose=False)
+    draws = cpu.draws(iteration_generator(0, 0, torch.device("cpu")))
+    draws = IterationDraws(*(t.to(device) for t in draws))
+    state = tr.init_state()
+    return tr, state, tr.build_iteration(), tr.pack(state), draws
+
+
+def _actor_codes(torch, params, obs, policy):
+    """The int8 codes of one fxp8 ``mlp_ac_apply`` forward, by row: the
+    row-quantized input of each product and each tanh's requantized
+    output (the tensor-wide grid ``activation`` puts it on), [B, 260]
+    for cartpole's 4 observations and the two 64-wide layers."""
+    from repro_torch.core.fxp import quantize
+    from repro_torch.core.qmatmul import quantize_rowwise
+    from repro_torch.core.vact import activation
+    from repro_torch.nn.linear import linear_apply
+
+    codes, h = [], obs
+    for layer in ("fc1", "fc2"):
+        codes.append(quantize_rowwise(h, policy.a_bits)[0])
+        pre = linear_apply(params["torso"][layer], h, policy)
+        codes.append(quantize(torch.tanh(pre), policy.a_bits)[0])
+        h = activation(pre, "tanh", policy)
+    codes.append(quantize_rowwise(h, policy.a_bits)[0])
+    return torch.cat([c.to(torch.int32) for c in codes], -1)
+
+
+def _rollout_codes(torch, tr, packed, traj):
+    """The actor's int8 codes at every step of ``traj`` on its own
+    device, [T, B, 260], after checking that re-running the forward on
+    the step's observations gives the rollout's log-probs and values bit
+    for bit (so the codes are the rollout's own)."""
+    from repro_torch.rl.actor_learner import unpack_weights
+
+    params = unpack_weights(packed)
+    codes = []
+    with torch.no_grad():
+        for t in range(traj.obs.shape[0]):
+            obs = traj.obs[t]
+            logits, value = tr.apply_fn(params, obs, tr.a_policy)
+            logp = tr.dist.log_prob(logits.to(torch.float32),
+                                    traj.actions[t])
+            if not (torch.equal(logp, traj.log_probs[t])
+                    and torch.equal(value, traj.values[t])):
+                raise AssertionError(f"{obs.device}: the actor's forward "
+                                     f"at step {t} is not the rollout's")
+            codes.append(_actor_codes(torch, params, obs, tr.a_policy))
+    return torch.stack(codes)
+
+
+def card_vs_cpu_iteration(torch, dev):
+    """Phase 9: one default iteration on the card against the plain path
+    on the CPU, the same params, env states and draws.  Every action
+    equal; observations within rtol 1e-5; log-probs and values within
+    rtol 1e-5 + atol 1e-6 at every (step, env) whose actor forward has
+    the same int8 codes on both devices (obs, both layers' inputs and
+    requantized tanh outputs); a row whose codes differ (a libm ulp
+    between the devices' tanh, cos or sin that lands on a rounding tie)
+    is exempt and counted; the updated params within atol 1e-5 + rtol
+    1e-4 (the learner's fp32 sums run in each device's order)."""
+    alive = torch.ones(1, dtype=torch.bool)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        tr, state, it, packed, draws = _phases(torch, dev, where)
+        res = it.rollout_phase(packed, draws, state.est, state.obs)
+        codes = _rollout_codes(torch, tr, packed, res.traj)
+        out = it(state.params, state.opt, state.est, state.obs, packed,
+                 draws, None, alive)
+        runs[where.type] = (res, codes, out)
+    (rd, cd, od), (rc, cc, oc) = runs["cuda"], runs["cpu"]
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    same = (cpu(rd.traj.actions) == rc.traj.actions).float().mean().item()
+    differ = cpu(cd) != cc
+    flipped = differ.any(-1)                     # [T, B]
+    errs, off = {}, {}
+    for f in ("log_probs", "values", "obs"):
+        a, b = cpu(getattr(rd.traj, f)), getattr(rc.traj, f)
+        errs[f] = (a - b).abs().max().item()
+        bad = ~torch.isclose(a, b, rtol=1e-5, atol=1e-6)
+        if f != "obs":
+            errs[f + " where codes agree"] = (
+                ((a - b).abs() * ~flipped).max().item())
+            bad = bad & ~flipped
+        off[f] = int(bad.sum())
+    worst_p, ok = 0.0, True
+    for a, b in zip(_leaves(od[0]), _leaves(oc[0]), strict=True):
+        a = cpu(a)
+        worst_p = max(worst_p, (a - b).abs().max().item())
+        ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+    errs["params"] = worst_p
+    errs["adam mu"] = max((cpu(a) - b).abs().max().item() for a, b in zip(
+        _leaves(od[1]["mu"]), _leaves(oc[1]["mu"]), strict=True))
+    print(f"training iteration, card vs CPU (same params, states, draws): "
+          f"actions equal {same:.6f}; int8 codes that differ "
+          f"{int(differ.sum())} of {differ.numel()}, in "
+          f"{int(flipped.sum())} of "
+          f"{flipped.numel()} actor rows; largest abs errors {errs}; "
+          f"entries past rtol 1e-5 outside those rows {off}")
+    if same != 1.0:
+        raise AssertionError("card and CPU rollouts chose different actions")
+    for f, n in off.items():
+        if n:
+            raise AssertionError(
+                f"card and CPU {f}: {n} entries past rtol 1e-5 where the "
+                "actor's int8 codes agree")
+    if not ok:
+        raise AssertionError("card and CPU params differ past atol 1e-5 + "
+                             "rtol 1e-4 after one iteration")
+
+
+def profile_training(torch, dev, n=2):
+    """Phase 9: where a default training iteration's time goes, its
+    rollout (128 steps of the fxp8 actor and the env) and its learner
+    (GAE, 4 epochs x 4 minibatches of fp32 forward, backward and AdamW)
+    each traced as ``profile_forward`` traces a forward, from the same
+    inputs each call; the port's launches by the wrappers' counters."""
+    from repro_torch import kernels
+
+    tr, state, it, packed, draws = _phases(torch, dev, dev)
+    alive = torch.ones(1, dtype=torch.bool)
+    res = it.rollout_phase(packed, draws, state.est, state.obs)
+
+    def rollout():
+        it.rollout_phase(packed, draws, state.est, state.obs)
+        torch.cuda.synchronize()
+
+    def learn():
+        it.learn_phase(state.params, state.opt, res, draws, None, alive)
+        torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("rollout", rollout), ("learner", learn)):
+        kernels.reset_launch_counts()
+        fn()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        wall, rows, launches, why = _profiled(torch, fn, n)
+        _print_profile(f"training iteration, {name} phase (32 envs x 128 "
+                       "steps)", wall, rows, launches, why, top=8,
+                       per="phase")
+        print(f"  the port's kernels in one {name} phase: {counts}")
+        out[name] = (wall, sum(r[0] for r in rows), launches, counts)
+    wall = sum(v[0] for v in out.values())
+    busy = sum(v[1] for v in out.values())
+    print(f"training iteration: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; device "
+          "launches " + ", ".join(f"{k} {v[2]}" for k, v in out.items()))
+    if out["rollout"][3].get("qmac_i8") != 4 * (tr.rollout_len + 1):
+        raise AssertionError(f"rollout phase launched {out['rollout'][3]}")
+    if out["learner"][3]:
+        raise AssertionError(f"learner launched {out['learner'][3]}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1461,9 +1818,11 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_softmax_and_q8_edges(torch, dev, check_ew_and_cell_edges(
-        torch, dev, check_split_and_band_edges(torch, dev, check_hrl_kernels(
-            torch, dev, check_kernels(torch, dev)))))
+    worst = check_training_kernels(torch, dev, check_softmax_and_q8_edges(
+        torch, dev, check_ew_and_cell_edges(
+            torch, dev, check_split_and_band_edges(
+                torch, dev, check_hrl_kernels(torch, dev,
+                                              check_kernels(torch, dev))))))
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -1481,6 +1840,9 @@ def main() -> int:
         f"{b} {v}" for b, v in per_forward.items()))
     for name, v in fps.items():
         print(f"{name} on {card}: {v:.1f} frames/s")
+    train_launches = training_path(torch, dev, card)
+    card_vs_cpu_iteration(torch, dev)
+    profile_training(torch, dev)
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -1501,7 +1863,8 @@ def main() -> int:
     for name, shapes in rows.items():
         r = shapes[0]                      # the largest call of the path
         by_path = {"serving": serve_launches[name],
-                   "hrl": hrl_launches[name]}
+                   "hrl": hrl_launches[name],
+                   "training": train_launches[name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

@@ -18,9 +18,11 @@ _STEP_RE = re.compile(r"step_(\d+)\.npz$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 save_every: int = 100):
         self.dir = directory
         self.keep = keep
+        self.save_every = save_every
         os.makedirs(directory, exist_ok=True)
 
     def path_for(self, step: int) -> str:
@@ -37,6 +39,9 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.save_every == 0
 
     def save(self, step: int, tree: Any,
              metadata: Optional[Dict] = None) -> str:

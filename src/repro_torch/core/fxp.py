@@ -6,8 +6,8 @@ qmax`` and codes are ``clip(round(x / scale))`` with round-half-to-even
 (``torch.round`` and ``jnp.round`` agree).  Dividing by the scale, not
 multiplying by its inverse, is part of the contract.
 
-Forward only: the straight-through gradients arrive with the training
-slice.
+``fake_quant`` and ``fake_quant_rowwise`` pass their gradient straight
+through (identity backward), as the reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -76,25 +76,47 @@ def dequantize(q: Tensor, scale: Tensor, dtype=torch.float32) -> Tensor:
     return q.to(dtype) * scale.to(dtype)
 
 
-def fake_quant(x: Tensor, bits: int,
-               channel_axis: Optional[int] = None) -> Tensor:
-    """Quantize-dequantize on the ``quantize`` grid (forward only)."""
-    if bits == 32:
-        return x
+def _fake_quant_fwd(x: Tensor, bits: int,
+                    channel_axis: Optional[int]) -> Tensor:
     q, s = quantize(x, bits, channel_axis)
     return dequantize(q, s, x.dtype)
 
 
-def fake_quant_rowwise(x: Tensor, bits: int) -> Tensor:
-    """Per-row (last-axis scale) fake quantization, on the grid of
-    ``qmatmul.quantize_rowwise``."""
-    if bits == 32:
-        return x
+def _fake_quant_rowwise_fwd(x: Tensor, bits: int) -> Tensor:
     amax = x.abs().amax(dim=-1, keepdim=True)
     qmax = fxp_qmax(bits)
     scale = div_scalar(torch.clamp_min(amax, 1e-12), qmax)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax)
     return (q * scale).to(x.dtype)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """``fwd(x, *args)`` forward, identity backward (the STE)."""
+
+    @staticmethod
+    def forward(ctx, fwd, x, *args):
+        return fwd(x, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, g) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+
+def fake_quant(x: Tensor, bits: int,
+               channel_axis: Optional[int] = None) -> Tensor:
+    """Quantize-dequantize on the ``quantize`` grid, with a
+    straight-through gradient."""
+    if bits == 32:
+        return x
+    return _StraightThrough.apply(_fake_quant_fwd, x, bits, channel_axis)
+
+
+def fake_quant_rowwise(x: Tensor, bits: int) -> Tensor:
+    """Per-row (last-axis scale) fake quantization, on the grid of
+    ``qmatmul.quantize_rowwise``, with a straight-through gradient."""
+    if bits == 32:
+        return x
+    return _StraightThrough.apply(_fake_quant_rowwise_fwd, x, bits)
 
 
 @dataclasses.dataclass

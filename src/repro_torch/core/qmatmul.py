@@ -1,5 +1,5 @@
 """q_matmul: every dense product of the port goes through here (port of
-``repro.core.qmatmul``, forward only).
+``repro.core.qmatmul``).
 
 Backends, as in the reference:
 
@@ -15,6 +15,12 @@ version.  fp weights (the evaluation/training forward) take the int32
 kernel and dequantize after it, as the reference's lines do; a packed
 ``QTensor`` weight (serving) takes the fused-epilogue kernel.  The two
 round identically, so served and evaluated actions agree bit for bit.
+
+A quantized product with fp weights differentiates as the reference's
+``_qmm`` does: the forward is the quantized program, the backward the
+straight-through estimator ``dx = g @ w^T``, ``dw = x^T @ g`` in the
+compute dtype at the *unquantized* operands (plain PyTorch; the
+reference's backward is an fp ``dot_general``, not a kernel).
 """
 from __future__ import annotations
 
@@ -79,6 +85,31 @@ def _fwd_quantized(policy: QuantPolicy, x: Tensor, w: Tensor) -> Tensor:
     raise ValueError(f"unknown backend {policy.backend!r}")
 
 
+class _QMM(torch.autograd.Function):
+    """The quantized forward with the STE backward (``_qmm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, policy: QuantPolicy, x: Tensor, w: Tensor):
+        ctx.policy = policy
+        ctx.save_for_backward(x, w)
+        return _fwd_quantized(policy, x, w)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x, w = ctx.saved_tensors
+        cdt = ctx.policy.compute_dtype
+        g = g.to(cdt)
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            # contract g's last axis with w's last axis
+            dx = torch.matmul(g, w.to(cdt).transpose(0, 1)).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            # contract every batch axis of x with g's
+            dw = torch.matmul(_rows(x.to(cdt)).transpose(0, 1),
+                              g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return None, dx, dw
+
+
 def _serve_quantized(policy: QuantPolicy, x: Tensor, w: QTensor) -> Tensor:
     """Forward with a pre-quantized (QTensor) weight: the serving path."""
     cdt = policy.compute_dtype
@@ -101,4 +132,4 @@ def q_matmul(x: Tensor, w: Union[Tensor, QTensor],
         return _serve_quantized(policy, x, w)
     if not (policy.quantized_w or policy.quantized_a):
         return _fp_dot(x, w, policy.compute_dtype)
-    return _fwd_quantized(policy, x, w)
+    return _QMM.apply(policy, x, w)

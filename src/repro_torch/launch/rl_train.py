@@ -1,0 +1,123 @@
+"""Q-Actor RL training CLI (port of ``repro.launch.rl_train``):
+quantized actors, a full-precision learner and an int8 weight sync
+(the paper's Fig. 2 system), on the card unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.rl_train
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --device cpu \\
+        --iters 2 --n-envs 4 --rollout-len 8
+
+The defaults are the reference's: ppo on cartpole, the mlp agent
+(hidden 64), fxp8 actors, an 8-bit sync, 40 iterations of 32 envs x
+128 steps.  Flags of options the port does not have yet, and knobs that only
+those options read, raise ``NotImplementedError`` naming the slice
+that brings them whenever they are given.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.rl.envs import registered
+from repro_torch.rl.inference import (LATER_ENVS, NETS, ON_POLICY_ALGOS,
+                                      VALUE_ALGOS, not_in_slice)
+from repro_torch.rl.trainer import rl_train
+
+# knobs read only by options of later slices: given at all, they raise
+LATER_KNOBS = (("replay_capacity", "value family"),
+               ("n_step", "value family"),
+               ("updates_per_iter", "value family"),
+               ("learn_start", "value family"),
+               ("profile_start", "observability"),
+               ("profile_steps", "observability"))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", default="ppo",
+                    choices=list(ON_POLICY_ALGOS + VALUE_ALGOS))
+    ap.add_argument("--env", default="cartpole",
+                    choices=sorted(set(registered()) | set(LATER_ENVS)))
+    ap.add_argument("--agent", default="mlp", choices=["mlp", "hrl"])
+    ap.add_argument("--net", default="mlp", choices=list(NETS))
+    ap.add_argument("--frame-stack", type=int, default=1,
+                    help="stack the last K frames (conv net only)")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="default: 40 (on-policy)")
+    ap.add_argument("--n-envs", type=int, default=32)
+    ap.add_argument("--rollout-len", type=int, default=None,
+                    help="default: 128 (on-policy)")
+    ap.add_argument("--actor-policy", default="fxp8")
+    ap.add_argument("--fp32-actors", action="store_true")
+    ap.add_argument("--comm-bits", type=int, default=8)
+    ap.add_argument("--max-lag", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 3e-3 (on-policy)")
+    ap.add_argument("--two-stage", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=None)
+    ap.add_argument("--mesh", default=None, choices=["host", "production"],
+                    help="one device only in this port (host)")
+    ap.add_argument("--mesh-devices", type=int, default=None)
+    ap.add_argument("--sync", default=None,
+                    choices=["lockstep", "doublebuf"])
+    # the value family's knobs (--algo dqn|qrdqn|ddpg); those the
+    # on-policy loop never reads raise when given (LATER_KNOBS)
+    ap.add_argument("--replay-capacity", type=int, default=None,
+                    help="value family; the reference's default 50000")
+    ap.add_argument("--replay", default="uniform", choices=["uniform", "per"])
+    ap.add_argument("--per-alpha", type=float, default=0.6)
+    ap.add_argument("--per-beta0", type=float, default=0.4)
+    ap.add_argument("--per-beta-iters", type=int, default=None)
+    ap.add_argument("--tqc-drop", type=int, default=0)
+    ap.add_argument("--n-step", type=int, default=None,
+                    help="value family; the reference's default 3")
+    ap.add_argument("--updates-per-iter", type=int, default=None,
+                    help="value family; the reference's default 4")
+    ap.add_argument("--learn-start", type=int, default=None,
+                    help="value family")
+    # observability
+    ap.add_argument("--metrics-dir", default=None)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--profile-start", type=int, default=None,
+                    help="observability; the reference's default 0")
+    ap.add_argument("--profile-steps", type=int, default=None,
+                    help="observability; the reference's default 1")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu, the plain PyTorch path")
+    args = ap.parse_args(argv)
+    actor_policy = None if args.fp32_actors else args.actor_policy
+    if args.algo in VALUE_ALGOS:
+        raise not_in_slice(f"--algo {args.algo}", "value family")
+    for dest, slice_name in LATER_KNOBS:
+        if getattr(args, dest) is not None:
+            raise not_in_slice("--" + dest.replace("_", "-"), slice_name)
+    if (args.replay != "uniform" or args.tqc_drop
+            or args.sync is not None):
+        raise ValueError(
+            "--replay/--tqc-drop/--sync configure the value-based "
+            f"replay loop; --algo {args.algo} is on-policy — drop "
+            "these flags")
+    if args.replay != "per" and (args.per_alpha != 0.6
+                                 or args.per_beta0 != 0.4
+                                 or args.per_beta_iters is not None):
+        raise ValueError(
+            "--per-alpha/--per-beta0/--per-beta-iters configure the "
+            "prioritized backend and would be silently ignored — add "
+            "--replay per (or drop them)")
+    rl_train(args.env, args.agent,
+             args.iters if args.iters is not None else 40,
+             args.n_envs,
+             args.rollout_len if args.rollout_len is not None else 128,
+             actor_policy,
+             args.lr if args.lr is not None else 3e-3,
+             args.comm_bits, args.max_lag,
+             two_stage=args.two_stage, ckpt_dir=args.ckpt_dir,
+             save_every=(args.save_every
+                         if args.save_every is not None else 10),
+             mesh_kind=args.mesh or "host", mesh_devices=args.mesh_devices,
+             algo=args.algo, net=args.net, frame_stack_k=args.frame_stack,
+             metrics_dir=args.metrics_dir, profile_dir=args.profile_dir,
+             device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """Quantized 2D convolution, the RL agent's vision stem (port of the
-Q-Conv half of ``repro.nn.conv``, forward only).
+Q-Conv half of ``repro.nn.conv``).
 
 At <= 8-bit activations and weights the conv runs as the integer Q-Conv
 program (``repro_torch.kernels.qconv``): per-pixel int8 activations on
@@ -9,6 +9,10 @@ program (``repro_torch.kernels.qconv``): per-pixel int8 activations on
 kernel; fp weights are quantized first, onto the same grid, so serving
 and evaluation agree bit for bit.  Wider policies fall back to
 fake-quantized operands on an fp32 convolution.
+
+The integer conv with fp weights differentiates as the reference's
+``_qconv`` does: the backward is the fp convolution's VJP at the
+dequantized operands the integer program saw (plain PyTorch).
 """
 from __future__ import annotations
 
@@ -17,8 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.fxp import QTensor, as_dense, fake_quant, \
-    fake_quant_rowwise, quantize
+from repro_torch.core.fxp import QTensor, as_dense, dequantize, \
+    fake_quant, fake_quant_rowwise, quantize
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qmatmul import quantize_rowwise
 from repro_torch.core.vact import activation
@@ -64,13 +68,48 @@ def _use_integer_conv(policy: Optional[QuantPolicy], w) -> bool:
 def _qconv_fwd(policy: QuantPolicy, stride: int, padding: str,
                fuse_relu: bool, x, w, b):
     """The integer conv with fp weights, quantized onto the grids the
-    packed serving path uses."""
+    packed serving path uses.  Returns the output and the quantized
+    operands with their scales (the STE's residuals, dequantized only
+    if a backward runs)."""
     qw, sw = quantize(w, policy.w_bits, channel_axis=3)
     qx, sx = quantize_rowwise(x, policy.a_bits)
-    return qconv_ops.qconv2d_i8(
+    out = qconv_ops.qconv2d_i8(
         qx.contiguous(), sx.contiguous(), qw.contiguous(), sw.reshape(-1),
         b.to(torch.float32), stride=stride, padding=padding,
         fuse_relu=fuse_relu)
+    return out, (qx, sx, qw, sw)
+
+
+class _QConv(torch.autograd.Function):
+    """The integer conv forward; the backward is the VJP of the fp conv
+    (+ bias, + ReLU) at the dequantized operands."""
+
+    @staticmethod
+    def forward(ctx, policy, stride, padding, fuse_relu, x, w, b):
+        out, (qx, sx, qw, sw) = _qconv_fwd(policy, stride, padding,
+                                           fuse_relu, x, w, b)
+        ctx.conf = (stride, padding, fuse_relu, x.dtype, w.dtype)
+        ctx.save_for_backward(qx, sx, qw, sw, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, sx, qw, sw, b = ctx.saved_tensors
+        stride, padding, fuse_relu, x_dtype, w_dtype = ctx.conf
+        x_dq, w_dq = dequantize(qx, sx, x_dtype), dequantize(qw, sw, w_dtype)
+        with torch.enable_grad():
+            xr = x_dq.to(torch.float32).detach().requires_grad_()
+            wr = w_dq.to(torch.float32).detach().requires_grad_()
+            out = _raw_conv(xr, wr, stride, padding)
+            g = g.to(torch.float32)
+            if fuse_relu:
+                # jnp.maximum's derivative: 1 above, 1/2 at a tie, 0 below
+                z = out.detach() + b.to(torch.float32)
+                g = g * ((z > 0).to(g.dtype) + 0.5 * (z == 0).to(g.dtype))
+            dx, dw = torch.autograd.grad(out, (xr, wr), g)
+        db = g.sum(dim=(0, 1, 2))
+        return (None, None, None, None, dx.to(x_dtype), dw.to(w_dtype),
+                db.to(b.dtype))
 
 
 def conv2d_apply(p, x: torch.Tensor, *, stride: int = 1,
@@ -85,8 +124,8 @@ def conv2d_apply(p, x: torch.Tensor, *, stride: int = 1,
                 qx.contiguous(), sx.contiguous(), p["w"].qvalue.contiguous(),
                 p["w"].scale.reshape(-1), p["b"].to(torch.float32),
                 stride=stride, padding=padding, fuse_relu=fuse_relu)
-        return _qconv_fwd(policy, stride, padding, fuse_relu, x,
-                          as_dense(p["w"]), p["b"])
+        return _QConv.apply(policy, stride, padding, fuse_relu, x,
+                            as_dense(p["w"]), p["b"])
     w = as_dense(p["w"])
     if policy is not None and policy.quantized_w \
             and not isinstance(p["w"], QTensor):

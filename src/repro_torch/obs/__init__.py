@@ -1,6 +1,8 @@
-"""Host-side telemetry the serving engine needs; the JSONL sinks, metric
-buffers and profiler hooks arrive with the observability slice."""
+"""Host-side telemetry: the console, histograms and phase spans; the
+JSONL sinks, metric buffers and profiler hooks arrive with the
+observability slice."""
+from repro_torch.obs.console import Console
 from repro_torch.obs.hist import FixedHistogram, log_edges
 from repro_torch.obs.spans import SpanClock
 
-__all__ = ["FixedHistogram", "SpanClock", "log_edges"]
+__all__ = ["Console", "FixedHistogram", "SpanClock", "log_edges"]

@@ -3,14 +3,15 @@
     from repro_torch.rl.envs import make
     env = make("keydoor")
 
-This slice ports keydoor; the other envs arrive with the PPO training
-slice.
+The port has cartpole and keydoor; acrobot, mountain_car, pendulum and
+catch arrive with later slices.
 """
-from repro_torch.rl.envs import keydoor, spaces, wrappers
+from repro_torch.rl.envs import cartpole, keydoor, spaces, wrappers
 from repro_torch.rl.envs.base import Environment, EnvSpec
 from repro_torch.rl.envs.registry import make, register, registered
 from repro_torch.rl.envs.spaces import Box, Discrete
 
+register("cartpole", cartpole.make)
 register("keydoor", keydoor.make)
 
 __all__ = ["Box", "Discrete", "Environment", "EnvSpec", "make",

@@ -15,8 +15,9 @@ is the pre-reset observation of the transition itself.
 
 Randomness lives in the state: each env carries a ``key`` (a 32-bit
 stream id and a 32-bit counter, in int64) from which its resets draw
-with :func:`uniform_ints`, so reset, step and auto-reset stay functions
-of their inputs and run on the device without a host round trip.
+with :func:`uniform_ints` and :func:`uniform_floats`, so reset, step and
+auto-reset stay functions of their inputs and run on the device without
+a host round trip.
 """
 from __future__ import annotations
 
@@ -42,11 +43,23 @@ def _mix32(x: Tensor) -> Tensor:
     return (x >> 16) ^ x
 
 
+def _draw_bits(key: Tensor, draw: int) -> Tensor:
+    """32 random bits: draw number ``draw`` of each env's current key."""
+    return _mix32(key[:, 0] ^ _mix32(key[:, 1] * 8 + draw + 0x9E3779B9))
+
+
 def uniform_ints(key: Tensor, draw: int, high: Tensor) -> Tensor:
     """Draw number ``draw`` of each env's current key: ints in
     ``[0, high)`` (``key`` is int64 [B, 2]: stream id, counter)."""
-    h = _mix32(key[:, 0] ^ _mix32(key[:, 1] * 8 + draw + 0x9E3779B9))
-    return h % high
+    return _draw_bits(key, draw) % high
+
+
+def uniform_floats(key: Tensor, draw: int, low: float,
+                   high: float) -> Tensor:
+    """Draw number ``draw`` of each env's current key: fp32 uniform on
+    ``[low, high]`` in 2^24 steps, from the top 24 of its bits."""
+    u = (_draw_bits(key, draw) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return low + u * (high - low)
 
 
 def next_key(key: Tensor) -> Tensor:

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple, Union
 
 import torch
@@ -41,5 +42,20 @@ class Box:
     def dtype(self):
         return torch.float32
 
+    @property
+    def bounded(self) -> bool:
+        return math.isfinite(self.low) and math.isfinite(self.high)
+
 
 Space = Union[Discrete, Box]
+
+
+def head_dim(space: Space) -> int:
+    """Policy-head width needed to parameterize a distribution over
+    ``space``: ``n`` logits for Discrete, (mean, log_std) pairs for Box.
+    """
+    if isinstance(space, Discrete):
+        return space.n
+    if isinstance(space, Box):
+        return 2 * math.prod(space.shape)
+    raise TypeError(f"no policy head for space {space!r}")

@@ -1,5 +1,5 @@
 """The shared policy-inference path: env stack, net reconstruction and
-action heads (port of ``repro.rl.inference`` for dqn over the conv net).
+action heads (port of ``repro.rl.inference``).
 
 Evaluation and the batched server act through the same objects here —
 :func:`build_env` for the observation stack, :func:`make_value_agent`
@@ -8,8 +8,10 @@ served policy cannot drift from what evaluation measures: the server
 calls the one greedy forward with packed ``QTensor`` weights, evaluation
 with fp32 weights under the same quant policy.
 
-This slice brings ``dqn`` over ``--net conv``; other algos and nets
-raise ``NotImplementedError`` naming the slice that brings them.
+The port serves ``dqn`` over ``--net conv`` and trains ``ppo``/``a2c``
+over ``--net mlp`` on the raw env (``rl/trainer``); other algos, nets
+and envs raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -23,26 +25,37 @@ from repro_torch.rl.envs import Discrete, Environment, make
 from repro_torch.rl.envs.wrappers import NormStats, pixel_pipeline
 from repro_torch.rl.nets import conv_q_apply, conv_q_init
 
+ON_POLICY_ALGOS = ("ppo", "a2c")
 VALUE_ALGOS = ("dqn", "qrdqn", "ddpg")
 NETS = ("mlp", "conv")
+# the reference's envs the port does not have yet, by the slice that
+# brings them
+LATER_ENVS = {"acrobot": "classic-control envs",
+              "mountain_car": "classic-control envs",
+              "pendulum": "classic-control envs", "catch": "pixel"}
 
 
-def _not_in_slice(what: str, slice_name: str) -> NotImplementedError:
+def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
+    """The error an unported option raises, naming the slice that
+    brings it."""
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} "
-        "slice of the PyTorch port (this slice serves dqn over --net conv)")
+        "slice of the PyTorch port (the port serves dqn over --net conv "
+        "and trains ppo/a2c over --net mlp on cartpole)")
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,
               norm_stats: Optional[NormStats] = None) -> Environment:
-    """The launch-path env stack: for ``net="conv"`` the pixel pipeline
-    (running, or with ``norm_stats`` frozen, normalization of raw frames,
-    then ``frame_stack``)."""
+    """The launch-path env stack: the raw env for ``net="mlp"``; for
+    ``net="conv"`` the pixel pipeline (running, or with ``norm_stats``
+    frozen, normalization of raw frames, then ``frame_stack``)."""
     if net not in NETS:
         raise ValueError(f"unknown net {net!r} (expected one of {NETS})")
-    if net != "conv":
-        raise _not_in_slice("--net mlp", "PPO training")
+    if env_name in LATER_ENVS:
+        raise not_in_slice(f"--env {env_name}", LATER_ENVS[env_name])
     env = make(env_name)
+    if net == "mlp":
+        return env
     if len(env.obs_shape) != 3:
         raise ValueError(
             f"--net conv needs image (H, W, C) observations; "
@@ -104,9 +117,9 @@ def make_value_agent(algo: str, spec, gen: Optional[torch.Generator] = None,
         raise ValueError(f"unknown value algo {algo!r} "
                          f"(expected one of {VALUE_ALGOS})")
     if algo != "dqn":
-        raise _not_in_slice(f"--algo {algo}", "value family")
+        raise not_in_slice(f"--algo {algo}", "value family")
     if net != "conv":
-        raise _not_in_slice("--net mlp", "PPO training")
+        raise not_in_slice(f"--algo {algo} --net mlp", "value family")
     if len(spec.obs_shape) != 3:
         raise ValueError(f"--net conv needs image (H, W, C) "
                          f"observations; {spec.name} has shape "

@@ -1,12 +1,18 @@
-"""The Q-Conv pixel Q network (port of the ``conv_*`` torso and Q head
-of ``repro.rl.nets``).
+"""Small actor-critic and Q networks (port of ``repro.rl.nets``: the
+``mlp_ac_*`` actor-critic and the ``conv_*`` torso with its Q head).
 
-The paper's vision stem: stride-2 Q-Conv blocks (stride replaces
-pooling, ReLU after) over [B, H, W, C] pixel observations, a dense
-layer to ``hidden`` features, and a linear Q head.  Every product is a
-Q-MAC or Q-Conv under the QuantPolicy, every activation a V-ACT.  The
-actor-critic and quantile heads arrive with the training and value
-slices.
+Every product is a Q-MAC (``q_matmul`` under the QuantPolicy), every
+activation a V-ACT, so the quantized actors exercise exactly the
+quantized paths:
+
+  * ``mlp_ac_*`` — a 2-layer tanh torso over flat [B, D] observations
+    with a distribution head and a value head (the PPO/A2C agent);
+  * ``conv_*`` — the paper's vision stem: stride-2 Q-Conv blocks (stride
+    replaces pooling, ReLU after) over [B, H, W, C] pixel observations,
+    a dense layer to ``hidden`` features, and a linear Q head.
+
+The conv actor-critic and the quantile heads arrive with the pixel and
+value slices.
 """
 from __future__ import annotations
 
@@ -18,6 +24,36 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.vact import activation
 from repro_torch.nn.conv import conv2d_init, qconv_block
 from repro_torch.nn.linear import linear_apply, linear_init
+
+def mlp_ac_init(gen: torch.Generator, obs_dim: int, head_dim: int,
+                hidden: int = 64, dtype=torch.float32, device="cpu"):
+    """``head_dim`` = spaces.head_dim(action_space): n logits for
+    Discrete, 2*act_dim (mean, log_std) for Box."""
+    return {
+        "torso": {
+            "fc1": linear_init(gen, obs_dim, hidden, dtype=dtype,
+                               device=device),
+            "fc2": linear_init(gen, hidden, hidden, dtype=dtype,
+                               device=device),
+        },
+        "pi": linear_init(gen, hidden, head_dim, dtype=dtype,
+                          device=device),
+        "v": linear_init(gen, hidden, 1, dtype=dtype, device=device),
+    }
+
+
+def mlp_ac_apply(params, obs: torch.Tensor,
+                 policy: Optional[QuantPolicy] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """obs [B, D] -> (dist params [B, H], value [B])."""
+    h = activation(linear_apply(params["torso"]["fc1"], obs, policy),
+                   "tanh", policy)
+    h = activation(linear_apply(params["torso"]["fc2"], h, policy),
+                   "tanh", policy)
+    logits = linear_apply(params["pi"], h, policy)
+    value = linear_apply(params["v"], h, policy)[..., 0]
+    return logits, value
+
 
 CONV_CHANNELS = (16, 32)
 CONV_KERNEL = 3

@@ -70,3 +70,16 @@ def tree_map(fn: Callable, tree, is_leaf: Optional[Callable] = None):
 def path_str(path: Path) -> str:
     """The checkpoint key of a path: ``0/torso/convs/1/w``."""
     return "/".join(str(p) for p in path)
+
+
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> List[Any]:
+    """The leaves in ``leaves_with_path``'s order (dict keys sorted, as
+    ``jax.tree.leaves`` orders them)."""
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf)]
+
+
+def tree_unflatten(tree, leaves: List[Any]):
+    """``tree`` with its leaves replaced, in ``tree_leaves`` order."""
+    by_path = {p: new for (p, _), new in
+               zip(leaves_with_path(tree), leaves, strict=True)}
+    return map_with_path(lambda p, _x: by_path[p], tree)

@@ -5,6 +5,7 @@ The same seeded numpy inputs go through ``repro.core`` and
 bit for bit, including exact ``.5`` ties (both round half to even) and
 all-zero rows (the ``1e-12`` scale clamp).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,3 +184,43 @@ def test_qtensor_bytes_and_dense_view():
     dense = torch.from_numpy(x)
     assert tfxp.as_dense(dense) is dense
     assert tfxp.as_dense(dense, torch.float64).dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
+# straight-through gradients
+# ---------------------------------------------------------------------------
+
+
+def _grad_t(fn, x, g):
+    """Gradient of sum(fn(x) * g) with respect to x, in torch."""
+    xt = torch.from_numpy(x).requires_grad_()
+    (fn(xt) * torch.from_numpy(g)).sum().backward()
+    return xt.grad
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("axis", [None, 1])
+def test_fake_quant_ste_gradient_bitwise(bits, axis):
+    """The reference's custom_vjp passes the cotangent through; so must
+    the port, at every entry (not only at the absmax entries, which is
+    all that autograd through round() would reach)."""
+    x = _inputs((4, 8), seed=10 + bits)
+    g = np.random.default_rng(bits).normal(size=x.shape).astype(np.float32)
+    want = jax.grad(lambda v: (jfxp.fake_quant(v, bits, axis)
+                               * jnp.asarray(g)).sum())(jnp.asarray(x))
+    _same_bits(want, _grad_t(lambda v: tfxp.fake_quant(v, bits, axis),
+                             x, g))
+    # d/dx sum(fake_quant(x)) is 1 everywhere
+    ones = np.ones_like(x)
+    assert torch.equal(_grad_t(lambda v: tfxp.fake_quant(v, bits, axis),
+                               x, ones), torch.from_numpy(ones))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fake_quant_rowwise_ste_gradient_bitwise(bits):
+    x = _inputs((3, 4, 8), seed=20 + bits)
+    g = np.random.default_rng(bits).normal(size=x.shape).astype(np.float32)
+    want = jax.grad(lambda v: (jfxp.fake_quant_rowwise(v, bits)
+                               * jnp.asarray(g)).sum())(jnp.asarray(x))
+    _same_bits(want, _grad_t(lambda v: tfxp.fake_quant_rowwise(v, bits),
+                             x, g))

@@ -56,10 +56,14 @@ def test_split_plan_fills_the_card_at_the_serving_fc(m):
 
 @pytest.mark.parametrize("m,k,n", [(m, 128, 4) for m in SERVING_BUCKETS]
                          + [(512, 40, 4), (128, 32, 128), (512, 32, 32),
-                            (5, 255, 7), (1, 0, 3)])
+                            (5, 255, 7), (1, 0, 3)]
+                         + [(m, k, n) for m in (4, 32)
+                            for k, n in ((4, 64), (64, 64), (64, 2),
+                                         (64, 1))])
 def test_split_plan_takes_one_slice_where_k_is_short(m, k, n):
-    """The Q head, the HRL head and every product with K under two
-    128-byte chunks run unsplit: a split would only add its reduction."""
+    """The Q head, the HRL head, the fxp8 PPO actor's four products and
+    every product with K under two 128-byte chunks run unsplit: a split
+    would only add its reduction."""
     plan = qmac_ops.split_plan(m, k, n)
     assert (plan.splits, plan.slice, plan.workspace) == (1, k, 0)
 

@@ -8,6 +8,7 @@ Pallas kernel in interpret mode at the reference's own cross-backend bar
 layers above it (``conv2d_apply``, ``qconv_block``, the conv Q net) are
 held against ``repro.nn.conv`` and ``repro.rl.nets``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,3 +193,54 @@ def test_conv_q_net_matches_reference(name):
         want = np.asarray(jnets.conv_q_apply(pj, jnp.asarray(obs), jpol))
         got = tnets.conv_q_apply(pt, torch.from_numpy(obs), tpol).numpy()
         _close(got, want, bitwise=True)
+
+
+# ---------------------------------------------------------------------------
+# the integer conv's STE backward (the reference's _qconv VJP)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["fxp8", "w4a8"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[3]])
+def test_qconv_ste_vjp_matches_reference(name, relu, case):
+    """Gradients of sum(conv2d_apply(x) * g) with respect to x, w and b:
+    the fp conv's VJP at the dequantized operands, within rtol=1e-6 of
+    the layer's scale (both sides run an fp32 convolution backward, each
+    in its library's order).  One image is all zeros and the bias is 0
+    in one channel, so the fused ReLU meets exact ties, where
+    ``jnp.maximum`` gives half the cotangent."""
+    b, h, w_, c, n, k, stride, padding = case
+    rng = np.random.default_rng(c + n)
+    x = rng.normal(size=(b, h, w_, c)).astype(np.float32)
+    x[-1] = 0.0
+    p = {"w": (rng.normal(size=(k, k, c, n)) * 0.3).astype(np.float32),
+         "b": (rng.normal(size=(n,)) * 0.1).astype(np.float32)}
+    p["b"][0] = 0.0
+    jpol, tpol = jpolicy.get_policy(name), tpolicy.get_policy(name)
+    kw = dict(stride=stride, padding=padding, fuse_relu=relu)
+    out_shape = np.asarray(jconv.conv2d_apply(
+        {k_: jnp.asarray(v) for k_, v in p.items()}, jnp.asarray(x),
+        policy=jpol, **kw)).shape
+    g = rng.normal(size=out_shape).astype(np.float32)
+
+    def jloss(xx, ww, bb):
+        return (jconv.conv2d_apply({"w": ww, "b": bb}, xx, policy=jpol,
+                                   **kw) * jnp.asarray(g)).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(p["w"]), jnp.asarray(p["b"]))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(p["w"]).requires_grad_()
+    bt = torch.from_numpy(p["b"]).requires_grad_()
+    (tconv.conv2d_apply({"w": wt, "b": bt}, xt, policy=tpol, **kw)
+     * torch.from_numpy(g)).sum().backward()
+    for got, ref in zip((xt.grad, wt.grad, bt.grad), want, strict=True):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(ref).max()))
+    if relu:
+        # the tie rule is reached: the zero image's outputs sit at 0
+        assert bool((np.asarray(jconv.conv2d_apply(
+            {k_: jnp.asarray(v) for k_, v in p.items()}, jnp.asarray(x),
+            policy=jpol, **kw))[-1, ..., 0] == 0).all())

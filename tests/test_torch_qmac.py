@@ -5,6 +5,7 @@ kernel; it is held against the Pallas Q-MAC in interpret mode (int32
 exactly equal) and against the reference oracle's fused epilogue
 (bitwise), and ``q_matmul`` is held against ``repro.core.q_matmul``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +149,53 @@ def test_q_matmul_fp32_and_unknown_backend():
                 np.asarray(jqmm.q_matmul(jnp.asarray(x), jnp.asarray(w))))
     with pytest.raises(ValueError, match="unknown backend"):
         tqmm.q_matmul(_t(x), _t(w), tpolicy.FXP8.with_backend("tpu"))
+
+
+# ---------------------------------------------------------------------------
+# the STE backward of a quantized product (the reference's _qmm_bwd)
+# ---------------------------------------------------------------------------
+
+
+def _q_matmul_grads(x, w, g, name):
+    jpol, tpol = jpolicy.get_policy(name), tpolicy.get_policy(name)
+    jdx, jdw = jax.grad(lambda a, b: (jqmm.q_matmul(a, b, jpol)
+                                      * jnp.asarray(g)).sum(),
+                        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+    (tqmm.q_matmul(xt, wt, tpol) * _t(g)).sum().backward()
+    return (np.asarray(jdx), np.asarray(jdw)), (xt.grad.numpy(),
+                                                wt.grad.numpy())
+
+
+@pytest.mark.parametrize("name", ["fxp8", "w4a8"])
+@pytest.mark.parametrize("xshape", [(4, 8), (2, 3, 8)])
+def test_q_matmul_ste_gradient_bitwise(name, xshape):
+    """d sum(q_matmul(x, w)): dx = 1 @ w^T and dw = x^T @ 1 at the
+    unquantized operands, bit for bit.  The operands are multiples of
+    1/16 below 4 in magnitude, so every product and partial sum is exact
+    and the two libraries' summation orders cannot differ in a bit (the
+    random-cotangent test below covers the general case).  The port's
+    product before the STE differentiated round() and reached only the
+    absmax entries (4 of 32 nonzero dx at fxp8)."""
+    rng = np.random.default_rng(len(name) + len(xshape))
+    x = (rng.integers(-63, 64, size=xshape) / 16).astype(np.float32)
+    w = (rng.integers(-63, 64, size=(8, 3)) / 16).astype(np.float32)
+    g = np.ones(xshape[:-1] + (3,), np.float32)
+    (jdx, jdw), (tdx, tdw) = _q_matmul_grads(x, w, g, name)
+    np.testing.assert_array_equal(tdx.view(np.int32), jdx.view(np.int32))
+    np.testing.assert_array_equal(tdw.view(np.int32), jdw.view(np.int32))
+    assert np.count_nonzero(tdx) == tdx.size
+
+
+@pytest.mark.parametrize("name", ["fxp8", "w4a8"])
+def test_q_matmul_ste_gradient_random_cotangent(name):
+    """With a random cotangent the two fp32 matmuls round their products
+    and sums each in its library's order: rtol=1e-6 against the layer's
+    scale (``_fp32_close``)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(5, 24)).astype(np.float32)
+    w = rng.normal(size=(24, 6)).astype(np.float32)
+    g = rng.normal(size=(5, 6)).astype(np.float32)
+    (jdx, jdw), (tdx, tdw) = _q_matmul_grads(x, w, g, name)
+    _fp32_close(tdx, jdx)
+    _fp32_close(tdw, jdw)

@@ -256,3 +256,28 @@ def test_cpu_softmax_on_a_row_strided_view_equals_a_contiguous_copy(cols):
     got = tops.vact_softmax(view, 6)
     _bits_equal(got.numpy(), tops.vact_softmax(view.contiguous(), 6).numpy())
     assert got.is_contiguous() and got.shape == view.shape
+
+
+# x = 4.2331 (fp32 bits 0x4087758e) and its fp32 neighbours: where the
+# reference's eager CORDIC and its compiled one (``jax.jit`` of
+# ``repro.kernels.vact.ref.vact``, and the Pallas kernel) differ, tanh
+# 0.9995657 eager against 0.9995922 jitted at n = 6 (rel 2.6e-5), 1.3e-5
+# at n = 7, 2.4e-7 at n = 13.  The port follows the eager program.
+PINNED = np.array([0x4087758C, 0x4087758D, 0x4087758E, 0x4087758F,
+                   0x40877590], np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("n", [6, 7, 13])
+@pytest.mark.parametrize("kind", ["tanh", "sigmoid"])
+def test_pinned_input_bitwise_to_the_eager_reference(kind, n):
+    """tanh at x and sigmoid at 2x (the argument tanh hands it), for x
+    and -x: the port's plain CORDIC and its kernel wrapper's plain
+    version, bit for bit against the reference run eagerly."""
+    x = np.concatenate([PINNED, -PINNED]).astype(np.float32)
+    if kind == "sigmoid":
+        x = (2.0 * x).astype(np.float32)
+    jfn = jvact.cordic_tanh if kind == "tanh" else jvact.cordic_sigmoid
+    tfn = tvact.cordic_tanh if kind == "tanh" else tvact.cordic_sigmoid
+    want = np.asarray(jfn(jnp.asarray(x), n))
+    _bits_equal(tfn(torch.from_numpy(x), n).numpy(), want)
+    _bits_equal(tops.vact(torch.from_numpy(x), kind, n).numpy(), want)
