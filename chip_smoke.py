@@ -71,11 +71,26 @@ non-zero:
    weight sync, rollout and learner, and Q-MAC's launches, exactly
    4 x 129 in every iteration; then one default iteration on the card
    against the CPU with the same params, states and draws (every action
-   equal; log-probs and values within rtol 1e-5 but where an int8 code
-   flipped at a rounding tie between the devices' libm, at most 1% of
-   them, each within 0.01; params within atol 1e-5 + rtol 1e-4), and a
-   profile of the iteration's rollout and learner phases;
-10. print the kernels' JSON line, then the device line last.
+   equal; log-probs and values within rtol 1e-5 at every (step, env)
+   whose actor forward has the same int8 codes on both devices, the rows
+   whose codes differ, where an ulp of the devices' libm flipped a code
+   at a rounding tie, exempt and counted; params within atol 1e-5 + rtol
+   1e-4), and a profile of the iteration's rollout and learner phases;
+10. training from pixels: the paper's E2HRL agent with two-stage PPO on
+   keydoor (``--env keydoor --agent hrl --two-stage``, 40 iterations a
+   stage) and the conv actor-critic over the pixel pipeline on catch
+   (``--env catch --net conv --frame-stack 4``, 40 iterations), both at
+   32 envs x 128 steps with fxp8 actors on Q-Conv and Q-MAC, at seeds 0,
+   1 and 2, and one iteration of each on the card against the CPU
+   (E2HRL: one of each stage), each job in a process of its own, all at
+   once: greedy return (the median must reach half the way from the
+   untrained policy's to the JAX reference's median at seeds 0-2), env
+   steps/s, the wall split, Q-Conv and Q-MAC launches exactly 3 + 5 and
+   2 + 3 per actor forward in every iteration; the card-vs-CPU bars of
+   phase 9, with both learners run from the CPU's rollout, Adam's moments
+   held as the params and, in stage "action", the sub-goal subtree
+   bitwise unchanged on both; then a profile of each run's iteration;
+11. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -848,6 +863,61 @@ def check_training_kernels(torch, dev, worst):
     return worst
 
 
+# the pixel runs' actor convs (phase 10), stride 2 SAME 3x3: (H, W, C,
+# C_out) of E2HRL's stem on keydoor's 32x32x3 frames and of the conv
+# actor-critic on catch's 10x5 frames stacked 4 deep
+PIXEL_CONVS = ((32, 32, 3, 16), (16, 16, 16, 32), (8, 8, 32, 32),
+               (10, 5, 4, 16), (5, 3, 16, 32))
+# and their actor products (K, N): E2HRL's stem fc, sub-goal fc1, fc2,
+# action and value heads; the conv actor-critic's fc, pi and v
+PIXEL_KN = ((512, 32), (32, 32), (32, 8), (40, 4), (40, 1),
+            (192, 128), (128, 3), (128, 1))
+
+
+def check_pixel_kernels(torch, dev, worst):
+    """Phase 3, the pixel training paths' kernels: Q-Conv at every actor
+    conv of both runs and Q-MAC at every actor product, at the rollout's
+    batch of 32 and at ragged batches, against their plain versions
+    (fp32 bitwise, int32 equal)."""
+    from repro_torch.kernels.qconv import ops as qconv_ops
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    n_conv = n_mm = 0
+    for b in (32, 1, 5, 33):
+        for h, w, c, nc in PIXEL_CONVS:
+            qx, qw = _i8(torch, g, dev, (b, h, w, c)), _i8(torch, g, dev,
+                                                         (3, 3, c, nc))
+            sx = torch.rand((b, h, w, 1), generator=g, device=dev) * 0.02
+            sw = torch.rand((nc,), generator=g, device=dev) * 0.02 + 1e-4
+            bias = torch.randn(nc, generator=g, device=dev) * 0.1
+            kw = dict(stride=2, padding="SAME", fuse_relu=True)
+            got = qconv_ops.qconv2d_i8(qx, sx, qw, sw, bias, **kw)
+            want = qconv_ops.qconv2d_i8_plain(qx, sx, qw, sw, bias, **kw)
+            err = (got - want).abs().max().item()
+            worst["qconv_i8_taps"] = max(worst["qconv_i8_taps"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qconv != plain at the pixel runs' "
+                                     f"x[{b},{h},{w},{c}] -> {nc} (max abs "
+                                     f"err {err})")
+            n_conv += 1
+        for k, n in PIXEL_KN:
+            qx, qw = _i8(torch, g, dev, (b, k)), _i8(torch, g, dev, (k, n))
+            got = qmac_ops.qmac_i8(qx, qw)
+            want = qmac_ops.qmac_i8_plain(qx, qw)
+            worst["qmac_i8"] = max(worst["qmac_i8"], float(
+                (got.long() - want.long()).abs().max().item()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8 != plain at the pixel runs' "
+                                     f"M,K,N={b},{k},{n}")
+            n_mm += 1
+    torch.cuda.synchronize()
+    print(f"Q-Conv at the pixel runs' {len(PIXEL_CONVS)} actor convs and "
+          f"Q-MAC at their {len(PIXEL_KN)} products, batches 32, 1, 5 and "
+          f"33: {n_conv} and {n_mm} cases equal to the plain versions")
+    return worst
+
+
 def _i8(torch, g, dev, shape):
     return torch.randint(-127, 128, shape, generator=g, device=dev,
                          dtype=torch.int32).to(torch.int8)
@@ -893,29 +963,33 @@ def _time_qmac(torch, g, dev, m, k, n):
     return i32, deq
 
 
-def _time_qconv(torch, g, dev, bsz, h, c, nc):
-    """Q-Conv at one stride-2 SAME 3x3 layer of the stem."""
+def _time_qconv(torch, g, dev, bsz, h, c, nc, w=None):
+    """Q-Conv at one stride-2 SAME 3x3 layer (an h x w frame, square
+    unless ``w`` is given)."""
     import torch.nn.functional as F
     from repro_torch.kernels.qconv import ops as qconv_ops
 
-    cx = _i8(torch, g, dev, (bsz, h, h, c))
+    w = h if w is None else w
+    cx = _i8(torch, g, dev, (bsz, h, w, c))
     cw = _i8(torch, g, dev, (3, 3, c, nc))
-    csx = torch.rand((bsz, h, h, 1), generator=g, device=dev) * 0.01
+    csx = torch.rand((bsz, h, w, 1), generator=g, device=dev) * 0.01
     csw = torch.rand((nc,), generator=g, device=dev) * 0.01
     cb = torch.rand((nc,), generator=g, device=dev) * 0.1
     kw = dict(stride=2, padding="SAME", fuse_relu=True)
-    p = qconv_ops.band_plan(bsz, h, h, c, 3, 3, nc, 2, "SAME")
-    mo = bsz * (h // 2) ** 2
-    b_ms, b_by = bound_ms(bsz * h * h * c + 4 * bsz * h * h + 9 * c * nc
+    p = qconv_ops.band_plan(bsz, h, w, c, 3, 3, nc, 2, "SAME")
+    ho, wo, pt, pb, plf, prt = qconv_ops.out_geometry(h, w, 3, 3, 2, "SAME")
+    mo = bsz * ho * wo
+    b_ms, b_by = bound_ms(bsz * h * w * c + 4 * bsz * h * w + 9 * c * nc
                           + 8 * nc + 4 * mo * nc,
                           2.0 * mo * nc * 9 * c, mo * nc * (2 * 9 + 3))
     # the yardstick: one fp32 cuDNN convolution (TF32 off) of the
     # dequantized input with the dequantized filters, operands laid out
-    # and padded (SAME at stride 2 pads (0, 1)) beforehand
-    xd = F.pad((cx.float() * csx).permute(0, 3, 1, 2), (0, 1, 0, 1))
+    # and padded (SAME at stride 2: (0, 1) at an even size, (1, 1) at an
+    # odd one) beforehand
+    xd = F.pad((cx.float() * csx).permute(0, 3, 1, 2), (plf, prt, pt, pb))
     wd = (cw.float() * csw).permute(3, 2, 0, 1).contiguous()
     return dict(
-        shape=f"x[{bsz},{h},{h},{c}] w[3,3,{c},{nc}] stride 2 SAME",
+        shape=f"x[{bsz},{h},{w},{c}] w[3,3,{c},{nc}] stride 2 SAME",
         plan=(f"bands of {p.rows} rows, N tile {p.n_tile}, {p.threads} "
               f"threads, {p.smem} B shared, {p.blocks} blocks"),
         ms=device_ms(torch, lambda: qconv_ops.qconv2d_i8(
@@ -1110,10 +1184,11 @@ def _time_qlstm(torch, g, dev, b, d_in, hid, n_iters):
 
 def time_kernels(torch, dev):
     """Phase 4: every kernel beside its plain version and a library call,
-    at each shape the two paths give it: the serving path at its largest
+    at each shape the paths give it: the serving path at its largest
     bucket (32), the HRL path at its largest call (512 frames; the
-    LSTM's 128 rows per step), and V-ACT's softmax and int8 kernels also
-    past the path's sizes.  No single PyTorch call computes a CORDIC
+    LSTM's 128 rows per step), the training paths' actors at 32 envs
+    (cartpole's mlp, E2HRL on keydoor, the conv actor-critic on catch),
+    and V-ACT's softmax and int8 kernels also past the path's sizes.  No single PyTorch call computes a CORDIC
     activation bit for bit: ``torch.tanh`` and ``torch.softmax`` are the
     approximate yardsticks of ``vact_ew`` and ``vact_softmax``; the int8
     kernel and the fused cell have none.  Each kernel's first row is the
@@ -1134,6 +1209,12 @@ def time_kernels(torch, dev):
                           (512, 32, 3, 16), (512, 16, 16, 32)):  # HRL
         rows["qconv_i8_taps"].append(_time_qconv(torch, g, dev, bsz, h, c,
                                                  nc))
+    # the pixel runs' actor convs and products at the rollout's 32 envs
+    for h, w, c, nc in PIXEL_CONVS:
+        rows["qconv_i8_taps"].append(_time_qconv(torch, g, dev, 32, h, c,
+                                                 nc, w))
+    for k, n in PIXEL_KN:
+        rows["qmac_i8"].append(_time_qmac(torch, g, dev, 32, k, n)[0])
     # the HRL path: sub-goal tanh [512, 8], LSTM gates [128, 32], the
     # action softmax of FC-HRL [512, 4] and of LSTM-HRL [128, 4], all at
     # FxP8's 6 iterations; then softmax and int8 past the path's sizes
@@ -1532,7 +1613,8 @@ def _counting_trainer(torch, kernels):
     launch counters around each iteration and timing its phases on the
     host clock: the weight sync (``pack``), the rollout and the learner,
     each ended by a wait for the card so the time is the phase's own.
-    ``step`` runs the iteration's own two phases, as its body does."""
+    ``step`` runs the iteration's own two phases, as its body does, and
+    keeps the params at the end of each stage."""
     from repro_torch.obs import SpanClock
     from repro_torch.rl.rollout import episode_returns
     from repro_torch.rl.trainer import OnPolicyTrainer
@@ -1542,6 +1624,7 @@ def _counting_trainer(torch, kernels):
         def __init__(self, **kw):
             super().__init__(**kw)
             self.per_iter, self.clock = [], SpanClock()
+            self.stage_params = []
 
         def pack(self, state):
             with self.clock("sync"):
@@ -1549,7 +1632,7 @@ def _counting_trainer(torch, kernels):
                 torch.cuda.synchronize()
             return packed
 
-        def step(self, iteration, state, packed, gen, g, alive):
+        def step(self, iteration, state, packed, gen, g, stage_ctx, alive):
             before = kernels.launch_counts()
             draws = self.draws(gen)
             with self.clock("rollout"):
@@ -1558,11 +1641,13 @@ def _counting_trainer(torch, kernels):
                 torch.cuda.synchronize()
             with self.clock("learn"):
                 params, opt = iteration.learn_phase(
-                    state.params, state.opt, res, draws, None, alive)
+                    state.params, state.opt, res, draws, stage_ctx, alive)
                 torch.cuda.synchronize()
             ret, n_ep = episode_returns(res.traj)
             after = kernels.launch_counts()
             self.per_iter.append({k: after[k] - before[k] for k in after})
+            if (g + 1) % self.iters == 0:
+                self.stage_params.append(params)
             return (onpolicy_state(params, opt, res.final_env,
                                    res.final_obs), ret, n_ep)
 
@@ -1632,61 +1717,75 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def _phases(torch, dev, device):
-    """A default trainer's first iteration on ``device``: the trainer,
-    its state, the iteration and its inputs, with the draws made on the
-    CPU (so every device gets the same ones)."""
+def _phases(torch, dev, device, g=0, **kw):
+    """A trainer's first iteration on ``device`` (default: the default
+    run's; ``kw`` the run's flags): the trainer, its state, the
+    iteration and its inputs, with the draws of global step ``g`` made
+    on the CPU (so every device gets the same ones)."""
     from repro_torch.rl.train_steps import IterationDraws, iteration_generator
     from repro_torch.rl.trainer import OnPolicyTrainer
 
-    tr = OnPolicyTrainer(seed=0, device=device, verbose=False)
-    cpu = OnPolicyTrainer(seed=0, device="cpu", verbose=False)
-    draws = cpu.draws(iteration_generator(0, 0, torch.device("cpu")))
+    tr = OnPolicyTrainer(seed=0, device=device, verbose=False, **kw)
+    cpu = OnPolicyTrainer(seed=0, device="cpu", verbose=False, **kw)
+    draws = cpu.draws(iteration_generator(0, g, torch.device("cpu")))
     draws = IterationDraws(*(t.to(device) for t in draws))
     state = tr.init_state()
     return tr, state, tr.build_iteration(), tr.pack(state), draws
 
 
-def _actor_codes(torch, params, obs, policy):
-    """The int8 codes of one fxp8 ``mlp_ac_apply`` forward, by row: the
-    row-quantized input of each product and each tanh's requantized
-    output (the tensor-wide grid ``activation`` puts it on), [B, 260]
-    for cartpole's 4 observations and the two 64-wide layers."""
-    from repro_torch.core.fxp import quantize
-    from repro_torch.core.qmatmul import quantize_rowwise
-    from repro_torch.core.vact import activation
-    from repro_torch.nn.linear import linear_apply
+def _recorded_codes(torch, fn):
+    """``fn()``'s output and the int8 codes of every activation the fxp8
+    program quantized in it, by row: each product's and conv's
+    row-quantized input and each activation's requantized output (on the
+    tensor-wide grid ``activation`` puts it on), [B, n]."""
+    from repro_torch.core import fxp, qmatmul, vact
+    from repro_torch.nn import conv
 
-    codes, h = [], obs
-    for layer in ("fc1", "fc2"):
-        codes.append(quantize_rowwise(h, policy.a_bits)[0])
-        pre = linear_apply(params["torso"][layer], h, policy)
-        codes.append(quantize(torch.tanh(pre), policy.a_bits)[0])
-        h = activation(pre, "tanh", policy)
-    codes.append(quantize_rowwise(h, policy.a_bits)[0])
-    return torch.cat([c.to(torch.int32) for c in codes], -1)
+    rec = []
+    rowwise, fake_quant = qmatmul.quantize_rowwise, vact.fake_quant
+
+    def record_rowwise(x, bits):
+        q, scale = rowwise(x, bits)
+        rec.append(q)
+        return q, scale
+
+    def record_requant(x, bits, channel_axis=None):
+        rec.append(fxp.quantize(x, bits, channel_axis=channel_axis)[0])
+        return fake_quant(x, bits, channel_axis)
+
+    qmatmul.quantize_rowwise = conv.quantize_rowwise = record_rowwise
+    vact.fake_quant = record_requant
+    try:
+        out = fn()
+    finally:
+        qmatmul.quantize_rowwise = conv.quantize_rowwise = rowwise
+        vact.fake_quant = fake_quant
+    b = out[0].shape[0]
+    return out, torch.cat([r.reshape(b, -1).to(torch.int32) for r in rec],
+                          -1)
 
 
 def _rollout_codes(torch, tr, packed, traj):
     """The actor's int8 codes at every step of ``traj`` on its own
-    device, [T, B, 260], after checking that re-running the forward on
-    the step's observations gives the rollout's log-probs and values bit
-    for bit (so the codes are the rollout's own)."""
+    device, [T, B, n], after checking that re-running the forward on the
+    step's observations gives the rollout's log-probs and values bit for
+    bit (so the codes are the rollout's own)."""
     from repro_torch.rl.actor_learner import unpack_weights
 
     params = unpack_weights(packed)
     codes = []
     with torch.no_grad():
         for t in range(traj.obs.shape[0]):
-            obs = traj.obs[t]
-            logits, value = tr.apply_fn(params, obs, tr.a_policy)
+            (logits, value), c = _recorded_codes(
+                torch, lambda: tr.apply_fn(params, traj.obs[t], tr.a_policy))
             logp = tr.dist.log_prob(logits.to(torch.float32),
                                     traj.actions[t])
             if not (torch.equal(logp, traj.log_probs[t])
                     and torch.equal(value, traj.values[t])):
-                raise AssertionError(f"{obs.device}: the actor's forward "
-                                     f"at step {t} is not the rollout's")
-            codes.append(_actor_codes(torch, params, obs, tr.a_policy))
+                raise AssertionError(f"{traj.obs.device}: the actor's "
+                                     f"forward at step {t} is not the "
+                                     "rollout's")
+            codes.append(c)
     return torch.stack(codes)
 
 
@@ -1695,8 +1794,8 @@ def card_vs_cpu_iteration(torch, dev):
     on the CPU, the same params, env states and draws.  Every action
     equal; observations within rtol 1e-5; log-probs and values within
     rtol 1e-5 + atol 1e-6 at every (step, env) whose actor forward has
-    the same int8 codes on both devices (obs, both layers' inputs and
-    requantized tanh outputs); a row whose codes differ (a libm ulp
+    the same int8 codes on both devices (each product's row-quantized
+    input and each requantized tanh output); a row whose codes differ (a libm ulp
     between the devices' tanh, cos or sin that lands on a rounding tie)
     is exempt and counted; the updated params within atol 1e-5 + rtol
     1e-4 (the learner's fp32 sums run in each device's order)."""
@@ -1750,16 +1849,21 @@ def card_vs_cpu_iteration(torch, dev):
                              "rtol 1e-4 after one iteration")
 
 
-def profile_training(torch, dev, n=2):
-    """Phase 9: where a default training iteration's time goes, its
+def profile_training(torch, dev, n=2, run=None):
+    """Phases 9 and 10: where a training iteration's time goes, its
     rollout (128 steps of the fxp8 actor and the env) and its learner
     (GAE, 4 epochs x 4 minibatches of fp32 forward, backward and AdamW)
     each traced as ``profile_forward`` traces a forward, from the same
-    inputs each call; the port's launches by the wrappers' counters."""
+    inputs each call; the port's launches by the wrappers' counters.
+    ``run`` names a phase-10 run (default: phase 9's default run); a
+    two-stage run is traced in its first stage."""
     from repro_torch import kernels
 
-    tr, state, it, packed, draws = _phases(torch, dev, dev)
+    flags = PIXEL_RUNS[run]["kw"] if run else {}
+    what = PIXEL_RUNS[run]["flags"] if run else "default run"
+    tr, state, it, packed, draws = _phases(torch, dev, dev, **flags)
     alive = torch.ones(1, dtype=torch.bool)
+    ctx = tr.stage_setup(state, tr.stage_list[0])
     res = it.rollout_phase(packed, draws, state.est, state.obs)
 
     def rollout():
@@ -1767,7 +1871,7 @@ def profile_training(torch, dev, n=2):
         torch.cuda.synchronize()
 
     def learn():
-        it.learn_phase(state.params, state.opt, res, draws, None, alive)
+        it.learn_phase(state.params, state.opt, res, draws, ctx, alive)
         torch.cuda.synchronize()
 
     out = {}
@@ -1776,21 +1880,414 @@ def profile_training(torch, dev, n=2):
         fn()
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
         wall, rows, launches, why = _profiled(torch, fn, n)
-        _print_profile(f"training iteration, {name} phase (32 envs x 128 "
-                       "steps)", wall, rows, launches, why, top=8,
-                       per="phase")
+        _print_profile(f"training iteration ({what}), {name} phase (32 "
+                       "envs x 128 steps)", wall, rows, launches, why,
+                       top=8, per="phase")
         print(f"  the port's kernels in one {name} phase: {counts}")
         out[name] = (wall, sum(r[0] for r in rows), launches, counts)
     wall = sum(v[0] for v in out.values())
     busy = sum(v[1] for v in out.values())
-    print(f"training iteration: wall {wall:.3f} ms, device busy "
+    print(f"training iteration ({what}): wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; device "
           "launches " + ", ".join(f"{k} {v[2]}" for k, v in out.items()))
-    if out["rollout"][3].get("qmac_i8") != 4 * (tr.rollout_len + 1):
-        raise AssertionError(f"rollout phase launched {out['rollout'][3]}")
+    per_forward = PIXEL_RUNS[run]["per_forward"] if run else {"qmac_i8": 4}
+    want = {k: v * (tr.rollout_len + 1) for k, v in per_forward.items()}
+    if out["rollout"][3] != want:
+        raise AssertionError(f"rollout phase launched {out['rollout'][3]}, "
+                             f"not {want}")
     if out["learner"][3]:
         raise AssertionError(f"learner launched {out['learner'][3]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training from pixels
+# ---------------------------------------------------------------------------
+
+# the two pixel runs at their defaults (32 envs x 128 steps, fxp8
+# actors, an 8-bit sync, lr 3e-3, 40 iterations a stage): the flags,
+# the JAX reference's greedy returns at seeds 0-2 after training and of
+# its untrained initial params (``tools/ref_greedy_returns.py --seeds 0
+# 1 2`` with the flags, and with ``--iters 0``, on a CPU with jax
+# 0.9.0), and each actor forward's launches of the port's kernels
+PIXEL_RUNS = {
+    "hrl_training": dict(
+        flags="--env keydoor --agent hrl --two-stage",
+        kw=dict(env_name="keydoor", agent="hrl", two_stage=True),
+        ref=(0.14136387407779694, 0.45800018310546875,
+             -0.00611087353900075),
+        untrained=(-0.6399996876716614, -0.5774997472763062,
+                   -0.4864703416824341),
+        per_forward={"qconv_i8_taps": 3, "qmac_i8": 5}),
+    "pixel_training": dict(
+        flags="--env catch --net conv --frame-stack 4",
+        kw=dict(env_name="catch", net="conv", frame_stack_k=4),
+        ref=(-0.25, 0.125, 0.625), untrained=(0.625, -0.5, -0.5),
+        per_forward={"qconv_i8_taps": 2, "qmac_i8": 3}),
+}
+WORKER_TIMEOUT_S = 600
+
+
+def pixel_bar(run):
+    """(bar, reference median, untrained median): half the way from the
+    untrained policy's median greedy return to the trained reference's
+    (the reference beats its untrained policy in both runs)."""
+    cfg = PIXEL_RUNS[run]
+    ref = statistics.median(cfg["ref"])
+    u = statistics.median(cfg["untrained"])
+    return u + 0.5 * (ref - u), ref, u
+
+
+def train_seed(torch, dev, run, seed):
+    """Phase 10 worker: one seed of one pixel run through the trainer
+    ``rl_train`` runs, on the card: the port's launch counters read in
+    every iteration (exactly ``per_forward`` x 129 each, nothing else),
+    the wall split, the greedy return of the untrained params, after
+    each stage and at the end."""
+    from repro_torch import kernels
+
+    cfg = PIXEL_RUNS[run]
+    tr = _counting_trainer(torch, kernels)(seed=seed, device=dev,
+                                           verbose=False, **cfg["kw"])
+    untrained, _ = tr.eval_policy(tr._init_params)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = {k: v * (tr.rollout_len + 1)
+            for k, v in cfg["per_forward"].items()}
+    n_iters = tr.iters * len(tr.stage_list)
+    got = [{k: v for k, v in c.items() if v} for c in tr.per_iter]
+    if len(got) != n_iters or any(c != want for c in got):
+        odd = sorted({json.dumps(c, sort_keys=True) for c in got})
+        raise AssertionError(f"{run} seed {seed}: launches per iteration "
+                             f"{odd} over {len(got)} iterations, not "
+                             f"{want} in each of {n_iters}")
+    if not all(torch.isfinite(x).all() for x in _leaves(state.params)):
+        raise AssertionError(f"{run} seed {seed}: non-finite params")
+    t1 = time.perf_counter()
+    ret, n_ep = tr.eval_policy(state.params)
+    stage_returns = [tr.eval_policy(p)[0] for p in tr.stage_params]
+    return dict(seed=seed, ret=ret, n_ep=n_ep, untrained=untrained,
+                stage_returns=stage_returns, eval_s=time.perf_counter() - t1,
+                wall=wall, steps=n_iters * tr.n_envs * tr.rollout_len,
+                iters=n_iters, spans=tr.clock.drain(), per_iter=want,
+                totals={k: sum(c[k] for c in tr.per_iter)
+                        for k in kernels.WRAPPERS},
+                last_train_return=[history[(i + 1) * tr.iters - 1]
+                                   for i in range(len(tr.stage_list))])
+
+
+def _tree_to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _learner_updates_card_vs_cpu(torch, dev, cpu_run, rc, cpu_out):
+    """The CPU learner's minibatch updates one at a time (the GAE batch,
+    then per update the gradient with the stage mask, and AdamW with its
+    clipping, as ``learn_phase`` runs them), each also run on the card
+    from the CPU's state before it.  Per update: the card's gradient
+    within rtol 1e-5 of each leaf's largest entry of the CPU's (the
+    learners' fp32 sums, cuDNN's among them, run in another order),
+    unless a ReLU of the forward passed on one device and not on the
+    other (a pre-activation within those sums' error of zero: that
+    sample's whole contribution through the unit switches), and such
+    updates are exempt and counted; and AdamW on the card, given the
+    CPU's gradient, within atol 1e-5 + rtol 1e-4 of the CPU's params and
+    moments.  Adam divides each entry's
+    step by its own gradient's scale, so where that scale is near
+    ``eps`` a gradient's last bits move the step by a share of ``lr``:
+    the params after the card's own gradient are reported, not held.
+    The CPU's updates must end bitwise where its ``learn_phase`` did, so
+    they are the learner's own.  Returns (largest abs errors, whether
+    every update held)."""
+    from repro_torch.core import vact
+    from repro_torch.optim import adamw_update
+    from repro_torch.rl.actor_learner import fleet_mask
+    from repro_torch.rl.ppo import (apply_stage_mask, batch_from_traj,
+                                    value_and_grad)
+
+    where, tr, state, _, draws, ctx, _, _ = cpu_run
+
+    def learner(p, o):
+        return tr.apply_fn(p, o, None)
+
+    pcfg = tr.pcfg
+    params, opt = state.params, state.opt
+    mask = fleet_mask(torch.ones(1, dtype=torch.bool),
+                      rc.traj.rewards.shape[1])
+    with torch.no_grad():
+        batch = batch_from_traj(rc.traj, rc.last_value, pcfg,
+                                actor_mask=mask,
+                                value_fn=lambda o: learner(params, o)[1])
+
+    def grad(p, idx, dv):
+        """The masked gradient, and which ReLUs of the forward passed
+        (each one's ``x > 0``, flattened)."""
+        mb = {k: v[idx.to(dv)] for k, v in _tree_to(batch, dv).items()}
+        gates = []
+
+        def relu(x):
+            gates.append((x > 0).reshape(-1).cpu())
+            return torch.relu(x)
+
+        vact._NATIVE["relu"] = relu
+        try:
+            (_, _), g = value_and_grad(tr.loss_fn, p, learner, mb, pcfg,
+                                       tr.dist)
+        finally:
+            vact._NATIVE["relu"] = torch.relu
+        g = g if ctx is None else apply_stage_mask(g, ctx)
+        return g, torch.cat(gates)
+
+    def adam(g, p, s):
+        with torch.no_grad():
+            p, s, _ = adamw_update(g, s, p, tr.sched, tr.ocfg)
+        return p, s
+
+    n = batch["obs"].shape[0]
+    size = n // pcfg.minibatches
+    worst = dict.fromkeys(("grads", "params", "mu", "nu",
+                           "params from the card's gradient"), 0.0)
+    ok, gated = True, []
+    for e in range(pcfg.epochs):
+        for i in range(pcfg.minibatches):
+            idx = draws.perms[e, i * size:(i + 1) * size]
+            p_dev, s_dev = _tree_to(params, dev), _tree_to(opt, dev)
+            g_card, gates_card = grad(p_dev, idx, dev)
+            g_cpu, gates_cpu = grad(params, idx, where)
+            flips = int((gates_card != gates_cpu).sum())
+            if flips:
+                gated.append(flips)
+            for a, b in zip(_leaves(g_card), _leaves(g_cpu), strict=True):
+                a = a.cpu()
+                if not flips:
+                    worst["grads"] = max(worst["grads"],
+                                         (a - b).abs().max().item())
+                    ok &= bool(torch.allclose(
+                        a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item()))
+            p_card, s_card = adam(_tree_to(g_cpu, dev), p_dev, s_dev)
+            p_own, _ = adam(g_card, p_dev, s_dev)
+            params, opt = adam(g_cpu, params, opt)
+            for name, a_tree, b_tree in (
+                    ("params", p_card, params), ("mu", s_card["mu"],
+                                                 opt["mu"]),
+                    ("nu", s_card["nu"], opt["nu"])):
+                for a, b in zip(_leaves(a_tree), _leaves(b_tree),
+                                strict=True):
+                    a = a.cpu()
+                    worst[name] = max(worst[name],
+                                      (a - b).abs().max().item())
+                    ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+            key = "params from the card's gradient"
+            worst[key] = max([worst[key]] + [
+                (a.cpu() - b).abs().max().item() for a, b in zip(
+                    _leaves(p_own), _leaves(params), strict=True)])
+    for a, b in zip(_leaves((params, opt)), _leaves(cpu_out), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("the learner's updates one by one do not "
+                                 "end where its learn_phase does")
+    worst["updates whose ReLU gates differ (gates)"] = gated
+    return worst, ok
+
+
+def pixel_card_vs_cpu(torch, dev, run):
+    """Phase 10 worker: one iteration of a pixel run on the card against
+    the plain path on the CPU, the same params, env states and draws
+    (E2HRL: an iteration of stage "action" from the initial state, then
+    one of stage "subgoal" from the CPU's state after it, so the mask and
+    the carried Adam moments are in play).  The rollouts: every action
+    equal, observations within rtol 1e-5, log-probs and values within
+    rtol 1e-5 + atol 1e-6 at every (step, env) whose actor forward has
+    the same int8 codes on both devices, the rows whose codes differ
+    exempt and counted.  The learners, both from the CPU's rollout, each
+    update held as ``_learner_updates_card_vs_cpu`` says; in stage
+    "action" the sub-goal subtree bitwise unchanged on both devices."""
+    torch.set_num_threads(2)
+    cfg = PIXEL_RUNS[run]
+    cpu = torch.device("cpu")
+    alive = torch.ones(1, dtype=torch.bool)
+    start, report = None, []
+    # E2HRL: the first step of each stage at 40 iterations a stage
+    stages = [("action", 0), ("subgoal", 40)] \
+        if cfg["kw"].get("two_stage") else [(None, 0)]
+    for stage, g in stages:
+        runs = []
+        for where in (dev, cpu):
+            tr, state, it, packed, draws = _phases(torch, dev, where, g=g,
+                                                   **cfg["kw"])
+            if start is not None:
+                state = _tree_to(start, where)
+                packed = tr.pack(state)
+            ctx = tr.stage_setup(state, stage)
+            res = it.rollout_phase(packed, draws, state.est, state.obs)
+            codes = _rollout_codes(torch, tr, packed, res.traj)
+            runs.append((where, tr, state, it, draws, ctx, res, codes))
+        (_, _, sd, *_, rd, cd), (_, _, sc, *_, rc, cc) = runs
+        host = lambda t: t.detach().cpu()  # noqa: E731
+        same = (host(rd.traj.actions) == rc.traj.actions).float().mean()
+        differ = host(cd) != cc
+        flipped = differ.any(-1)
+        errs, off = {}, {}
+        for f in ("log_probs", "values", "obs"):
+            a, b = host(getattr(rd.traj, f)), getattr(rc.traj, f)
+            errs[f] = (a - b).abs().max().item()
+            bad = ~torch.isclose(a, b, rtol=1e-5, atol=1e-6)
+            if f != "obs":
+                bad = bad & ~flipped
+            else:
+                bad = bad.reshape(bad.shape[0], bad.shape[1], -1).any(-1)
+            off[f] = int(bad.sum())
+        # both learners from the CPU's rollout: [card, CPU]
+        outs = [it.learn_phase(state.params, state.opt, _tree_to(rc, where),
+                               draws, ctx, alive)
+                for where, _, state, it, draws, ctx, _, _ in runs]
+        free = {name: max((host(a) - b).abs().max().item() for a, b in zip(
+            _leaves(pick(outs[0])), _leaves(pick(outs[1])), strict=True))
+            for name, pick in (("params", lambda o: o[0]),
+                               ("mu", lambda o: o[1]["mu"]),
+                               ("nu", lambda o: o[1]["nu"]))}
+        worst, ok = _learner_updates_card_vs_cpu(torch, dev, runs[1], rc,
+                                                 outs[1])
+        frozen = None
+        if stage == "action":
+            frozen = all(torch.equal(host(a), host(b)) for o, st in (
+                (outs[0][0], sd.params), (outs[1][0], sc.params))
+                for a, b in zip(_leaves(o["subgoal"]),
+                                _leaves(st["subgoal"]), strict=True))
+        report.append(dict(
+            stage=stage or "all", actions_equal=float(same),
+            codes_differ=int(differ.sum()), codes=differ.numel(),
+            rows_flipped=int(flipped.sum()), rows=flipped.numel(),
+            errs=errs, learner_errs=worst, learner_free=free,
+            past_rtol=off, subgoal_frozen=frozen))
+        print(f"{run} card vs CPU, stage {stage or 'all'} (g={g}): actions "
+              f"equal {float(same):.6f}; int8 codes that differ "
+              f"{int(differ.sum())} of {differ.numel()}, in "
+              f"{int(flipped.sum())} of {flipped.numel()} actor rows; "
+              f"largest abs errors {errs}; entries past rtol 1e-5 outside "
+              f"those rows {off}; learner from the CPU's rollout, each of "
+              f"its updates on the card from the CPU's state before it "
+              f"(AdamW given the CPU's gradient), largest abs errors "
+              f"{worst}; the two learners run through, largest abs errors "
+              f"{free}"
+              + ("" if frozen is None else
+                 f"; sub-goal subtree unchanged on both: {frozen}"),
+              flush=True)
+        if float(same) != 1.0:
+            raise AssertionError(f"{run}: card and CPU chose different "
+                                 "actions")
+        if any(off.values()):
+            raise AssertionError(f"{run}: card and CPU past rtol 1e-5 "
+                                 f"where the actor's codes agree: {off}")
+        if not ok:
+            raise AssertionError(f"{run}: a learner update on the card "
+                                 "differs from the CPU's: gradients past "
+                                 "rtol 1e-5 of the leaf's largest entry, "
+                                 "or AdamW past atol 1e-5 + rtol 1e-4")
+        if frozen is False:
+            raise AssertionError(f"{run}: stage action moved the sub-goal "
+                                 "subtree")
+        start = type(sc)(outs[1][0], None, outs[1][1], None, rc.final_env,
+                         rc.final_obs)
+    return report
+
+
+def _worker(torch, argv):
+    """``chip_smoke.py --worker train RUN SEED OUT`` or ``--worker
+    parity RUN OUT``: one phase-10 job in a process of its own, its
+    result as JSON in OUT."""
+    kind, run, out = argv[0], argv[1], argv[-1]
+    dev = torch.device("cuda", 0)
+    if kind == "train":
+        torch.set_num_threads(1)
+        result = train_seed(torch, dev, run, int(argv[2]))
+    else:
+        result = pixel_card_vs_cpu(torch, dev, run)
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def pixel_training(torch, dev, card, work):
+    """Phase 10: the two pixel runs at their defaults, three seeds each,
+    and one iteration of each card against CPU, each job in a process of
+    its own, all at once (the runs are host-bound: the processes share
+    the host's cores and the card).  Per seed: greedy return, env
+    steps/s, the wall split and the launches; per run the median greedy
+    return against its bar."""
+    os.makedirs(work, exist_ok=True)
+    jobs = []
+    for run in PIXEL_RUNS:
+        jobs += [(run, ["train", run, str(s)]) for s in TRAIN_SEEDS]
+        jobs.append((run, ["parity", run]))
+    procs = []
+    try:
+        for run, args in jobs:
+            out = os.path.join(work, "_".join(args) + ".json")
+            log = open(out + ".log", "w")
+            procs.append((run, args, out, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 *args, out], stdout=log, stderr=subprocess.STDOUT)))
+        deadline = time.perf_counter() + WORKER_TIMEOUT_S
+        for run, args, out, log, p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            log.close()
+    finally:
+        for *_, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results, failed = {}, []
+    for run, args, out, _, p in procs:
+        with open(out + ".log") as f:
+            text = f.read()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(args)} exited {p.returncode}:\n"
+                          + text[-4000:])
+            continue
+        if args[0] == "parity":
+            print(text.strip())
+        with open(out) as f:
+            results[tuple(args)] = json.load(f)
+    if failed:
+        raise AssertionError("phase 10 jobs failed:\n" + "\n".join(failed))
+    totals = {}
+    for run, cfg in PIXEL_RUNS.items():
+        tot = dict.fromkeys(results[("train", run, "0")]["totals"], 0)
+        returns = []
+        for seed in TRAIN_SEEDS:
+            r = results[("train", run, str(seed))]
+            returns.append(r["ret"])
+            for k, v in r["totals"].items():
+                tot[k] += v
+            split = ", ".join(f"{k} {v:.3f} s ({v / r['wall']:.3f})"
+                              for k, v in r["spans"].items())
+            stages = ""
+            if len(r["stage_returns"]) > 1:
+                stages = ("; greedy return after stage action "
+                          f"{r['stage_returns'][0]}, after stage subgoal "
+                          f"{r['stage_returns'][1]}; last train return by "
+                          f"stage {r['last_train_return']}")
+            print(f"{run} ({cfg['flags']}) seed {seed} on {card}: greedy "
+                  f"return {r['ret']} over {r['n_ep']} episodes "
+                  f"(untrained {r['untrained']}){stages}; {r['steps']} env "
+                  f"steps in {r['wall']:.3f} s = {r['steps'] / r['wall']:.1f}"
+                  f" env steps/s; wall split: {split}; launches "
+                  f"{r['per_iter']} in each of {r['iters']} iterations")
+        median = statistics.median(returns)
+        bar, ref, u = pixel_bar(run)
+        print(f"{run}: median greedy return {median} over seeds "
+              f"{TRAIN_SEEDS}; the reference's median {ref}, untrained "
+              f"{u}: bar {bar}")
+        if median < bar:
+            raise AssertionError(f"{run}: median greedy return {median} < "
+                                 f"{bar}")
+        totals[run] = tot
+    return totals
 
 
 def main() -> int:
@@ -1805,7 +2302,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    if sys.argv[1:2] == ["--worker"]:
+        return _worker(torch, sys.argv[2:])
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1818,11 +2318,11 @@ def main() -> int:
     print(f"built {[os.path.basename(p) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s")
 
-    worst = check_training_kernels(torch, dev, check_softmax_and_q8_edges(
-        torch, dev, check_ew_and_cell_edges(
-            torch, dev, check_split_and_band_edges(
-                torch, dev, check_hrl_kernels(torch, dev,
-                                              check_kernels(torch, dev))))))
+    worst = check_kernels(torch, dev)
+    for check in (check_hrl_kernels, check_split_and_band_edges,
+                  check_ew_and_cell_edges, check_softmax_and_q8_edges,
+                  check_training_kernels, check_pixel_kernels):
+        worst = check(torch, dev, worst)
     rows = time_kernels(torch, dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -1843,6 +2343,12 @@ def main() -> int:
     train_launches = training_path(torch, dev, card)
     card_vs_cpu_iteration(torch, dev)
     profile_training(torch, dev)
+    t10 = time.perf_counter()
+    pixel_launches = pixel_training(torch, dev, card,
+                                    os.path.join(work, "phase10"))
+    print(f"phase 10's jobs took {time.perf_counter() - t10:.1f} s")
+    for run in PIXEL_RUNS:
+        profile_training(torch, dev, run=run)
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -1864,7 +2370,9 @@ def main() -> int:
         r = shapes[0]                      # the largest call of the path
         by_path = {"serving": serve_launches[name],
                    "hrl": hrl_launches[name],
-                   "training": train_launches[name]}
+                   "training": train_launches[name],
+                   "hrl_training": pixel_launches["hrl_training"][name],
+                   "pixel_training": pixel_launches["pixel_training"][name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,
@@ -1877,6 +2385,7 @@ def main() -> int:
         print(f"{name}: launches {launches} {by_path}, kernel_ms "
               f"{r['ms']:.5f}, plain_ms {r['plain_ms']:.5f}, library_ms "
               f"{r['library_ms']} at {r['shape']} on {card}")
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,15 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 
 fp32 must mean fp32 on the card: cuDNN convolutions default to TF32, so
 importing the package turns that off, and refuses to load if float32
-matmuls were switched to TF32 by someone else.
+matmuls were switched to TF32 by someone else.  Training on the card is
+reproducible, as the reference's is: cuDNN is held to deterministic
+algorithms (its default picks may sum a convolution's weight gradient
+in a run-dependent order).
 """
 import torch
 
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 if torch.backends.cuda.matmul.allow_tf32:
     raise RuntimeError(
         "torch.backends.cuda.matmul.allow_tf32 is True: fp32 products "

@@ -5,12 +5,19 @@ quantized actors, a full-precision learner and an int8 weight sync
     PYTHONPATH=src python -m repro_torch.launch.rl_train
     PYTHONPATH=src python -m repro_torch.launch.rl_train --device cpu \\
         --iters 2 --n-envs 4 --rollout-len 8
+    # the paper's E2HRL agent, two-stage PPO (40 iterations a stage)
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --env keydoor \\
+        --agent hrl --two-stage
+    # the conv actor-critic over the pixel pipeline
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --env catch \\
+        --net conv --frame-stack 4 --algo ppo
 
 The defaults are the reference's: ppo on cartpole, the mlp agent
-(hidden 64), fxp8 actors, an 8-bit sync, 40 iterations of 32 envs x
-128 steps.  Flags of options the port does not have yet, and knobs that only
-those options read, raise ``NotImplementedError`` naming the slice
-that brings them whenever they are given.
+(hidden 64), fxp8 actors, an 8-bit sync, lr 3e-3, 40 iterations (a
+stage) of 32 envs x 128 steps.  Flags of options the port does not
+have yet, and knobs that only those options read, raise
+``NotImplementedError`` naming the slice that brings them whenever they
+are given.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Environment wrappers of the pixel pipeline (port of the frame-stack
-and running-normalization half of ``repro.rl.envs.wrappers``).
+"""Environment wrappers of the pixel pipeline and the MLP view of image
+envs (port of the frame-stack, running-normalization and flattening
+parts of ``repro.rl.envs.wrappers``).
 
 Each wrapper takes an :class:`Environment` and returns a new one whose
 batched reset/step close over the inner functions; a wrapper that needs
@@ -39,6 +40,44 @@ def _wrap(env: Environment, name: str, *, reset, step,
 def _per_env(mask: Tensor, like: Tensor) -> Tensor:
     """A [B] mask (or count) shaped to broadcast over ``like``'s leaves."""
     return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
+
+
+# ---------------------------------------------------------------------------
+# the MLP view of image envs
+# ---------------------------------------------------------------------------
+
+def flatten_observation(env: Environment) -> Environment:
+    """Ravel observations to 1-D: lets MLP policies drive pixel envs."""
+    flat = int(math.prod(env.obs_shape))
+
+    def ravel(obs: Tensor) -> Tensor:
+        return obs.reshape(obs.shape[0], flat).to(torch.float32)
+
+    def reset(key):
+        state, obs = env.reset(key)
+        return state, ravel(obs)
+
+    def step(state, action):
+        state, obs, reward, done, truncated, final_obs = \
+            env.step(state, action)
+        return state, ravel(obs), reward, done, truncated, ravel(final_obs)
+
+    in_space = env.observation_space
+    if isinstance(in_space, Box):
+        space = Box(in_space.low, in_space.high, (flat,))
+    else:
+        space = Box(-math.inf, math.inf, (flat,))
+    spec = dataclasses.replace(env.spec, observation_space=space)
+    return _wrap(env, "flatten_observation", reset=reset, step=step,
+                 spec=spec)
+
+
+def ensure_vector_obs(env: Environment) -> Environment:
+    """The MLP-policy view of any env: identity for vector observations,
+    ``flatten_observation`` for image grids."""
+    if len(env.obs_shape) == 1:
+        return env
+    return flatten_observation(env)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,9 @@ calls the one greedy forward with packed ``QTensor`` weights, evaluation
 with fp32 weights under the same quant policy.
 
 The port serves ``dqn`` over ``--net conv`` and trains ``ppo``/``a2c``
-over ``--net mlp`` on the raw env (``rl/trainer``); other algos, nets
-and envs raise ``NotImplementedError`` naming the slice that brings
-them.
+(``rl/trainer``); the value algos' training and serving of other nets,
+and the envs still to port, raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.rl.envs import Discrete, Environment, make
-from repro_torch.rl.envs.wrappers import NormStats, pixel_pipeline
+from repro_torch.rl.envs.wrappers import (NormStats, ensure_vector_obs,
+                                          pixel_pipeline)
 from repro_torch.rl.nets import conv_q_apply, conv_q_init
 
 ON_POLICY_ALGOS = ("ppo", "a2c")
@@ -32,7 +33,7 @@ NETS = ("mlp", "conv")
 # brings them
 LATER_ENVS = {"acrobot": "classic-control envs",
               "mountain_car": "classic-control envs",
-              "pendulum": "classic-control envs", "catch": "pixel"}
+              "pendulum": "classic-control envs"}
 
 
 def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
@@ -41,26 +42,38 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} "
         "slice of the PyTorch port (the port serves dqn over --net conv "
-        "and trains ppo/a2c over --net mlp on cartpole)")
+        "and trains ppo/a2c: the mlp agent on cartpole, the E2HRL agent "
+        "with --two-stage on keydoor/catch, --net conv on the pixel "
+        "envs)")
+
+
+def make_env(env_name: str) -> Environment:
+    """The raw registered env; an env still to port raises naming the
+    slice that brings it."""
+    if env_name in LATER_ENVS:
+        raise not_in_slice(f"--env {env_name}", LATER_ENVS[env_name])
+    return make(env_name)
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,
               norm_stats: Optional[NormStats] = None) -> Environment:
-    """The launch-path env stack: the raw env for ``net="mlp"``; for
-    ``net="conv"`` the pixel pipeline (running, or with ``norm_stats``
-    frozen, normalization of raw frames, then ``frame_stack``)."""
+    """The launch-path env stack: for ``net="conv"`` the pixel pipeline
+    (running, or with ``norm_stats`` frozen, normalization of raw frames,
+    then ``frame_stack``); ``net="mlp"`` keeps the vector view (images
+    are flattened) and ``--frame-stack`` is a conv-net knob."""
     if net not in NETS:
         raise ValueError(f"unknown net {net!r} (expected one of {NETS})")
-    if env_name in LATER_ENVS:
-        raise not_in_slice(f"--env {env_name}", LATER_ENVS[env_name])
-    env = make(env_name)
-    if net == "mlp":
-        return env
-    if len(env.obs_shape) != 3:
-        raise ValueError(
-            f"--net conv needs image (H, W, C) observations; "
-            f"{env_name} has shape {env.obs_shape} — use --net mlp")
-    return pixel_pipeline(env, frame_stack_k, stats=norm_stats)
+    env = make_env(env_name)
+    if net == "conv":
+        if len(env.obs_shape) != 3:
+            raise ValueError(
+                f"--net conv needs image (H, W, C) observations; "
+                f"{env_name} has shape {env.obs_shape} — use --net mlp")
+        return pixel_pipeline(env, frame_stack_k, stats=norm_stats)
+    if frame_stack_k > 1:
+        raise ValueError("--frame-stack is a pixel-pipeline knob and "
+                         "requires --net conv")
+    return ensure_vector_obs(env)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """Small actor-critic and Q networks (port of ``repro.rl.nets``: the
-``mlp_ac_*`` actor-critic and the ``conv_*`` torso with its Q head).
+``mlp_ac_*`` actor-critic and the ``conv_*`` torso with its actor-critic
+and Q heads).
 
 Every product is a Q-MAC (``q_matmul`` under the QuantPolicy), every
 activation a V-ACT, so the quantized actors exercise exactly the
@@ -9,10 +10,11 @@ quantized paths:
     with a distribution head and a value head (the PPO/A2C agent);
   * ``conv_*`` — the paper's vision stem: stride-2 Q-Conv blocks (stride
     replaces pooling, ReLU after) over [B, H, W, C] pixel observations,
-    a dense layer to ``hidden`` features, and a linear Q head.
+    a dense layer to ``hidden`` features, then policy and value heads
+    (``conv_ac_*``, the pixel PPO/A2C agent) or a linear Q head
+    (``conv_q_*``).
 
-The conv actor-critic and the quantile heads arrive with the pixel and
-value slices.
+The quantile heads arrive with the value slice.
 """
 from __future__ import annotations
 
@@ -101,6 +103,32 @@ def conv_torso_apply(params, obs: torch.Tensor,
     x = x.reshape(x.shape[0], -1)
     return activation(linear_apply(params["fc"], x, policy), "relu",
                       policy)
+
+
+def conv_ac_init(gen: torch.Generator, obs_shape: Tuple[int, ...],
+                 head_dim: int, channels: Sequence[int] = CONV_CHANNELS,
+                 kernel: int = CONV_KERNEL, hidden: int = CONV_HIDDEN,
+                 dtype=torch.float32, device="cpu"):
+    """Conv actor-critic: the shared Q-Conv trunk with policy and value
+    heads, the pixel counterpart of :func:`mlp_ac_init`."""
+    return {
+        "torso": conv_torso_init(gen, obs_shape, channels, kernel, hidden,
+                                 dtype, device),
+        "pi": linear_init(gen, hidden, head_dim, dtype=dtype,
+                          device=device),
+        "v": linear_init(gen, hidden, 1, dtype=dtype, device=device),
+    }
+
+
+def conv_ac_apply(params, obs: torch.Tensor,
+                  policy: Optional[QuantPolicy] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """obs [B, H, W, C] -> (dist params [B, H], value [B]): the contract
+    of :func:`mlp_ac_apply`, so rollout, PPO and A2C are agnostic."""
+    h = conv_torso_apply(params["torso"], obs, policy)
+    logits = linear_apply(params["pi"], h, policy)
+    value = linear_apply(params["v"], h, policy)[..., 0]
+    return logits, value
 
 
 def conv_q_init(gen: torch.Generator, obs_shape: Tuple[int, ...],

@@ -1,15 +1,19 @@
 """The Trainer layer (port of ``repro.rl.trainer.base``, one device):
 one loop, one checkpoint flow, one RNG convention.
 
-``Trainer.train`` owns the loop.  Each iteration the learner packs its
-weights and pushes them through :class:`FleetSync`; the fleet fetches
-at the trainer's ``fetch_lag`` and the per-slot staleness gives the
-``alive`` mask.  The iteration's draws come from a generator seeded from
-(seed, global step) (``train_steps.iteration_generator``), so a resumed
-run draws exactly the stream the uninterrupted run would.  Checkpoints
-store the ``TrainState`` under the reference's index keys with its
-metadata and ``schema`` tag; the metadata is validated before the tree
-is restored.
+``Trainer.train`` owns the loop: the family's stages in turn (one
+unnamed stage, or two-stage HRL's "action" then "subgoal"), ``iters``
+iterations each, at global step ``g = stage_index * iters + it``.
+Each iteration the learner packs its weights and pushes them through
+:class:`FleetSync`; the fleet fetches at the trainer's ``fetch_lag``
+and the per-slot staleness gives the ``alive`` mask.  The iteration's
+draws come from a generator seeded from (seed, g)
+(``train_steps.iteration_generator``), so a resumed run draws exactly
+the stream the uninterrupted run would.  Checkpoints are written at
+step g and store the ``TrainState`` under the reference's index keys
+with the family's metadata (the stage and the iteration within it) and
+the ``schema`` tag; the metadata is validated before the tree is
+restored, and a resume lands inside the recorded stage.
 
 Telemetry (``--metrics-dir``) and the profiler (``--profile-dir``)
 arrive with the observability slice.
@@ -65,6 +69,8 @@ class Trainer:
         self.n_slots = n_slots
         self.max_lag = max_lag
         self.fetch_lag = fetch_lag
+        self.stage_list = [None]
+        self.stage_names = ["all"]
 
     # ---- family seams ----------------------------------------------------
     def init_state(self) -> TrainState:
@@ -73,7 +79,7 @@ class Trainer:
     def build_iteration(self):
         raise NotImplementedError
 
-    def step(self, iteration, state, packed, gen, g: int, alive):
+    def step(self, iteration, state, packed, gen, g: int, stage_ctx, alive):
         """Run one iteration; returns ``(state, ret, n_ep)``."""
         raise NotImplementedError
 
@@ -81,10 +87,14 @@ class Trainer:
         """The packed (int8) weight payload the fleet syncs."""
         raise NotImplementedError
 
+    def stage_setup(self, state, stage):
+        """What ``step`` gets as ``stage_ctx`` during ``stage``."""
+        return None
+
     def validate_metadata(self, md: dict) -> None:
         pass
 
-    def metadata(self, it: int) -> dict:
+    def metadata(self, it: int, stage) -> dict:
         return {}
 
     def resume_start(self, md: dict) -> int:
@@ -93,8 +103,11 @@ class Trainer:
     def resume_message(self, md: dict, state, start: int) -> str:
         return f"resumed at iter {start}"
 
-    def log_line(self, it, ret, n_ep, metrics: dict) -> str:
+    def log_line(self, it, ret, n_ep, metrics: dict, stage) -> str:
         raise NotImplementedError
+
+    def export_state(self, state, state_out: Optional[dict]) -> None:
+        pass
 
     # ---- the one driver --------------------------------------------------
     def restore(self, mgr: CheckpointManager, state: TrainState):
@@ -110,7 +123,7 @@ class Trainer:
         tree, md = mgr.restore(as_checkpoint_tree(state))
         return TrainState(*tree), md
 
-    def train(self):
+    def train(self, state_out: Optional[dict] = None):
         con = self.console
         state = self.init_state()
         start, mgr = 0, None
@@ -126,34 +139,41 @@ class Trainer:
         history = []
         total_payload = w_payload = w_fp32 = 0
         t0 = time.time()
-        for it in range(start, self.iters):
-            sync.push(self.pack(state))
-            stale = sync.fetch(self.fetch_lag)
-            payload, fp32_eq = sync_bytes(stale)
-            total_payload += payload
-            w_payload += payload
-            w_fp32 += fp32_eq
-            # seeded from the global step, not a running stream: a
-            # resumed run at step `it` draws what the uninterrupted one
-            # would have
-            gen = iteration_generator(self.seed, it, self.device)
-            state, ret, n_ep = self.step(iteration, state, stale, gen, it,
-                                         sync.alive())
-            # the loop's one host read an iteration
-            ret_f = float(ret)
-            history.append(ret_f)
-            if it % self.log_every == 0 or it == self.iters - 1:
-                metrics = {"sync_payload_bytes": w_payload,
-                           "sync_fp32_bytes": w_fp32,
-                           "staleness_max": int(sync.staleness().max()),
-                           "alive_frac": float(
-                               sync.alive().to(torch.float32).mean())}
-                con.info(self.log_line(it, ret_f, int(n_ep), metrics))
-                w_payload = w_fp32 = 0
-            if mgr and mgr.should_save(it):
-                mgr.save(it, as_checkpoint_tree(state),
-                         metadata={**self.metadata(it),
-                                   "schema": STATE_SCHEMA})
+        for si, stage in enumerate(self.stage_list):
+            ctx = self.stage_setup(state, stage)
+            for it in range(self.iters):
+                g = si * self.iters + it  # global step: stages never
+                if g < start:             # collide, and a resume lands
+                    continue              # inside its stage
+                sync.push(self.pack(state))
+                stale = sync.fetch(self.fetch_lag)
+                payload, fp32_eq = sync_bytes(stale)
+                total_payload += payload
+                w_payload += payload
+                w_fp32 += fp32_eq
+                # seeded from the global step, not a running stream: a
+                # resumed run at step g draws what the uninterrupted one
+                # would have
+                gen = iteration_generator(self.seed, g, self.device)
+                state, ret, n_ep = self.step(iteration, state, stale, gen,
+                                             g, ctx, sync.alive())
+                # the loop's one host read an iteration
+                ret_f = float(ret)
+                history.append(ret_f)
+                if it % self.log_every == 0 or it == self.iters - 1:
+                    metrics = {"sync_payload_bytes": w_payload,
+                               "sync_fp32_bytes": w_fp32,
+                               "staleness_max": int(sync.staleness().max()),
+                               "alive_frac": float(
+                                   sync.alive().to(torch.float32).mean())}
+                    con.info(self.log_line(it, ret_f, int(n_ep), metrics,
+                                           stage))
+                    w_payload = w_fp32 = 0
+                if mgr and mgr.should_save(g):
+                    mgr.save(g, as_checkpoint_tree(state),
+                             metadata={**self.metadata(it, stage),
+                                       "schema": STATE_SCHEMA})
         con.info(f"done in {time.time() - t0:.0f}s; "
                  f"total sync payload {total_payload / 2**20:.1f} MiB")
+        self.export_state(state, state_out)
         return state, history

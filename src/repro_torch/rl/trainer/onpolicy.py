@@ -1,17 +1,27 @@
 """The on-policy trainer (port of ``repro.rl.trainer.onpolicy``: ppo and
-a2c with the mlp agent, on one device).
+a2c with the mlp, conv and hrl agents, on one device).
 
 The paper's Fig. 2 system: quantized (fxp8) actors roll the envs from
 an int8 weight sync, and the fp32 learner runs PPO (or A2C) on their
-trajectories.  On a CUDA device each actor product is the Q-MAC kernel;
-the learner's products are fp32 ``torch.matmul``, as the reference's
-learner runs no quantized product.  Truncated episodes bootstrap
-through the timeout.
+trajectories.  On a CUDA device each actor product is the Q-MAC kernel
+and each actor conv the Q-Conv kernel; the learner's products and
+convolutions are fp32 PyTorch, as the reference's learner runs no
+quantized op.  Truncated episodes bootstrap through the timeout.
+
+``--agent hrl`` trains the paper's E2HRL agent (FC-HRL) on the raw
+image env; ``--two-stage`` runs its two stages in turn (paper Sec.
+III): "action" trains stem, action and value heads with the sub-goal
+module's gradients masked to zero, then "subgoal" trains the sub-goal
+module alone.  The optimizer state carries across the boundary, as the
+reference's does, so in stage "subgoal" the masked subtrees still move
+on the Adam moments left from stage "action".  ``--net conv`` trains
+the conv actor-critic over the pixel pipeline (running normalization,
+then ``--frame-stack``).
 
 Not in this slice, each raising ``NotImplementedError`` that names its
-slice: ``--agent hrl`` and ``--two-stage`` (HRL training), ``--net
-conv`` (the pixel slice), several devices (the sharded slice),
-``--metrics-dir``/``--profile-dir`` (observability).
+slice: several devices (the sharded slice), ``--metrics-dir``/
+``--profile-dir`` (observability), the classic-control envs other than
+cartpole.
 """
 from __future__ import annotations
 
@@ -19,17 +29,20 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.e2hrl import HRLConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hrl
 from repro_torch.optim import AdamWConfig, adamw_init, constant
 from repro_torch.rl.actor_learner import pack_weights
 from repro_torch.rl.dists import distribution_for
 from repro_torch.rl.envs import Environment
 from repro_torch.rl.envs.spaces import head_dim
 from repro_torch.rl.inference import (ON_POLICY_ALGOS, VALUE_ALGOS,
-                                      build_env, not_in_slice)
-from repro_torch.rl.nets import mlp_ac_apply, mlp_ac_init
-from repro_torch.rl.ppo import PPOConfig, a2c_loss, ppo_loss
+                                      build_env, make_env, not_in_slice)
+from repro_torch.rl.nets import (conv_ac_apply, conv_ac_init, mlp_ac_apply,
+                                 mlp_ac_init)
+from repro_torch.rl.ppo import PPOConfig, a2c_loss, ppo_loss, stage_mask
 from repro_torch.rl.rollout import init_envs
 from repro_torch.rl.train_steps import (draw_iteration,
                                         make_onpolicy_iteration)
@@ -43,19 +56,40 @@ def make_agent(agent: str, env: Environment, gen: torch.Generator,
     """(params, apply_fn) of the agent; the weights are drawn from the
     CPU generator ``gen`` and placed on ``device``."""
     spec = env.spec
-    if agent != "mlp":
-        raise not_in_slice(f"--agent {agent}", "HRL training")
-    if net == "conv":
-        raise not_in_slice("--net conv for ppo/a2c", "pixel")
-    if len(spec.obs_shape) != 1:
+    dev = resolve_device(device)
+    if agent == "mlp":
+        if net == "conv":
+            if len(spec.obs_shape) != 3:
+                raise ValueError(
+                    f"{spec.name} has obs shape {spec.obs_shape}; "
+                    "--net conv needs image (H, W, C) observations")
+            return conv_ac_init(gen, spec.obs_shape,
+                                head_dim(spec.action_space),
+                                device=dev), conv_ac_apply
+        if len(spec.obs_shape) != 1:
+            raise ValueError(
+                f"{spec.name} has obs shape {spec.obs_shape}; use --net "
+                "conv for the Q-Conv pixel stem, wrap with "
+                "envs.wrappers.flatten_observation for the mlp agent, or "
+                "use --agent hrl")
+        return mlp_ac_init(gen, spec.obs_shape[0],
+                           head_dim(spec.action_space),
+                           device=dev), mlp_ac_apply
+    if net != "mlp":
+        raise ValueError("--net conv selects the standalone conv "
+                         "actor-critic; the hrl agent has its own conv "
+                         "stem — drop --net")
+    if len(spec.obs_shape) != 3:
         raise ValueError(
-            f"{spec.name} has obs shape {spec.obs_shape}; use --net conv "
-            "for the Q-Conv pixel stem, wrap with "
-            "envs.wrappers.flatten_observation for the mlp agent, or use "
-            "--agent hrl")
-    params = mlp_ac_init(gen, spec.obs_shape[0], head_dim(spec.action_space),
-                         device=resolve_device(device))
-    return params, mlp_ac_apply
+            f"{spec.name} has obs shape {spec.obs_shape}; the hrl agent "
+            "needs image (H, W, C) observations — use --agent mlp")
+    cfg = HRLConfig(obs_shape=spec.obs_shape, n_actions=spec.n_actions)
+
+    def apply_fn(p, obs, policy=None):
+        logits, value, _ = hrl.apply(p, obs, cfg, policy)
+        return logits, value
+
+    return hrl.init(gen, cfg, device=dev), apply_fn
 
 
 class OnPolicyTrainer(Trainer):
@@ -77,19 +111,12 @@ class OnPolicyTrainer(Trainer):
                 raise not_in_slice(f"--algo {algo}", "value family")
             raise ValueError(f"rl_train drives the on-policy family "
                              f"{ON_POLICY_ALGOS}; got --algo {algo!r}")
-        if net == "conv":
-            raise not_in_slice("--net conv for ppo/a2c", "pixel")
-        if two_stage:
-            if agent != "hrl":
-                raise ValueError("--two-stage trains the HRL sub-goal "
-                                 "curriculum and requires --agent hrl")
-            raise not_in_slice("--two-stage", "HRL training")
+        if two_stage and agent != "hrl":
+            raise ValueError("--two-stage trains the HRL sub-goal "
+                             "curriculum and requires --agent hrl")
         if metrics_dir or profile_dir:
             raise not_in_slice("--metrics-dir/--profile-dir",
                                "observability")
-        if net == "mlp" and frame_stack_k > 1:
-            raise ValueError("--frame-stack is a pixel-pipeline knob and "
-                             "requires --net conv")
         dev = resolve_device(device)
         n_slots = resolve_mesh(mesh_kind, mesh_devices, n_envs, verbose)
         # actors run (max_lag - 1) versions behind the freshest push:
@@ -98,7 +125,15 @@ class OnPolicyTrainer(Trainer):
                          save_every=save_every, log_every=log_every,
                          verbose=verbose, device=dev, n_slots=n_slots,
                          max_lag=max_lag, fetch_lag=max_lag - 1)
-        self.env = build_env(env_name, net, frame_stack_k)
+        if net == "conv":
+            self.env = build_env(env_name, net, frame_stack_k)
+        else:
+            # the mlp/hrl agents keep the raw env view (make_agent
+            # validates the obs shape)
+            if frame_stack_k > 1:
+                raise ValueError("--frame-stack is a pixel-pipeline knob "
+                                 "and requires --net conv")
+            self.env = make_env(env_name)
         self.env_name, self.n_envs = env_name, n_envs
         self.algo = algo
         self.rollout_len = rollout_len
@@ -114,6 +149,8 @@ class OnPolicyTrainer(Trainer):
                      else PPOConfig(epochs=1, minibatches=1))
         self.loss_fn = ppo_loss if algo == "ppo" else a2c_loss
         self.sched = constant(lr)
+        self.stage_list = ["action", "subgoal"] if two_stage else [None]
+        self.stage_names = [s or "all" for s in self.stage_list]
 
     # ---- trainer seams ---------------------------------------------------
     def init_state(self) -> TrainState:
@@ -139,16 +176,21 @@ class OnPolicyTrainer(Trainer):
     def pack(self, state):
         return pack_weights(state.params, self.comm)
 
-    def step(self, iteration, state, packed, gen, g, alive):
+    def step(self, iteration, state, packed, gen, g, stage_ctx, alive):
         params, opt, est, obs, ret, n_ep = iteration(
             state.params, state.opt, state.est, state.obs, packed,
-            self.draws(gen), None, alive)
+            self.draws(gen), stage_ctx, alive)
         return onpolicy_state(params, opt, est, obs), ret, n_ep
+
+    def stage_setup(self, state, stage):
+        # the stage's grad mask; a subtree masked from the first step
+        # keeps zero Adam moments and so stays bitwise frozen
+        return stage_mask(state.params, stage) if stage else None
 
     def eval_policy(self, params, n_envs: int = 16,
                     n_steps: Optional[int] = None, seed: int = 0):
         """Greedy fp32 evaluation (the reference's: 16 envs for 1.25x
-        the horizon)."""
+        the horizon, on the training env stack)."""
         spec = self.env.spec
         n_steps = n_steps or spec.max_steps + spec.max_steps // 4
 
@@ -162,31 +204,44 @@ class OnPolicyTrainer(Trainer):
     # ---- checkpoint seams ------------------------------------------------
     def validate_metadata(self, md: dict) -> None:
         md_stage = str(md.get("stage", "all"))
-        if md_stage != "all":
+        if md_stage not in self.stage_names:
             raise ValueError(
                 f"checkpoint in {self.ckpt_dir} was saved in stage "
-                f"{md_stage!r} but this run's stages are ['all'] — "
-                "relaunch with the original --two-stage/--agent flags")
+                f"{md_stage!r} but this run's stages are "
+                f"{self.stage_names} — relaunch with the original "
+                "--two-stage/--agent flags")
 
-    def metadata(self, it: int) -> dict:
-        return {"stage": "all", "stage_iter": it}
+    def metadata(self, it: int, stage) -> dict:
+        return {"stage": stage or "all", "stage_iter": it}
 
     def resume_start(self, md: dict) -> int:
         # the checkpoint holds post-update state for its step: training
         # continues at the next step (re-running the saved one would
-        # apply its optimizer update twice)
+        # apply its optimizer update twice); the global step is rebuilt
+        # from the recorded (stage, stage_iter), so a changed --iters
+        # cannot land the resume in the wrong stage, and the clamp moves
+        # a stage that already met a shrunken --iters on to the next
+        md_stage = str(md.get("stage", "all"))
         it = int(md.get("stage_iter", md.get("step", 0)))
-        return min(it + 1, self.iters)
+        return (self.stage_names.index(md_stage) * self.iters
+                + min(it + 1, self.iters))
 
     def resume_message(self, md, state, start: int) -> str:
+        md_stage = str(md.get("stage", "all"))
         it = int(md.get("stage_iter", md.get("step", 0)))
-        return f"resumed at global iter {start} (stage all, iter {it} done)"
+        return (f"resumed at global iter {start} "
+                f"(stage {md_stage}, iter {it} done)")
 
-    def log_line(self, it, ret, n_ep, metrics: dict) -> str:
+    def log_line(self, it, ret, n_ep, metrics: dict, stage) -> str:
+        sfx = f" [stage={stage}]" if stage else ""
         return (f"iter {it:4d}  return {float(ret):8.2f}  "
                 f"episodes {int(n_ep):4d}  "
                 f"sync {metrics['sync_payload_bytes'] / 2**20:.2f} MiB "
-                f"(fp32 {metrics['sync_fp32_bytes'] / 2**20:.2f})")
+                f"(fp32 {metrics['sync_fp32_bytes'] / 2**20:.2f}){sfx}")
+
+    def export_state(self, state, state_out) -> None:
+        if state_out is not None:
+            state_out.update(env_state=state.est, obs=state.obs)
 
 
 def rl_train(env_name: str = "cartpole", agent: str = "mlp",
@@ -198,10 +253,13 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
              mesh_devices: Optional[int] = None, log_every: int = 5,
              verbose: bool = True, algo: str = "ppo", net: str = "mlp",
              frame_stack_k: int = 1, metrics_dir: Optional[str] = None,
-             profile_dir: Optional[str] = None, device: DeviceLike = None):
+             profile_dir: Optional[str] = None, device: DeviceLike = None,
+             state_out: Optional[dict] = None):
     """On-policy training (the paper's Fig. 2 system) on ``device``
     (default: the card) — see :class:`OnPolicyTrainer`.  Returns
-    (params, history)."""
+    (params, history); ``state_out`` receives the final env state and
+    observations (``env_state``, ``obs``), from which an evaluation can
+    freeze the pixel pipeline's normalizer."""
     trainer = OnPolicyTrainer(
         env_name, agent, iters=iters, n_envs=n_envs,
         rollout_len=rollout_len, actor_policy=actor_policy, lr=lr,
@@ -211,5 +269,5 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
         log_every=log_every, verbose=verbose, algo=algo, net=net,
         frame_stack_k=frame_stack_k, metrics_dir=metrics_dir,
         profile_dir=profile_dir, device=device)
-    state, history = trainer.train()
+    state, history = trainer.train(state_out=state_out)
     return state.params, history

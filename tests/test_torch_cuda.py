@@ -632,3 +632,20 @@ def test_vact_q8_sizes_and_offsets_equal_plain(dev, numel):
             assert torch.equal(got, vact_ops.vact_q8_plain(qx, sx, kind, 6)), \
                 (what, kind)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("flags", [
+    dict(env_name="keydoor", agent="hrl", two_stage=True, iters=1),
+    dict(env_name="catch", net="conv", frame_stack_k=4, iters=2)])
+def test_pixel_training_on_the_card_is_reproducible(dev, flags):
+    """Two runs of the same seed end bit for bit in the same state: the
+    learner's cuDNN convolutions are held to deterministic algorithms."""
+    from repro_torch.rl.trainer import OnPolicyTrainer
+    from repro_torch.tree import tree_leaves
+
+    runs = [OnPolicyTrainer(device=dev, verbose=False, n_envs=8,
+                            rollout_len=32, **flags).train()[0]
+            for _ in range(2)]
+    for a, b in zip(tree_leaves(tuple(runs[0])), tree_leaves(tuple(runs[1])),
+                    strict=True):
+        assert torch.equal(a, b)

@@ -174,9 +174,9 @@ def test_loader_errors_and_unported_paths(tmp_path):
     spec = tinf.build_env("keydoor", "conv", 1).spec
     with pytest.raises(NotImplementedError, match="value family"):
         tinf.make_value_agent("qrdqn", spec, net="conv", device="cpu")
-    # --net mlp is the raw env since the PPO training slice; the envs
-    # still to port name their slice
-    assert tinf.build_env("keydoor", "mlp").obs_shape == (32, 32, 3)
+    # --net mlp is the vector view (images flattened), as the
+    # reference's; the envs still to port name their slice
+    assert tinf.build_env("keydoor", "mlp").obs_shape == (3072,)
     with pytest.raises(NotImplementedError, match="classic-control"):
         tinf.build_env("pendulum", "mlp")
     with pytest.raises(ValueError, match="unknown net"):

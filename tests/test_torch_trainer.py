@@ -258,9 +258,10 @@ def test_cli_prints_iteration_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--agent", "hrl"], "HRL training"),
-    (["--agent", "hrl", "--two-stage"], "HRL training"),
-    (["--net", "conv"], "pixel"),
+    (["--agent", "hrl", "--algo", "qrdqn"], "value family"),
+    (["--agent", "hrl", "--two-stage", "--mesh-devices", "2"], "sharded"),
+    (["--net", "conv", "--env", "catch", "--metrics-dir", "m"],
+     "observability"),
     (["--algo", "dqn"], "value family"),
     (["--mesh-devices", "2"], "sharded"),
     (["--mesh", "production"], "sharded"),
