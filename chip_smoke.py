@@ -32,7 +32,9 @@ non-zero:
    [4, 64], [M, 64] x [64, 64], [M, 64] x [64, 2], [M, 64] x [64, 1]) at
    M = 32 and ragged M; V-ACT at the pinned CORDIC input x = 4.2331 and
    its neighbours (tanh at x, sigmoid at 2x, n 6, 7, 13), tanh at n = 6
-   equal to the JAX reference's eager value;
+   equal to the JAX reference's eager value; Q-Conv and Q-MAC at the
+   pixel runs' convs and products, and Q-MAC at the value runs' other
+   two ([M, 3] x [3, 64], [M, 128] x [128, 96]);
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -90,7 +92,25 @@ non-zero:
    phase 9, with both learners run from the CPU's rollout, Adam's moments
    held as the params and, in stage "action", the sub-goal subtree
    bitwise unchanged on both; then a profile of each run's iteration;
-11. print the kernels' JSON line, then the device line last.
+11. the value family: ``rl_train``'s value runs at their defaults (32
+   envs x 8 steps, 300 iterations, replay capacity 50,000, n-step 3, 4
+   updates an iteration, fxp8 behaviour actors on Q-MAC and Q-Conv, an
+   fp32 learner): ``--algo dqn`` on cartpole, ``--algo qrdqn --env
+   catch --net conv --frame-stack 4`` and ``--algo ddpg --env
+   pendulum``, at seeds 0, 1 and 2, in processes of their own after
+   phase 10's: greedy return (the median must reach half the way from
+   the untrained reference's median to the trained reference's at
+   seeds 0-2), env steps/s, the wall split, Q-MAC and Q-Conv launches
+   exactly 3, 2 + 2 and 3 per behaviour forward in every iteration;
+   one iteration of each run, of dqn ``--replay per`` and of ddpg
+   ``--tqc-drop 2`` on the card against the CPU (actions equal, and
+   observations within rtol 1e-5, in every env up to its first row
+   whose int8 codes differ, such rows counted; the learners from the
+   CPU's rollout, each update held from the CPU's state as phase 10
+   holds them); the sum tree at 50,000 slots bitwise on both devices
+   after updates with duplicate slots, ``find`` equal; then a profile
+   of each run's iteration;
+12. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -1760,7 +1780,7 @@ def _recorded_codes(torch, fn):
     finally:
         qmatmul.quantize_rowwise = conv.quantize_rowwise = rowwise
         vact.fake_quant = fake_quant
-    b = out[0].shape[0]
+    b = (out if isinstance(out, torch.Tensor) else out[0]).shape[0]
     return out, torch.cat([r.reshape(b, -1).to(torch.int32) for r in rec],
                           -1)
 
@@ -1849,25 +1869,37 @@ def card_vs_cpu_iteration(torch, dev):
                              "rtol 1e-4 after one iteration")
 
 
+# the rollout length of a profiled rollout phase: an eighth of the runs'
+# 128 steps, so its trace stays small enough to read (a step's launches
+# and device time are the same at any length); the learner is traced on
+# a whole 128-step rollout, the batch the runs train on
+PROFILE_STEPS = 16
+
+
 def profile_training(torch, dev, n=2, run=None):
     """Phases 9 and 10: where a training iteration's time goes, its
-    rollout (128 steps of the fxp8 actor and the env) and its learner
-    (GAE, 4 epochs x 4 minibatches of fp32 forward, backward and AdamW)
-    each traced as ``profile_forward`` traces a forward, from the same
-    inputs each call; the port's launches by the wrappers' counters.
-    ``run`` names a phase-10 run (default: phase 9's default run); a
-    two-stage run is traced in its first stage."""
+    rollout (``PROFILE_STEPS`` steps of the fxp8 actor and the env) and
+    its learner (GAE, 4 epochs x 4 minibatches of fp32 forward, backward
+    and AdamW, on a whole rollout of the run's length collected
+    untraced) each traced as ``profile_forward`` traces a forward, from
+    the same inputs each call; the port's launches by the wrappers'
+    counters.  The iteration's wall and idle share add the rollout
+    scaled to the run's length to the learner.  ``run`` names a phase-10
+    run (default: phase 9's default run); a two-stage run is traced in
+    its first stage."""
     from repro_torch import kernels
 
     flags = PIXEL_RUNS[run]["kw"] if run else {}
     what = PIXEL_RUNS[run]["flags"] if run else "default run"
+    short = _phases(torch, dev, dev, rollout_len=PROFILE_STEPS, **flags)
     tr, state, it, packed, draws = _phases(torch, dev, dev, **flags)
     alive = torch.ones(1, dtype=torch.bool)
     ctx = tr.stage_setup(state, tr.stage_list[0])
     res = it.rollout_phase(packed, draws, state.est, state.obs)
 
     def rollout():
-        it.rollout_phase(packed, draws, state.est, state.obs)
+        _, s_state, s_it, s_packed, s_draws = short
+        s_it.rollout_phase(s_packed, s_draws, s_state.est, s_state.obs)
         torch.cuda.synchronize()
 
     def learn():
@@ -1875,23 +1907,28 @@ def profile_training(torch, dev, n=2, run=None):
         torch.cuda.synchronize()
 
     out = {}
-    for name, fn in (("rollout", rollout), ("learner", learn)):
+    for name, fn, steps in (("rollout", rollout, PROFILE_STEPS),
+                            ("learner", learn, tr.rollout_len)):
         kernels.reset_launch_counts()
         fn()
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
         wall, rows, launches, why = _profiled(torch, fn, n)
-        _print_profile(f"training iteration ({what}), {name} phase (32 "
-                       "envs x 128 steps)", wall, rows, launches, why,
+        _print_profile(f"training iteration ({what}), {name} phase "
+                       f"({tr.n_envs} envs x {steps} steps)",
+                       wall, rows, launches, why,
                        top=8, per="phase")
         print(f"  the port's kernels in one {name} phase: {counts}")
         out[name] = (wall, sum(r[0] for r in rows), launches, counts)
-    wall = sum(v[0] for v in out.values())
-    busy = sum(v[1] for v in out.values())
-    print(f"training iteration ({what}): wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; device "
-          "launches " + ", ".join(f"{k} {v[2]}" for k, v in out.items()))
+    scale = {"rollout": tr.rollout_len / PROFILE_STEPS, "learner": 1}
+    wall = sum(v[0] * scale[k] for k, v in out.items())
+    busy = sum(v[1] * scale[k] for k, v in out.items())
+    print(f"training iteration ({what}), {tr.rollout_len} steps (the "
+          f"rollout's times x {scale['rollout']:g}): wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+          "device launches " + ", ".join(f"{k} {v[2]}"
+                                         for k, v in out.items()))
     per_forward = PIXEL_RUNS[run]["per_forward"] if run else {"qmac_i8": 4}
-    want = {k: v * (tr.rollout_len + 1) for k, v in per_forward.items()}
+    want = {k: v * (PROFILE_STEPS + 1) for k, v in per_forward.items()}
     if out["rollout"][3] != want:
         raise AssertionError(f"rollout phase launched {out['rollout'][3]}, "
                              f"not {want}")
@@ -1982,6 +2019,13 @@ def train_seed(torch, dev, run, seed):
 def _tree_to(tree, device):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device), tree)
+
+
+def _tree_copy(tree, device):
+    """``tree`` on ``device``, every leaf a copy (the replay buffer is
+    written in place)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True), tree)
 
 
 def _learner_updates_card_vs_cpu(torch, dev, cpu_run, rc, cpu_out):
@@ -2196,43 +2240,50 @@ def pixel_card_vs_cpu(torch, dev, run):
 
 
 def _worker(torch, argv):
-    """``chip_smoke.py --worker train RUN SEED OUT`` or ``--worker
-    parity RUN OUT``: one phase-10 job in a process of its own, its
-    result as JSON in OUT."""
+    """``chip_smoke.py --worker train|vtrain RUN SEED OUT``, ``--worker
+    parity RUN OUT`` or ``--worker vparity all OUT``: one phase-10 or
+    phase-11 job in a process of its own, its result as JSON in OUT."""
     kind, run, out = argv[0], argv[1], argv[-1]
     dev = torch.device("cuda", 0)
-    if kind == "train":
+    if kind in ("train", "vtrain"):
         torch.set_num_threads(1)
-        result = train_seed(torch, dev, run, int(argv[2]))
-    else:
+        seed = train_seed if kind == "train" else train_value_seed
+        result = seed(torch, dev, run, int(argv[2]))
+    elif kind == "parity":
         result = pixel_card_vs_cpu(torch, dev, run)
+    else:
+        result = value_card_vs_cpu(torch, dev)
     with open(out, "w") as f:
         json.dump(result, f)
     return 0
 
 
-def pixel_training(torch, dev, card, work):
-    """Phase 10: the two pixel runs at their defaults, three seeds each,
-    and one iteration of each card against CPU, each job in a process of
-    its own, all at once (the runs are host-bound: the processes share
-    the host's cores and the card).  Per seed: greedy return, env
-    steps/s, the wall split and the launches; per run the median greedy
-    return against its bar."""
-    os.makedirs(work, exist_ok=True)
+def pixel_jobs():
+    """Phase 10's worker jobs: three seeds of each pixel run and one
+    card-vs-CPU iteration of each."""
     jobs = []
     for run in PIXEL_RUNS:
-        jobs += [(run, ["train", run, str(s)]) for s in TRAIN_SEEDS]
-        jobs.append((run, ["parity", run]))
+        jobs += [["train", run, str(s)] for s in TRAIN_SEEDS]
+        jobs.append(["parity", run])
+    return jobs
+
+
+def _run_workers(torch, work, jobs):
+    """Each job in a process of its own (``chip_smoke.py --worker ...``),
+    all at once (the runs are host-bound: the processes share the host's
+    cores and the card), within ``WORKER_TIMEOUT_S``: their results by
+    job, the card-vs-CPU jobs' output printed."""
+    os.makedirs(work, exist_ok=True)
     procs = []
     try:
-        for run, args in jobs:
+        for args in jobs:
             out = os.path.join(work, "_".join(args) + ".json")
             log = open(out + ".log", "w")
-            procs.append((run, args, out, log, subprocess.Popen(
+            procs.append((args, out, log, subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--worker",
                  *args, out], stdout=log, stderr=subprocess.STDOUT)))
         deadline = time.perf_counter() + WORKER_TIMEOUT_S
-        for run, args, out, log, p in procs:
+        for args, out, log, p in procs:
             p.wait(timeout=max(deadline - time.perf_counter(), 1))
             log.close()
     finally:
@@ -2242,19 +2293,27 @@ def pixel_training(torch, dev, card, work):
                 p.wait()
             log.close()
     results, failed = {}, []
-    for run, args, out, _, p in procs:
+    for args, out, _, p in procs:
         with open(out + ".log") as f:
             text = f.read()
         if p.returncode != 0:
             failed.append(f"{' '.join(args)} exited {p.returncode}:\n"
                           + text[-4000:])
             continue
-        if args[0] == "parity":
+        if args[0] in ("parity", "vparity"):
             print(text.strip())
         with open(out) as f:
             results[tuple(args)] = json.load(f)
     if failed:
-        raise AssertionError("phase 10 jobs failed:\n" + "\n".join(failed))
+        raise AssertionError("worker jobs failed:\n" + "\n".join(failed))
+    return results
+
+
+def pixel_training(card, results):
+    """Phase 10: the two pixel runs at their defaults, three seeds each,
+    from the workers' results.  Per seed: greedy return, env steps/s,
+    the wall split and the launches; per run the median greedy return
+    against its bar."""
     totals = {}
     for run, cfg in PIXEL_RUNS.items():
         tot = dict.fromkeys(results[("train", run, "0")]["totals"], 0)
@@ -2290,6 +2349,536 @@ def pixel_training(torch, dev, card, work):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the value family
+# ---------------------------------------------------------------------------
+
+# the value family's three runs at their defaults (32 envs x 8 steps,
+# fxp8 behaviour actors, an 8-bit sync, lr 1e-3, 300 iterations, replay
+# capacity 50,000, n-step 3, 4 updates an iteration): the flags, the
+# JAX reference's greedy returns at seeds 0-2 after training and of its
+# untrained initial params (``tools/ref_greedy_returns.py --seeds 0 1 2``
+# with the flags, and with ``--iters 0``, on a CPU with jax 0.9.0;
+# ``value_eval`` at 16 envs with fxp8 actors), and each behaviour
+# forward's launches of the port's kernels
+VALUE_RUNS = {
+    "value_dqn": dict(
+        flags="--algo dqn",
+        kw=dict(algo="dqn", env_name="cartpole"),
+        ref=(145.1290283203125, 259.625, 203.23529052734375),
+        untrained=(13.48971176147461, 9.439696311950684,
+                   10.620726585388184),
+        per_forward={"qmac_i8": 3}),
+    "value_qrdqn": dict(
+        flags="--algo qrdqn --env catch --net conv --frame-stack 4",
+        kw=dict(algo="qrdqn", env_name="catch", net="conv",
+                frame_stack_k=4),
+        ref=(1.0, 1.0, 1.0), untrained=(-0.375, -0.375, -0.375),
+        per_forward={"qconv_i8_taps": 2, "qmac_i8": 2}),
+    "value_ddpg": dict(
+        flags="--algo ddpg --env pendulum",
+        kw=dict(algo="ddpg", env_name="pendulum"),
+        ref=(-1114.2596435546875, -1098.4505615234375, -1182.080322265625),
+        untrained=(-1447.8057861328125, -1811.0133056640625,
+                   -1514.0872802734375),
+        per_forward={"qmac_i8": 3}),
+}
+# the card-vs-CPU iterations: each run's, and dqn with prioritized
+# replay and ddpg with TQC's truncated quantile critics
+VALUE_PARITY = {
+    "value_dqn": VALUE_RUNS["value_dqn"]["kw"],
+    "value_dqn_per": dict(algo="dqn", env_name="cartpole", replay="per"),
+    "value_qrdqn": VALUE_RUNS["value_qrdqn"]["kw"],
+    "value_ddpg": VALUE_RUNS["value_ddpg"]["kw"],
+    "value_ddpg_tqc": dict(algo="ddpg", env_name="pendulum", tqc_drop=2),
+}
+# Q-MAC's products of the value runs not among phase 3's other shapes:
+# the ddpg actor's first layer and the QR-DQN quantile head
+VALUE_KN = ((3, 64), (128, 96))
+
+
+def check_value_kernels(torch, dev, worst):
+    """Phase 3, the value runs' products that no other check covers:
+    Q-MAC at the ddpg actor's [M, 3] x [3, 64] and the QR-DQN head's
+    [M, 128] x [128, 96], at the fleet's 32 rows and ragged rows,
+    int32 equal to the plain version (the other products and Q-Conv's
+    convs at catch's 10x5x4 frames are in the training and pixel
+    checks)."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    g = torch.Generator(device=dev).manual_seed(97531)
+    cases = 0
+    for m in (32, 1, 7, 33, 64, 128):
+        for k, n in VALUE_KN:
+            qx, qw = _i8(torch, g, dev, (m, k)), _i8(torch, g, dev, (k, n))
+            got = qmac_ops.qmac_i8(qx, qw)
+            want = qmac_ops.qmac_i8_plain(qx, qw)
+            worst["qmac_i8"] = max(worst["qmac_i8"], float(
+                (got.long() - want.long()).abs().max().item()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8 != plain at the value runs' "
+                                     f"M,K,N={m},{k},{n}")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"Q-MAC at the value runs' {len(VALUE_KN)} other products: "
+          f"{cases} cases, int32 equal to the plain version")
+    return worst
+
+
+def value_bar(run):
+    """(bar, reference median, untrained median): half the way from the
+    untrained policy's median greedy return to the trained reference's."""
+    cfg = VALUE_RUNS[run]
+    ref = statistics.median(cfg["ref"])
+    u = statistics.median(cfg["untrained"])
+    return u + 0.5 * (ref - u), ref, u
+
+
+def _counting_value_trainer(torch, kernels):
+    """``ValueTrainer`` (what ``rl_train --algo dqn|qrdqn|ddpg`` runs)
+    reading the port's launch counters around each iteration and timing
+    its phases on the host clock: the weight sync, the rollout and the
+    learner (n-step targets, the replay add and the updates), each ended
+    by a wait for the card.  ``step`` runs the iteration's own two
+    phases, as its body does."""
+    from repro_torch.obs import SpanClock
+    from repro_torch.rl.rollout import episode_returns_from
+    from repro_torch.rl.trainer import ValueTrainer
+    from repro_torch.rl.trainer.state import value_state
+
+    class Counted(ValueTrainer):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.per_iter, self.clock = [], SpanClock()
+
+        def pack(self, state):
+            with self.clock("sync"):
+                packed = super().pack(state)
+                torch.cuda.synchronize()
+            return packed
+
+        def step(self, iteration, state, packed, gen, g, stage_ctx, alive):
+            before = kernels.launch_counts()
+            draws = self.draws(gen, g)
+            with self.clock("rollout"):
+                (est, obs), traj = iteration.rollout_phase(
+                    packed, draws, state.est, state.obs, g)
+                torch.cuda.synchronize()
+            with self.clock("learn"):
+                p, t, o, b = iteration.learn_phase(
+                    state.params, state.target, state.opt, state.replay,
+                    traj, draws, g)
+                torch.cuda.synchronize()
+            _, _, R, D, Tr, _ = traj
+            ret, n_ep = episode_returns_from(R, D | Tr)
+            after = kernels.launch_counts()
+            self.per_iter.append({k: after[k] - before[k] for k in after})
+            return value_state(p, t, o, b, est, obs), ret, n_ep
+
+    return Counted
+
+
+def _value_eval(tr, state, params):
+    """The run's greedy return at fxp8 (``value_eval``; over the pixel
+    pipeline with the state's merged normalizer)."""
+    from repro_torch.rl.envs.wrappers import merge_norm_stats, norm_stats_of
+    stats = (merge_norm_stats(norm_stats_of(state.est))
+             if tr.net == "conv" else None)
+    return tr.eval_policy(params, actor_policy="fxp8", norm_stats=stats)
+
+
+def train_value_seed(torch, dev, run, seed):
+    """Phase 11 worker: one seed of one value run through the trainer
+    ``rl_train`` runs, on the card: the port's launch counters read in
+    every iteration (exactly ``per_forward`` x 8 each, nothing else), the
+    wall split, the greedy return of the untrained params and at the
+    end."""
+    from repro_torch import kernels
+
+    cfg = VALUE_RUNS[run]
+    tr = _counting_value_trainer(torch, kernels)(seed=seed, device=dev,
+                                                 verbose=False, **cfg["kw"])
+    untrained, _ = _value_eval(tr, tr.init_state(), tr.agent.params)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = {k: v * tr.rollout_len for k, v in cfg["per_forward"].items()}
+    got = [{k: v for k, v in c.items() if v} for c in tr.per_iter]
+    if len(got) != tr.iters or any(c != want for c in got):
+        odd = sorted({json.dumps(c, sort_keys=True) for c in got})
+        raise AssertionError(f"{run} seed {seed}: launches per iteration "
+                             f"{odd} over {len(got)} iterations, not "
+                             f"{want} in each of {tr.iters}")
+    if not all(torch.isfinite(x).all() for x in _leaves(state.params)):
+        raise AssertionError(f"{run} seed {seed}: non-finite params")
+    t1 = time.perf_counter()
+    ret, n_ep = _value_eval(tr, state, state.params)
+    return dict(seed=seed, ret=ret, n_ep=n_ep, untrained=untrained,
+                eval_s=time.perf_counter() - t1, wall=wall,
+                steps=tr.iters * tr.n_envs * tr.rollout_len,
+                iters=tr.iters, spans=tr.clock.drain(), per_iter=want,
+                totals={k: sum(c[k] for c in tr.per_iter)
+                        for k in kernels.WRAPPERS},
+                last_train_return=history[-1])
+
+
+def _value_phases(torch, device, **kw):
+    """A value trainer's first iteration on ``device``: the trainer, its
+    state, the iteration, the packed weights and the draws of step 0,
+    made on the CPU (so every device gets the same ones)."""
+    from repro_torch.rl.train_steps import ValueDraws, iteration_generator
+    from repro_torch.rl.trainer import ValueTrainer
+
+    tr = ValueTrainer(seed=0, device=device, verbose=False, **kw)
+    cpu = ValueTrainer(seed=0, device="cpu", verbose=False, **kw)
+    draws = cpu.draws(iteration_generator(0, 0, torch.device("cpu")), 0)
+    draws = ValueDraws(*(None if t is None else t.to(device)
+                         for t in draws))
+    state = tr.init_state()
+    return tr, state, tr.build_iteration(), tr.pack(state), draws
+
+
+def _value_rollout_codes(torch, tr, packed, traj, draws, eps):
+    """The behaviour actor's int8 codes at every step of ``traj`` on its
+    own device, [T, B, n], after checking that re-running the behaviour
+    policy on the step's observations and draws gives the rollout's
+    actions bit for bit (so the codes are the rollout's own)."""
+    from repro_torch.rl.actor_learner import unpack_weights
+
+    agent = tr.agent
+    params = unpack_weights(packed)
+    fwd = agent.qvals if agent.discrete else agent.act
+    codes = []
+    with torch.no_grad():
+        for t in range(traj[0].shape[0]):
+            out, c = _recorded_codes(
+                torch, lambda: fwd(params, traj[0][t], tr.a_policy))
+            again = agent.behave(params, traj[0][t], draws.step(t), eps,
+                                 tr.a_policy)
+            if not torch.equal(again, traj[1][t]):
+                raise AssertionError(f"{traj[0].device}: the behaviour "
+                                     f"policy at step {t} is not the "
+                                     "rollout's")
+            codes.append(c)
+    return torch.stack(codes)
+
+
+def _value_grad(torch, tr, fn, p, args, where):
+    """``fn``'s gradient with respect to ``p`` on ``where`` (args moved
+    there), and which ReLUs of the forward passed."""
+    from repro_torch.core import vact
+    from repro_torch.rl.ppo import value_and_grad
+
+    gates = []
+
+    def relu(x):
+        gates.append((x > 0).reshape(-1).cpu())
+        return torch.relu(x)
+
+    def moved(a):
+        if isinstance(a, (torch.Tensor, dict, list, tuple)):
+            return _tree_to(a, where)
+        return a                      # the nets' applies and the config
+
+    vact._NATIVE["relu"] = relu
+    try:
+        (_, aux), g = value_and_grad(fn, _tree_to(p, where),
+                                     *(moved(a) for a in args))
+    finally:
+        vact._NATIVE["relu"] = torch.relu
+    return g, aux, torch.cat(gates)
+
+
+def _value_learner_card_vs_cpu(torch, dev, tr, it_fn, state, traj, draws,
+                               it, cpu_out):
+    """The CPU learner's updates one at a time (``it_fn.add_rollout``,
+    then ``it_fn.update`` for each update, as ``learn_phase`` runs
+    them), each gradient and AdamW also run on the card from the CPU's
+    state before it.  Per gradient: within rtol 1e-5 of each leaf's
+    largest entry of the CPU's, unless a ReLU of the forward passed on
+    one device and not on the other (exempt and counted); AdamW on the
+    card, given the CPU's gradient, within atol 1e-5 + rtol 1e-4 of the
+    CPU's params and moments.  The CPU's updates must end bitwise where
+    its ``learn_phase`` did.  Returns (largest abs errors, whether every
+    update held)."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import tree_map
+
+    def adam(g, p, s):
+        with torch.no_grad():
+            p, s, _ = adamw_update(g, s, p, tr.sched, tr.ocfg)
+        return p, s
+
+    worst = dict.fromkeys(("grads", "params", "mu", "nu"), 0.0)
+    ok, gated = True, []
+
+    def held(name, fn, p, s, args):
+        """One gradient and AdamW step of subtree ``p`` held card vs CPU;
+        returns the CPU's (params, state, aux)."""
+        nonlocal ok
+        g_card, _, gates_card = _value_grad(torch, tr, fn, p, args, dev)
+        g_cpu, aux, gates_cpu = _value_grad(torch, tr, fn, p, args,
+                                            torch.device("cpu"))
+        flips = int((gates_card != gates_cpu).sum())
+        if flips:
+            gated.append((name, flips))
+        for a, b in zip(_leaves(g_card), _leaves(g_cpu), strict=True):
+            a = a.cpu()
+            if not flips:
+                worst["grads"] = max(worst["grads"],
+                                     (a - b).abs().max().item())
+                ok &= bool(torch.allclose(
+                    a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item()))
+        p_card, s_card = adam(_tree_to(g_cpu, dev), _tree_to(p, dev),
+                              _tree_to(s, dev))
+        p_new, s_new = adam(g_cpu, p, s)
+        for key, a_tree, b_tree in (("params", p_card, p_new),
+                                    ("mu", s_card["mu"], s_new["mu"]),
+                                    ("nu", s_card["nu"], s_new["nu"])):
+            for a, b in zip(_leaves(a_tree), _leaves(b_tree), strict=True):
+                a = a.cpu()
+                worst[key] = max(worst[key], (a - b).abs().max().item())
+                ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+        return p_new, s_new, aux
+
+    params, target, opt = state.params, state.target, state.opt
+    buf = it_fn.add_rollout(tree_map(torch.clone, state.replay), traj)
+    beta = it_fn.beta(it)
+    for u in range(tr.updates_per_iter):
+        params, target, opt, buf = it_fn.update(params, target, opt, buf,
+                                                draws, u, beta, step=held)
+    for a, b in zip(_leaves((params, target, opt, buf)), _leaves(cpu_out),
+                    strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("the value learner's updates one by one "
+                                 "do not end where its learn_phase does")
+    worst["updates whose ReLU gates differ (net, gates)"] = gated
+    return worst, ok
+
+
+def _sum_tree_card_vs_cpu(torch, dev):
+    """The sum tree at the default capacity (50,000 slots, 65,536
+    leaves) on both devices from the same inputs: updates of 256 slots
+    (an add's) and of 64 and 128 (an update's) with duplicate slots of
+    different values, and stratified ``find`` queries, interval
+    boundaries among them.  Every node bitwise, every slot equal."""
+    from repro_torch.rl.replay import sum_tree
+
+    g = torch.Generator().manual_seed(4242)
+    cap = 50_000
+    trees = {d: sum_tree.init(cap, d) for d in (dev, torch.device("cpu"))}
+    dups = 0
+    for m in (256, 64, 128, 64, 128, 256, 64):
+        idx = torch.randint(0, cap, (m,), generator=g)
+        idx[m // 2:m // 2 + 8] = idx[:8]            # duplicate slots
+        dups += m - len(set(idx.tolist()))
+        vals = torch.rand(m, generator=g) * 3
+        for d in trees:
+            trees[d] = sum_tree.update(trees[d], idx.to(d), vals.to(d))
+    a, b = trees[dev].cpu(), trees[torch.device("cpu")]
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("sum tree: card and CPU nodes differ after "
+                             "the same updates")
+    L = b.shape[0] // 2
+    if not torch.equal(b[1:L], b[2:2 * L:2] + b[3:2 * L:2]):
+        raise AssertionError("sum tree: an internal node is not the sum "
+                             "of its children")
+    u = torch.rand(4096, generator=g) * b[1]
+    edges = torch.cumsum(b[L:L + cap].double(), 0).float()
+    u = torch.cat([u, edges[edges < b[1]][:1024]])
+    f_card = sum_tree.find(trees[dev], u.to(dev)).cpu()
+    f_cpu = sum_tree.find(b, u)
+    if not torch.equal(f_card, f_cpu):
+        raise AssertionError("sum tree: card and CPU find different slots")
+    print(f"sum tree card vs CPU: 7 updates ({dups} duplicate slots) at "
+          f"capacity {cap}: all {b.numel()} nodes bitwise; find: "
+          f"{u.numel()} queries, slots equal")
+    return dict(duplicates=dups, nodes=b.numel(), queries=u.numel())
+
+
+def value_card_vs_cpu(torch, dev):
+    """Phase 11 worker: one iteration of each value run (and of dqn with
+    PER and ddpg with TQC) on the card against the plain path on the
+    CPU, the same params, env states and draws.  The rollouts: actions
+    equal (ddpg: within rtol 1e-5) and observations, rewards and
+    ``final_obs`` within rtol 1e-5 + atol 1e-6 in every env up to its
+    first step whose behaviour forward has int8 codes that differ
+    between the devices; such rows are counted and the env's later
+    steps exempt.  The learners, both from the CPU's rollout: each
+    update held as ``_value_learner_card_vs_cpu`` says.  Then the sum
+    tree bitwise across the devices."""
+    from repro_torch.rl.value import epsilon
+
+    torch.set_num_threads(2)
+    cpu = torch.device("cpu")
+    report = {}
+    for name, kw in VALUE_PARITY.items():
+        runs = []
+        for where in (dev, cpu):
+            tr, state, it, packed, draws = _value_phases(torch, where, **kw)
+            eps = epsilon(0, tr.agent.cfg) if tr.agent.discrete else 0.0
+            (est, obs), traj = it.rollout_phase(packed, draws, state.est,
+                                                state.obs, 0)
+            codes = _value_rollout_codes(torch, tr, packed, traj, draws,
+                                         eps)
+            runs.append((tr, state, it, draws, traj, codes))
+        (_, _, _, _, td_, cd), (tr, sc, it, dc, tc, cc) = runs
+        host = lambda t: t.detach().cpu()  # noqa: E731
+        differ = host(cd) != cc
+        flipped = differ.any(-1)                          # [T, B]
+        diverged = torch.cumsum(flipped.int(), 0) > 0     # from there on
+        before = torch.cat([torch.zeros_like(diverged[:1]),
+                            diverged[:-1]])               # strictly before
+        errs, off = {}, {}
+        a_card, a_cpu = host(td_[1]), tc[1]
+        if tr.agent.discrete:
+            bad = (a_card != a_cpu) & ~diverged
+        else:
+            bad = (~torch.isclose(a_card, a_cpu, rtol=1e-5, atol=1e-6)
+                   ).any(-1) & ~diverged
+            errs["actions"] = (a_card - a_cpu).abs().max().item()
+        off["actions"] = int(bad.sum())
+        for i, f in ((0, "obs"), (2, "rewards"), (5, "final_obs")):
+            a, b = host(td_[i]).float(), tc[i].float()
+            errs[f] = (a - b).abs().max().item()
+            close = torch.isclose(a, b, rtol=1e-5, atol=1e-6)
+            close = close.reshape(close.shape[0], close.shape[1], -1).all(-1)
+            mask = before if f == "obs" else diverged
+            off[f] = int((~close & ~mask).sum())
+        for i, f in ((3, "dones"), (4, "truncated")):
+            off[f] = int(((host(td_[i]) != tc[i]) & ~diverged).sum())
+        # both learners from the CPU's rollout: [card, CPU]
+        outs = []
+        for rtr, _, rit, dr, _, _ in runs:
+            where = rtr.device
+            outs.append(rit.learn_phase(
+                *(_tree_copy(x, where) for x in (sc.params, sc.target,
+                                                  sc.opt, sc.replay)),
+                _tree_to(tc, where), dr, 0))
+        free = max(((host(a) - b).abs().max().item() for a, b in zip(
+            _leaves(outs[0][:3]), _leaves(outs[1][:3]), strict=True)),
+            default=0.0)
+        worst, ok = _value_learner_card_vs_cpu(
+            torch, dev, tr, it, sc, tc, dc, 0, outs[1])
+        report[name] = dict(codes_differ=int(differ.sum()),
+                            codes=differ.numel(),
+                            rows_flipped=int(flipped.sum()),
+                            rows=flipped.numel(), errs=errs, past=off,
+                            learner_errs=worst, learner_free=free)
+        flags = " ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"{name} card vs CPU ({flags}): "
+              f"int8 codes that differ {int(differ.sum())} of "
+              f"{differ.numel()}, in {int(flipped.sum())} of "
+              f"{flipped.numel()} behaviour rows; largest abs errors "
+              f"{errs}; entries past the bars before those rows {off}; "
+              f"learner from the CPU's rollout, each update on the card "
+              f"from the CPU's state (AdamW given the CPU's gradient), "
+              f"largest abs errors {worst}; the two learners run "
+              f"through, largest abs error {free}", flush=True)
+        if any(off.values()):
+            raise AssertionError(f"{name}: card and CPU rollouts past the "
+                                 f"bars where the codes agree: {off}")
+        if not ok:
+            raise AssertionError(f"{name}: a learner update on the card "
+                                 "differs from the CPU's: gradients past "
+                                 "rtol 1e-5 of the leaf's largest entry, "
+                                 "or AdamW past atol 1e-5 + rtol 1e-4")
+    report["sum_tree"] = _sum_tree_card_vs_cpu(torch, dev)
+    return report
+
+
+def profile_value(torch, dev, run, n=2):
+    """Phase 11: where a value iteration's time goes, its rollout (8
+    steps of the fxp8 behaviour actor and the env) and its learner
+    (n-step targets, the replay add, 4 sampled updates of fp32 forward,
+    backward, AdamW and polyak) each traced as ``profile_forward``
+    traces a forward, from the same inputs each call; the port's
+    launches by the wrappers' counters."""
+    from repro_torch import kernels
+
+    cfg = VALUE_RUNS[run]
+    tr, state, it, packed, draws = _value_phases(torch, dev, **cfg["kw"])
+    (est, obs), traj = it.rollout_phase(packed, draws, state.est, state.obs,
+                                        0)
+
+    def rollout():
+        it.rollout_phase(packed, draws, state.est, state.obs, 0)
+        torch.cuda.synchronize()
+
+    def learn():
+        it.learn_phase(state.params, state.target, state.opt, state.replay,
+                       traj, draws, 0)
+        torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("rollout", rollout), ("learner", learn)):
+        kernels.reset_launch_counts()
+        fn()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        wall, rows, launches, why = _profiled(torch, fn, n)
+        _print_profile(f"value iteration ({cfg['flags']}), {name} phase "
+                       "(32 envs x 8 steps, 4 updates)", wall, rows,
+                       launches, why, top=8, per="phase")
+        print(f"  the port's kernels in one {name} phase: {counts}")
+        out[name] = (wall, sum(r[0] for r in rows), launches, counts)
+    wall = sum(v[0] for v in out.values())
+    busy = sum(v[1] for v in out.values())
+    print(f"value iteration ({cfg['flags']}): wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; device "
+          "launches " + ", ".join(f"{k} {v[2]}" for k, v in out.items()))
+    want = {k: v * tr.rollout_len for k, v in cfg["per_forward"].items()}
+    if out["rollout"][3] != want:
+        raise AssertionError(f"{run} rollout phase launched "
+                             f"{out['rollout'][3]}, not {want}")
+    if out["learner"][3]:
+        raise AssertionError(f"{run} learner launched {out['learner'][3]}")
+    return out
+
+
+def value_jobs():
+    """Phase 11's worker jobs: three seeds of each value run and the
+    card-vs-CPU iterations."""
+    return [["vtrain", run, str(s)] for run in VALUE_RUNS
+            for s in TRAIN_SEEDS] + [["vparity", "all"]]
+
+
+def value_training(card, results):
+    """Phase 11: the three value runs at their defaults, three seeds
+    each, from the workers' results.  Per seed: greedy return, env
+    steps/s, the wall split and the launches; per run the median greedy
+    return against its bar."""
+    totals = {}
+    for run, cfg in VALUE_RUNS.items():
+        tot = dict.fromkeys(results[("vtrain", run, "0")]["totals"], 0)
+        returns = []
+        for seed in TRAIN_SEEDS:
+            r = results[("vtrain", run, str(seed))]
+            returns.append(r["ret"])
+            for k, v in r["totals"].items():
+                tot[k] += v
+            split = ", ".join(f"{k} {v:.3f} s ({v / r['wall']:.3f})"
+                              for k, v in r["spans"].items())
+            print(f"{run} ({cfg['flags']}) seed {seed} on {card}: greedy "
+                  f"return {r['ret']} over {r['n_ep']} episodes "
+                  f"(untrained {r['untrained']}); last train return "
+                  f"{r['last_train_return']}; {r['steps']} env steps in "
+                  f"{r['wall']:.3f} s = {r['steps'] / r['wall']:.1f} env "
+                  f"steps/s; wall split: {split}; launches {r['per_iter']} "
+                  f"in each of {r['iters']} iterations")
+        median = statistics.median(returns)
+        bar, ref, u = value_bar(run)
+        print(f"{run}: median greedy return {median} over seeds "
+              f"{TRAIN_SEEDS}; the reference's median {ref}, untrained "
+              f"{u}: bar {bar}")
+        if median < bar:
+            raise AssertionError(f"{run}: median greedy return {median} < "
+                                 f"{bar}")
+        totals[run] = tot
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2306,6 +2895,13 @@ def main() -> int:
         return _worker(torch, sys.argv[2:])
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what):
+        """Print the seconds since the last phase ended."""
+        laps.append(time.perf_counter())
+        print(f"{what} took {laps[-1] - laps[-2]:.1f} s", flush=True)
+
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2321,9 +2917,12 @@ def main() -> int:
     worst = check_kernels(torch, dev)
     for check in (check_hrl_kernels, check_split_and_band_edges,
                   check_ew_and_cell_edges, check_softmax_and_q8_edges,
-                  check_training_kernels, check_pixel_kernels):
+                  check_training_kernels, check_pixel_kernels,
+                  check_value_kernels):
         worst = check(torch, dev, worst)
+    lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
+    lap("phase 4 (kernel timing)")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -2334,21 +2933,34 @@ def main() -> int:
         print(f"{precision} on {card}: {s['actions_per_s']:.1f} actions/s, "
               f"p50 {s['p50_ms']:.4f} ms, p99 {s['p99_ms']:.4f} ms, "
               f"{st.episodes} episodes")
+    lap("phases 5-6 (serving)")
     hrl_launches, fps, lstm = hrl_path(torch, dev)
     per_forward = profile_hrl(torch, lstm)
     print("LSTM-HRL device launches per forward: " + ", ".join(
         f"{b} {v}" for b, v in per_forward.items()))
     for name, v in fps.items():
         print(f"{name} on {card}: {v:.1f} frames/s")
+    lap("phases 7-8 (the HRL forward)")
     train_launches = training_path(torch, dev, card)
     card_vs_cpu_iteration(torch, dev)
     profile_training(torch, dev)
-    t10 = time.perf_counter()
-    pixel_launches = pixel_training(torch, dev, card,
-                                    os.path.join(work, "phase10"))
-    print(f"phase 10's jobs took {time.perf_counter() - t10:.1f} s")
+    lap("phase 9 (PPO training on cartpole)")
+    # phase 10's jobs, then phase 11's: each phase's processes share the
+    # host's cores only among themselves
+    results = _run_workers(torch, os.path.join(work, "phase10"),
+                           pixel_jobs())
+    lap("phase 10's jobs")
+    pixel_launches = pixel_training(card, results)
+    results = _run_workers(torch, os.path.join(work, "phase11"),
+                           value_jobs())
+    lap("phase 11's jobs")
+    value_launches = value_training(card, results)
     for run in PIXEL_RUNS:
         profile_training(torch, dev, run=run)
+    lap("phase 10's profiles")
+    for run in VALUE_RUNS:
+        profile_value(torch, dev, run)
+    lap("phase 11's profiles")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -2372,7 +2984,8 @@ def main() -> int:
                    "hrl": hrl_launches[name],
                    "training": train_launches[name],
                    "hrl_training": pixel_launches["hrl_training"][name],
-                   "pixel_training": pixel_launches["pixel_training"][name]}
+                   "pixel_training": pixel_launches["pixel_training"][name],
+                   **{run: value_launches[run][name] for run in VALUE_RUNS}}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

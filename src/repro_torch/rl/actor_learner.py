@@ -9,8 +9,9 @@ packed weights: the learner pushes, slots fetch at a chosen lag, and
 per-slot staleness gives the ``alive`` straggler mask that
 ``fleet_mask`` turns into the PPO loss's mask.
 
-The sharded collection over several cards (``collect_sharded``) waits
-for the sharded slice.
+``collect`` rolls the on-policy fleet, ``collect_value`` the value
+family's behaviour actors.  The sharded collection over several cards
+(``collect_sharded``) waits for the sharded slice.
 """
 from __future__ import annotations
 
@@ -108,6 +109,27 @@ def collect(packed, env: Environment, apply_fn: Callable,
     params = unpack_weights(packed)
     fn = (lambda p, o: apply_fn(p, o, actor_policy))  # noqa: E731
     return rollout(params, env, fn, noise, env_state, obs, n_steps, dist)
+
+
+def collect_value(packed, env: Environment, behave_fn: Callable,
+                  actor_policy: Optional[QuantPolicy], step_draws: Callable,
+                  env_state, obs: Tensor, n_steps: int, eps: float):
+    """One value-family actor's contribution: dequantize the synced
+    weights once, run ``n_steps`` behaviour-policy env steps.
+    ``step_draws(t)`` is step ``t``'s exploration draws (what
+    ``behave_fn`` takes).  Returns ``((est, obs), (O, A, R, D, Tr,
+    FO))`` with time-major [T, B, ...] trajectory leaves."""
+    actor_params = unpack_weights(packed)
+    steps = []
+    with torch.no_grad():
+        for t in range(n_steps):
+            a = behave_fn(actor_params, obs, step_draws(t), eps,
+                          actor_policy)
+            env_state, nxt, r, d, tr, fo = env.step(env_state, a)
+            steps.append((obs, a, r, d, tr, fo))
+            obs = nxt
+    traj = tuple(torch.stack(xs) for xs in zip(*steps, strict=True))
+    return (env_state, obs), traj
 
 
 def fleet_mask(alive: Tensor, envs_per_slot: int) -> Tensor:

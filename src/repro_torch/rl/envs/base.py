@@ -22,11 +22,12 @@ a host round trip.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
 
-from repro_torch.rl.envs.spaces import Discrete, Space
+from repro_torch.rl.envs.spaces import Box, Discrete, Space
 from repro_torch.tree import is_namedtuple
 
 Tensor = torch.Tensor
@@ -83,6 +84,16 @@ def auto_reset(done: Tensor, fresh: Any, nxt: Any) -> Any:
     raise TypeError(f"cannot auto-reset a state leaf of type {type(fresh)}")
 
 
+def angle_wrap(x: Tensor) -> Tensor:
+    """Wrap angles to [-pi, pi): the reference's ``((x + pi) % 2pi) -
+    pi`` with its floored remainder written out (``fmod`` is exact, and
+    a non-zero remainder of the other sign moves up by the divisor)."""
+    two_pi = 2 * math.pi
+    r = torch.fmod(x + math.pi, two_pi)
+    r = torch.where((r != 0) & (r < 0), r + two_pi, r)
+    return r - math.pi
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvSpec:
     """Static interface description of an environment."""
@@ -103,6 +114,10 @@ class EnvSpec:
                 f"{self.name}: action space is {self.action_space!r}, "
                 "not Discrete — use spec.action_space directly")
         return self.action_space.n
+
+    @property
+    def continuous(self) -> bool:
+        return isinstance(self.action_space, Box)
 
 
 ResetFn = Callable[[Tensor], Tuple[Any, Tensor]]

@@ -1,6 +1,4 @@
-"""Small actor-critic and Q networks (port of ``repro.rl.nets``: the
-``mlp_ac_*`` actor-critic and the ``conv_*`` torso with its actor-critic
-and Q heads).
+"""Small actor-critic and Q networks (port of ``repro.rl.nets``).
 
 Every product is a Q-MAC (``q_matmul`` under the QuantPolicy), every
 activation a V-ACT, so the quantized actors exercise exactly the
@@ -8,13 +6,15 @@ quantized paths:
 
   * ``mlp_ac_*`` — a 2-layer tanh torso over flat [B, D] observations
     with a distribution head and a value head (the PPO/A2C agent);
+  * ``mlp_q``/``mlp_qr``/``mlp_pi``/``mlp_twin_q``/``mlp_twin_qr`` — the
+    value family's 2-layer ReLU nets: the DQN Q net, its QR-DQN
+    quantile head, the DDPG actor (a V-ACT tanh squash into the action
+    bounds) and the twin (quantile) critics over (obs, action);
   * ``conv_*`` — the paper's vision stem: stride-2 Q-Conv blocks (stride
     replaces pooling, ReLU after) over [B, H, W, C] pixel observations,
     a dense layer to ``hidden`` features, then policy and value heads
     (``conv_ac_*``, the pixel PPO/A2C agent) or a linear Q head
-    (``conv_q_*``).
-
-The quantile heads arrive with the value slice.
+    (``conv_q_*``) and its quantile head (``conv_qr_*``).
 """
 from __future__ import annotations
 
@@ -55,6 +55,107 @@ def mlp_ac_apply(params, obs: torch.Tensor,
     logits = linear_apply(params["pi"], h, policy)
     value = linear_apply(params["v"], h, policy)[..., 0]
     return logits, value
+
+
+def mlp_q_init(gen: torch.Generator, obs_dim: int, n_actions: int,
+               hidden: int = 64, dtype=torch.float32, device="cpu"):
+    return {
+        "fc1": linear_init(gen, obs_dim, hidden, dtype=dtype,
+                           device=device),
+        "fc2": linear_init(gen, hidden, hidden, dtype=dtype, device=device),
+        "q": linear_init(gen, hidden, n_actions, dtype=dtype,
+                         device=device),
+    }
+
+
+def mlp_q_apply(params, obs: torch.Tensor,
+                policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    h = activation(linear_apply(params["fc1"], obs, policy), "relu", policy)
+    h = activation(linear_apply(params["fc2"], h, policy), "relu", policy)
+    return linear_apply(params["q"], h, policy)
+
+
+def mlp_qr_init(gen: torch.Generator, obs_dim: int, n_actions: int,
+                n_quantiles: int, hidden: int = 64, dtype=torch.float32,
+                device="cpu"):
+    """QR-DQN: the plain Q net with a [n_actions * n_quantiles] head."""
+    return mlp_q_init(gen, obs_dim, n_actions * n_quantiles, hidden, dtype,
+                      device)
+
+
+def mlp_qr_apply(params, obs: torch.Tensor, n_actions: int,
+                 n_quantiles: int,
+                 policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """obs [B, D] -> quantile values [B, n_actions, n_quantiles]."""
+    q = mlp_q_apply(params, obs, policy)
+    return q.reshape(q.shape[:-1] + (n_actions, n_quantiles))
+
+
+def mlp_pi_init(gen: torch.Generator, obs_dim: int, act_dim: int,
+                hidden: int = 64, dtype=torch.float32, device="cpu"):
+    """Deterministic DDPG actor: obs -> tanh-squashed action."""
+    return {
+        "fc1": linear_init(gen, obs_dim, hidden, dtype=dtype,
+                           device=device),
+        "fc2": linear_init(gen, hidden, hidden, dtype=dtype, device=device),
+        "out": linear_init(gen, hidden, act_dim, dtype=dtype,
+                           device=device),
+    }
+
+
+def mlp_pi_apply(params, obs: torch.Tensor, low: float, high: float,
+                 policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """obs [B, D] -> action [B, act_dim] in [low, high]; the tanh squash
+    is a V-ACT activation like every other."""
+    h = activation(linear_apply(params["fc1"], obs, policy), "relu", policy)
+    h = activation(linear_apply(params["fc2"], h, policy), "relu", policy)
+    u = activation(linear_apply(params["out"], h, policy), "tanh", policy)
+    mid, half = 0.5 * (high + low), 0.5 * (high - low)
+    return mid + half * u
+
+
+def mlp_twin_q_init(gen: torch.Generator, obs_dim: int, act_dim: int,
+                    hidden: int = 64, dtype=torch.float32, device="cpu"):
+    """TD3-style twin critics Q(s, a): two Q torsos over the
+    concatenated (obs, action)."""
+    return {"q1": mlp_q_init(gen, obs_dim + act_dim, 1, hidden, dtype,
+                             device),
+            "q2": mlp_q_init(gen, obs_dim + act_dim, 1, hidden, dtype,
+                             device)}
+
+
+def _obs_act(obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    return torch.cat([obs, act.reshape(obs.shape[0], -1).to(obs.dtype)],
+                     dim=-1)
+
+
+def mlp_twin_q_apply(params, obs: torch.Tensor, act: torch.Tensor,
+                     policy: Optional[QuantPolicy] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(obs [B, D], act [B, d]) -> (q1 [B], q2 [B])."""
+    x = _obs_act(obs, act)
+    return (mlp_q_apply(params["q1"], x, policy)[..., 0],
+            mlp_q_apply(params["q2"], x, policy)[..., 0])
+
+
+def mlp_twin_qr_init(gen: torch.Generator, obs_dim: int, act_dim: int,
+                     n_quantiles: int, hidden: int = 64,
+                     dtype=torch.float32, device="cpu"):
+    """TQC-style twin quantile critics Z(s, a) with [n_quantiles]
+    heads."""
+    return {"q1": mlp_q_init(gen, obs_dim + act_dim, n_quantiles, hidden,
+                             dtype, device),
+            "q2": mlp_q_init(gen, obs_dim + act_dim, n_quantiles, hidden,
+                             dtype, device)}
+
+
+def mlp_twin_qr_apply(params, obs: torch.Tensor, act: torch.Tensor,
+                      policy: Optional[QuantPolicy] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(obs [B, D], act [B, d]) -> (z1 [B, N], z2 [B, N])."""
+    x = _obs_act(obs, act)
+    return (mlp_q_apply(params["q1"], x, policy),
+            mlp_q_apply(params["q2"], x, policy))
 
 
 CONV_CHANNELS = (16, 32)
@@ -148,3 +249,22 @@ def conv_q_apply(params, obs: torch.Tensor,
     """obs [B, H, W, C] -> Q values [B, A]."""
     h = conv_torso_apply(params["torso"], obs, policy)
     return linear_apply(params["q"], h, policy)
+
+
+def conv_qr_init(gen: torch.Generator, obs_shape: Tuple[int, ...],
+                 n_actions: int, n_quantiles: int,
+                 channels: Sequence[int] = CONV_CHANNELS,
+                 kernel: int = CONV_KERNEL, hidden: int = CONV_HIDDEN,
+                 dtype=torch.float32, device="cpu"):
+    """QR-DQN over pixels: the conv Q net with a [n_actions *
+    n_quantiles] head."""
+    return conv_q_init(gen, obs_shape, n_actions * n_quantiles, channels,
+                       kernel, hidden, dtype, device)
+
+
+def conv_qr_apply(params, obs: torch.Tensor, n_actions: int,
+                  n_quantiles: int,
+                  policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """obs [B, H, W, C] -> quantile values [B, n_actions, n_quantiles]."""
+    q = conv_q_apply(params, obs, policy)
+    return q.reshape(q.shape[:-1] + (n_actions, n_quantiles))

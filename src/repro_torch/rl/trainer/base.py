@@ -48,6 +48,17 @@ def resolve_mesh(mesh_kind: str, mesh_devices: Optional[int], n_envs: int,
     return 1
 
 
+def flag_mismatch(ckpt_dir, flag: str, saved, have, reason: str = "",
+                  verb: str = "saved by") -> ValueError:
+    """The one checkpoint-vs-flags error format (metadata is validated
+    before the tree restore, so a mismatched template fails with this
+    and never a missing-leaf KeyError)."""
+    why = f"{reason}; " if reason else ""
+    return ValueError(
+        f"checkpoint in {ckpt_dir} was {verb} --{flag} {saved}, not "
+        f"{have} — {why}relaunch with the original flags")
+
+
 class Trainer:
     """Base driver: subclasses supply the family seams, this class owns
     the loop, the checkpoint flow and the weight sync."""

@@ -20,8 +20,7 @@ then ``--frame-stack``).
 
 Not in this slice, each raising ``NotImplementedError`` that names its
 slice: several devices (the sharded slice), ``--metrics-dir``/
-``--profile-dir`` (observability), the classic-control envs other than
-cartpole.
+``--profile-dir`` (observability).
 """
 from __future__ import annotations
 
@@ -36,10 +35,10 @@ from repro_torch.models import hrl
 from repro_torch.optim import AdamWConfig, adamw_init, constant
 from repro_torch.rl.actor_learner import pack_weights
 from repro_torch.rl.dists import distribution_for
-from repro_torch.rl.envs import Environment
+from repro_torch.rl.envs import Environment, make
 from repro_torch.rl.envs.spaces import head_dim
 from repro_torch.rl.inference import (ON_POLICY_ALGOS, VALUE_ALGOS,
-                                      build_env, make_env, not_in_slice)
+                                      build_env, not_in_slice)
 from repro_torch.rl.nets import (conv_ac_apply, conv_ac_init, mlp_ac_apply,
                                  mlp_ac_init)
 from repro_torch.rl.ppo import PPOConfig, a2c_loss, ppo_loss, stage_mask
@@ -107,10 +106,10 @@ class OnPolicyTrainer(Trainer):
                  profile_dir: Optional[str] = None,
                  device: DeviceLike = None):
         if algo not in ON_POLICY_ALGOS:
-            if algo in VALUE_ALGOS:
-                raise not_in_slice(f"--algo {algo}", "value family")
             raise ValueError(f"rl_train drives the on-policy family "
-                             f"{ON_POLICY_ALGOS}; got --algo {algo!r}")
+                             f"{ON_POLICY_ALGOS}; use value_train for "
+                             f"{VALUE_ALGOS} (or the --algo CLI "
+                             "dispatch)")
         if two_stage and agent != "hrl":
             raise ValueError("--two-stage trains the HRL sub-goal "
                              "curriculum and requires --agent hrl")
@@ -133,7 +132,7 @@ class OnPolicyTrainer(Trainer):
             if frame_stack_k > 1:
                 raise ValueError("--frame-stack is a pixel-pipeline knob "
                                  "and requires --net conv")
-            self.env = make_env(env_name)
+            self.env = make(env_name)
         self.env_name, self.n_envs = env_name, n_envs
         self.algo = algo
         self.rollout_len = rollout_len

@@ -5,7 +5,9 @@
 reference's index keys ("0/..." params, "2/..." optimizer state,
 "4/..." env state, "5" observations) and a checkpoint of either package
 restores in the other.  The on-policy family leaves ``target`` and
-``replay`` as ``None``, which carry no leaves.  The per-iteration
+``replay`` as ``None``, which carry no leaves; the value family fills
+every slot (``replay`` holds the uniform or PER state, pointer, size
+and tree included).  The per-iteration
 draws are not state: they are a function of (seed, global step).
 """
 from __future__ import annotations
@@ -23,6 +25,10 @@ class TrainState(NamedTuple):
     replay: Any     # replay buffer state (None for on-policy)
     est: Any        # vectorized env state
     obs: Any        # last observations [n_envs, ...]
+
+
+def value_state(params, target, opt, replay, est, obs) -> TrainState:
+    return TrainState(params, target, opt, replay, est, obs)
 
 
 def onpolicy_state(params, opt, est, obs) -> TrainState:

@@ -23,7 +23,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.rl.envs.wrappers import (NormStats, merge_norm_stats,
                                           norm_stats_of)
 from repro_torch.rl.inference import (NETS, VALUE_ALGOS, ValueAgent,
-                                      build_env, make_value_agent)
+                                      build_env, make_value_agent,
+                                      not_in_slice)
 from repro_torch.rl.rollout import init_envs
 
 # serving precision points: (weight pack bits, apply-policy preset).
@@ -115,6 +116,9 @@ def load_policy(ckpt_dir: str, algo: Optional[str] = None,
     if net not in NETS:
         raise ValueError(f"checkpoint in {ckpt_dir} holds --net "
                          f"{net!r} (expected one of {NETS})")
+    if (algo, net) != ("dqn", "conv"):
+        raise not_in_slice(f"serving a checkpoint of --algo {algo} --net "
+                           f"{net}", "serving")
     frame_stack = int(md.get("frame_stack", 1))
 
     # template: the same net and env stack as training, so the template's

@@ -649,3 +649,45 @@ def test_pixel_training_on_the_card_is_reproducible(dev, flags):
     for a, b in zip(tree_leaves(tuple(runs[0])), tree_leaves(tuple(runs[1])),
                     strict=True):
         assert torch.equal(a, b)
+
+
+def test_sum_tree_on_the_card_equals_the_cpu_with_duplicates(dev):
+    """Updates with duplicate slots of different values (the last one
+    kept) leave every node bitwise the CPU's, and ``find`` lands on the
+    same slots: the dedupe keeps the card's scatter order out of it."""
+    from repro_torch.rl.replay import sum_tree
+
+    gen = torch.Generator().manual_seed(7)
+    cpu, card = sum_tree.init(3000), sum_tree.init(3000, dev)
+    for m in (256, 64, 128, 64):
+        idx = torch.randint(0, 3000, (m,), generator=gen)
+        idx[m // 2:] = idx[:m - m // 2]          # every slot twice
+        vals = torch.rand(m, generator=gen) * 3
+        cpu = sum_tree.update(cpu, idx, vals)
+        card = sum_tree.update(card, idx.to(dev), vals.to(dev))
+    assert torch.equal(_bits(card.cpu()), _bits(cpu))
+    u = torch.rand(1024, generator=gen) * cpu[1]
+    assert torch.equal(sum_tree.find(card, u.to(dev)).cpu(),
+                       sum_tree.find(cpu, u))
+
+
+@pytest.mark.parametrize("flags", [
+    dict(algo="dqn", env_name="cartpole", replay="per"),
+    dict(algo="qrdqn", env_name="catch", net="conv", frame_stack_k=4),
+    dict(algo="ddpg", env_name="pendulum", tqc_drop=2)])
+def test_value_training_on_the_card_is_reproducible(dev, flags):
+    """Two runs of the same seed of each value algo end bit for bit in
+    the same state (params, targets, optimizer, replay), and the
+    behaviour actors launch only the port's kernels' planned counts."""
+    from repro_torch.rl.trainer import ValueTrainer
+    from repro_torch.tree import tree_leaves
+
+    kernels.reset_launch_counts()
+    runs = [ValueTrainer(device=dev, verbose=False, iters=3, n_envs=8,
+                         rollout_len=8, learn_start=32, **flags).train()[0]
+            for _ in range(2)]
+    per_step = 2 if flags["algo"] == "qrdqn" else 3
+    assert kernels.launch_counts()["qmac_i8"] == 2 * 3 * 8 * per_step
+    for a, b in zip(tree_leaves(tuple(runs[0])), tree_leaves(tuple(runs[1])),
+                    strict=True):
+        assert torch.equal(a, b)

@@ -172,13 +172,21 @@ def test_loader_errors_and_unported_paths(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_policy(str(tmp_path / "none"), device="cpu")
     spec = tinf.build_env("keydoor", "conv", 1).spec
-    with pytest.raises(NotImplementedError, match="value family"):
-        tinf.make_value_agent("qrdqn", spec, net="conv", device="cpu")
+    agent = tinf.make_value_agent("qrdqn", spec, net="conv",
+                                  gen=torch.Generator().manual_seed(0),
+                                  device="cpu")
+    assert agent.params["q"]["w"].shape == (128, 4 * 32)
+    # serving a checkpoint other than conv dqn names the serving slice
+    ck = str(tmp_path / "qrdqn")
+    TManager(ck).save(1, (agent.params, None, None, None, None, None),
+                      metadata={"algo": "qrdqn", "net": "conv",
+                                "env": "keydoor"})
+    with pytest.raises(NotImplementedError, match="serving"):
+        load_policy(ck, device="cpu")
     # --net mlp is the vector view (images flattened), as the
-    # reference's; the envs still to port name their slice
+    # reference's; the classic-control envs build
     assert tinf.build_env("keydoor", "mlp").obs_shape == (3072,)
-    with pytest.raises(NotImplementedError, match="classic-control"):
-        tinf.build_env("pendulum", "mlp")
+    assert tinf.build_env("pendulum", "mlp").obs_shape == (3,)
     with pytest.raises(ValueError, match="unknown net"):
         tinf.build_env("keydoor", "resnet")
 

@@ -258,27 +258,34 @@ def test_cli_prints_iteration_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--agent", "hrl", "--algo", "qrdqn"], "value family"),
     (["--agent", "hrl", "--two-stage", "--mesh-devices", "2"], "sharded"),
     (["--net", "conv", "--env", "catch", "--metrics-dir", "m"],
      "observability"),
-    (["--algo", "dqn"], "value family"),
     (["--mesh-devices", "2"], "sharded"),
     (["--mesh", "production"], "sharded"),
     (["--metrics-dir", "m"], "observability"),
     (["--profile-dir", "p"], "observability"),
     (["--profile-start", "0"], "observability"),
     (["--profile-steps", "2"], "observability"),
-    (["--replay-capacity", "50000"], "value family"),
-    (["--n-step", "3"], "value family"),
-    (["--updates-per-iter", "4"], "value family"),
-    (["--learn-start", "256"], "value family"),
-    (["--env", "acrobot"], "classic-control envs"),
-    (["--env", "mountain_car"], "classic-control envs"),
-    (["--env", "pendulum"], "classic-control envs")])
+    (["--algo", "dqn", "--mesh", "host"], "sharded paths"),
+    (["--algo", "ddpg", "--env", "pendulum", "--profile-dir", "p"],
+     "observability")])
 def test_unported_flags_name_their_slice(argv, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         tcli.main(["--device", "cpu", "--iters", "1"] + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--algo", "dqn"], ["--replay-capacity", "50000"], ["--n-step", "3"],
+    ["--updates-per-iter", "4"], ["--learn-start", "256"],
+    ["--env", "acrobot"], ["--env", "mountain_car"], ["--env", "pendulum"]])
+def test_flags_of_the_value_slice_now_run(argv, capsys):
+    """The value family's flags and the classic-control envs, which named
+    their slice until it came: the on-policy loop ignores the value
+    knobs, as the reference's does, and every env trains."""
+    tcli.main(["--device", "cpu", "--iters", "1", "--n-envs", "4",
+               "--rollout-len", "8"] + argv)
+    assert "done in" in capsys.readouterr().out
 
 
 def test_cli_refuses_what_the_reference_refuses():
