@@ -110,7 +110,19 @@ non-zero:
    holds them); the sum tree at 50,000 slots bitwise on both devices
    after updates with duplicate slots, ``find`` equal; then a profile
    of each run's iteration;
-12. print the kernels' JSON line, then the device line last.
+12. observability and serving the value checkpoints: phase 11's seed-0
+   job of each value run also writes ``--metrics-dir`` telemetry and its
+   last iteration's checkpoint; the ``train.jsonl`` of each read back
+   (step windows tiling [0, 300), 76,800 env steps, ``steps_per_s`` in
+   every window); each checkpoint served through ``serve_policy`` on the
+   card at w8 with ``--check-parity`` (no mismatching row) and at w4,
+   with ``--metrics-dir`` (actions/s, p50/p99, the served mean return),
+   its served forward's launches held exactly (Q-MAC's fused product 3,
+   Q-Conv 2 + 2, 3) and profiled as phase 6 profiles; PPO and DQN on cartpole, 6 iterations each with and
+   without ``--metrics-dir``, history and params bitwise equal; a
+   ``--profile-dir`` window of 2 PPO steps whose trace holds a ``qmac``
+   kernel row;
+13. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -1449,11 +1461,14 @@ def _print_profile(what, wall_ms, rows, launches, why, top, per="forward"):
         print("  the profiler recorded no device time (not measured)")
 
 
-def profile_forward(torch, dev, ckpt, n=50):
+def profile_forward(torch, dev, ckpt, n=50, what="served forward"):
     """Phase 6: where a served forward's time goes.  ``n`` w8 forwards of
     a full bucket (32) under ``torch.profiler``: device time per forward
     by kernel name, beside the host wall time per forward (each ``act``
-    ends in a synchronize), so the device's idle share shows."""
+    ends in a synchronize), so the device's idle share shows.  Phase 12
+    profiles the value checkpoints' forwards the same way.  Returns the
+    port's launches of one such forward, by the wrappers' counters."""
+    from repro_torch import kernels
     from repro_torch.rl.rollout import init_envs
     from repro_torch.serve import PolicyServer, load_policy
 
@@ -1461,9 +1476,13 @@ def profile_forward(torch, dev, ckpt, n=50):
                           max_bucket=32)
     _, obs = init_envs(server.policy.env, 4, 32, dev)
     server.warmup(32)
+    kernels.reset_launch_counts()
+    server.act(obs)
+    per = {k: v for k, v in kernels.launch_counts().items() if v}
     wall, rows, launches, why = _profiled(torch, lambda: server.act(obs), n)
-    _print_profile("served forward, bucket 32, w8", wall, rows, launches,
-                   why, top=10)
+    _print_profile(f"{what}, bucket 32, w8", wall, rows, launches, why,
+                   top=10)
+    return per
 
 
 def _keydoor_frames(torch, dev):
@@ -2247,8 +2266,11 @@ def _worker(torch, argv):
     dev = torch.device("cuda", 0)
     if kind in ("train", "vtrain"):
         torch.set_num_threads(1)
-        seed = train_seed if kind == "train" else train_value_seed
-        result = seed(torch, dev, run, int(argv[2]))
+        if kind == "train":
+            result = train_seed(torch, dev, run, int(argv[2]))
+        else:
+            result = train_value_seed(torch, dev, run, int(argv[2]),
+                                      os.path.dirname(out))
     elif kind == "parity":
         result = pixel_card_vs_cpu(torch, dev, run)
     else:
@@ -2383,6 +2405,10 @@ VALUE_RUNS = {
                    -1514.0872802734375),
         per_forward={"qmac_i8": 3}),
 }
+# the value runs' iterations (their CLI default) and env steps (32 envs x
+# 8 steps an iteration)
+VALUE_ITERS = 300
+VALUE_STEPS = VALUE_ITERS * 32 * 8
 # the card-vs-CPU iterations: each run's, and dqn with prioritized
 # replay and ddpg with TQC's truncated quantile critics
 VALUE_PARITY = {
@@ -2395,6 +2421,11 @@ VALUE_PARITY = {
 # Q-MAC's products of the value runs not among phase 3's other shapes:
 # the ddpg actor's first layer and the QR-DQN quantile head
 VALUE_KN = ((3, 64), (128, 96))
+# the fused products the served value checkpoints run (phase 12): the
+# DQN/QR-DQN mlp's [4, 64], [64, 64], [64, 2]; the ddpg actor's [3, 64],
+# [64, 64], [64, 1]; the QR-DQN conv head's [192, 128], [128, 96]
+SERVED_VALUE_KN = ((4, 64), (64, 64), (64, 2), (3, 64), (64, 1),
+                   (192, 128), (128, 96))
 
 
 def check_value_kernels(torch, dev, worst):
@@ -2403,10 +2434,40 @@ def check_value_kernels(torch, dev, worst):
     [M, 128] x [128, 96], at the fleet's 32 rows and ragged rows,
     int32 equal to the plain version (the other products and Q-Conv's
     convs at catch's 10x5x4 frames are in the training and pixel
-    checks)."""
+    checks); and the fused ``qmac_i8_deq`` at every product the served
+    value checkpoints run, at serving's buckets, w8 and w4 weights
+    (qmax 127 and 7) and per-channel and per-tensor weight scales,
+    bitwise equal to the plain version."""
     from repro_torch.kernels.qmac import ops as qmac_ops
 
     g = torch.Generator(device=dev).manual_seed(97531)
+    deq_cases = 0
+    for m in (32, 1, 7, 16):
+        for k, n in SERVED_VALUE_KN:
+            for qmax in (127, 7):
+                qx = _i8(torch, g, dev, (m, k))
+                qw = torch.randint(-qmax, qmax + 1, (k, n), generator=g,
+                                   device=dev,
+                                   dtype=torch.int32).to(torch.int8)
+                sx = torch.rand((m, 1), generator=g, device=dev) * 0.02 \
+                    + 1e-4
+                sw = torch.rand((n,), generator=g, device=dev) * 0.02 \
+                    + 1e-4
+                for s in (sw, sw[:1].contiguous()):
+                    got = qmac_ops.qmac_i8_deq(qx, sx, qw, s)
+                    want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, s)
+                    err = (got - want).abs().max().item()
+                    worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"], err)
+                    if not bits_equal(torch, got, want):
+                        raise AssertionError(
+                            f"qmac_i8_deq != plain at the served value "
+                            f"products' M,K,N={m},{k},{n} qmax {qmax} "
+                            f"sw {tuple(s.shape)} (max abs err {err})")
+                    deq_cases += 1
+    torch.cuda.synchronize()
+    print(f"fused Q-MAC at the served value checkpoints' "
+          f"{len(SERVED_VALUE_KN)} products: {deq_cases} cases, fp32 "
+          "bitwise equal to the plain version")
     cases = 0
     for m in (32, 1, 7, 33, 64, 128):
         for k, n in VALUE_KN:
@@ -2487,17 +2548,25 @@ def _value_eval(tr, state, params):
     return tr.eval_policy(params, actor_policy="fxp8", norm_stats=stats)
 
 
-def train_value_seed(torch, dev, run, seed):
+def train_value_seed(torch, dev, run, seed, work):
     """Phase 11 worker: one seed of one value run through the trainer
     ``rl_train`` runs, on the card: the port's launch counters read in
     every iteration (exactly ``per_forward`` x 8 each, nothing else), the
     wall split, the greedy return of the untrained params and at the
-    end."""
+    end.  Seed 0 also writes its telemetry (``--metrics-dir``) and its
+    last iteration's checkpoint (``--ckpt-dir``) under ``work``, which
+    phase 12 reads and serves."""
     from repro_torch import kernels
 
     cfg = VALUE_RUNS[run]
+    obs_kw = {}
+    if seed == 0:
+        obs_kw = dict(metrics_dir=os.path.join(work, f"metrics_{run}"),
+                      ckpt_dir=os.path.join(work, f"ckpt_{run}"),
+                      save_every=VALUE_ITERS - 1)
     tr = _counting_value_trainer(torch, kernels)(seed=seed, device=dev,
-                                                 verbose=False, **cfg["kw"])
+                                                 verbose=False, **obs_kw,
+                                                 **cfg["kw"])
     untrained, _ = _value_eval(tr, tr.init_state(), tr.agent.params)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2879,6 +2948,149 @@ def value_training(card, results):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 12: telemetry, profiler windows and serving the value checkpoints
+# ---------------------------------------------------------------------------
+
+# the served forward's launches of the port's kernels: the behaviour
+# forward's (``VALUE_RUNS``), with the packed weights' fused product
+SERVED_PER_FORWARD = {
+    run: {("qmac_i8_deq" if k == "qmac_i8" else k): v
+          for k, v in cfg["per_forward"].items()}
+    for run, cfg in VALUE_RUNS.items()}
+SERVE_EPISODES = 64
+# the profiled PPO window: two steps of the default run at an eighth of
+# its rollout (a 128-step trace is slow to write and read)
+PROFILE_WINDOW_ROLLOUT = 16
+
+
+def value_telemetry(work):
+    """Phase 12: the ``train.jsonl`` of each value run's seed-0 job (phase
+    11), read with the port's reader: step windows tiling [0, 300), env
+    steps summing to 76,800, ``steps_per_s`` in every window."""
+    from repro_torch.obs import read_records, render, summarize
+    for run in VALUE_RUNS:
+        recs = read_records(os.path.join(work, f"metrics_{run}",
+                                         "train.jsonl"))
+        steps = [r for r in recs if r["kind"] == "step"]
+        windows = [r["window"] for r in steps]
+        tiled = (windows and windows[0][0] == 0
+                 and windows[-1][1] == VALUE_ITERS
+                 and all(a[1] == b[0] for a, b in zip(windows, windows[1:])))
+        total = sum(r["metrics"]["env_steps"] for r in steps)
+        if not tiled or total != VALUE_STEPS or not all(
+                "steps_per_s" in r["metrics"] for r in steps):
+            raise AssertionError(f"{run} telemetry: windows {windows}, "
+                                 f"env steps {total}")
+        print(f"{run} telemetry: {len(steps)} step windows tiling [0, "
+              f"{VALUE_ITERS}), env steps {total}")
+        print(render(summarize(recs)))
+
+
+def serve_value_checkpoints(torch, dev, card, work):
+    """Phase 12: each value run's checkpoint (phase 11, seed 0) served on
+    the card through ``serve_policy`` at w8 with ``--check-parity``
+    (which raises on any mismatching row) and at w4, each with
+    ``--metrics-dir``: actions/s, p50/p99, the served mean return.
+    Returns the port's launches on this path, and holds each served
+    forward's launches (a full bucket, after the path's count is read)
+    to ``SERVED_PER_FORWARD``."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve_policy import serve_policy
+    from repro_torch.obs import fmt_metrics, read_records
+
+    ckpts = {run: os.path.join(work, "phase11", f"ckpt_{run}")
+             for run in VALUE_RUNS}
+    kernels.reset_launch_counts()
+    served = {}
+    for run, ck in ckpts.items():
+        for precision in ("w8", "w4"):
+            mdir = os.path.join(work, "phase12", f"serve_{run}_{precision}")
+            st = serve_policy(ck, precision=precision,
+                              episodes=SERVE_EPISODES, n_slots=64,
+                              max_bucket=32,
+                              do_check_parity=precision == "w8",
+                              metrics_dir=mdir, verbose=False, device=dev)
+            served[(run, precision)] = (st, mdir)
+    launches = kernels.launch_counts()
+    print(f"kernel launches serving the value checkpoints: {launches}")
+    for (run, precision), (st, mdir) in served.items():
+        s = st.server
+        recs = read_records(os.path.join(mdir, "serve.jsonl"))
+        n_serve = sum(r["kind"] == "serve" for r in recs)
+        print(f"{run} served at {precision} on {card}: " + fmt_metrics(
+            {"actions_per_s": s["actions_per_s"], "p50_ms": s["p50_ms"],
+             "p99_ms": s["p99_ms"], "mean_return": st.mean_return,
+             "episodes": st.episodes, "serve_records": n_serve},
+            ("actions_per_s", "p50_ms", "p99_ms", "mean_return",
+             "episodes", "serve_records"), precision=4))
+        if st.episodes < SERVE_EPISODES or not n_serve:
+            raise AssertionError(f"{run} {precision}: {st.episodes} "
+                                 f"episodes, {n_serve} serve records")
+    print("w8 parity on the card: 0 mismatching rows for each of "
+          f"{list(ckpts)} (serve_policy's --check-parity raises on any)")
+    for run, ck in ckpts.items():
+        per = profile_forward(torch, dev, ck, n=20,
+                              what=f"{run} served forward")
+        print(f"{run}: the port's launches per served forward {per}")
+        if per != SERVED_PER_FORWARD[run]:
+            raise AssertionError(f"{run}: served forward launched {per}, "
+                                 f"not {SERVED_PER_FORWARD[run]}")
+    return launches
+
+
+def _params_bitwise(torch, a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def telemetry_leaves_training_alone(torch, dev, card, work):
+    """Phase 12: PPO cartpole and DQN cartpole, 6 iterations each on the
+    card, with and without ``--metrics-dir``: history and params bitwise
+    equal; then a ``--profile-dir`` window of 2 steps of PPO cartpole
+    (at ``PROFILE_WINDOW_ROLLOUT`` steps a rollout), whose trace must
+    hold a ``qmac`` kernel row."""
+    from repro_torch.obs import read_records
+    from repro_torch.rl.trainer import rl_train, value_train
+
+    for name, fn in (("ppo", lambda **kw: rl_train("cartpole", **kw)),
+                     ("dqn", lambda **kw: value_train("dqn", "cartpole",
+                                                      **kw))):
+        t0 = time.perf_counter()
+        p0, h0 = fn(iters=6, verbose=False, device=dev)
+        mdir = os.path.join(work, f"metrics_{name}")
+        p1, h1 = fn(iters=6, verbose=False, device=dev, metrics_dir=mdir)
+        same = h0 == h1 and _params_bitwise(torch, p0, p1)
+        steps = [r for r in read_records(os.path.join(mdir, "train.jsonl"))
+                 if r["kind"] == "step"]
+        print(f"{name} cartpole, 6 iterations on {card} with and without "
+              f"--metrics-dir: history and params bitwise "
+              f"{'equal' if same else 'DIFFERENT'}; {len(steps)} step "
+              f"windows, {sum(r['metrics']['env_steps'] for r in steps)} "
+              f"env steps ({time.perf_counter() - t0:.1f} s)")
+        if not same:
+            raise AssertionError(f"{name}: telemetry changed training")
+    pdir = os.path.join(work, "profile")
+    mdir = os.path.join(work, "metrics_profile")
+    rl_train("cartpole", iters=4, rollout_len=PROFILE_WINDOW_ROLLOUT,
+             verbose=False, device=dev, metrics_dir=mdir, profile_dir=pdir,
+             profile_start=1, profile_steps=2)
+    rec = [r for r in read_records(os.path.join(mdir, "train.jsonl"))
+           if r["kind"] == "profile"]
+    with open(os.path.join(pdir, "trace_1_3.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    qmac = [k for k in kern if "qmac" in k]
+    print(f"profile window {rec[0]['window'] if rec else None} of PPO "
+          f"cartpole ({PROFILE_WINDOW_ROLLOUT}-step rollouts) on {card}: "
+          f"{len(kern)} kernel rows, {len(qmac)} of them qmac "
+          f"({sorted(set(qmac))})")
+    if not qmac or [r["window"] for r in rec] != [[1, 3]]:
+        raise AssertionError("the profile window's trace holds no qmac "
+                             "kernel row, or no [1, 3] profile record")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2961,6 +3173,12 @@ def main() -> int:
     for run in VALUE_RUNS:
         profile_value(torch, dev, run)
     lap("phase 11's profiles")
+    value_telemetry(os.path.join(work, "phase11"))
+    vserve_launches = serve_value_checkpoints(torch, dev, card, work)
+    telemetry_leaves_training_alone(torch, dev, card,
+                                    os.path.join(work, "phase12"))
+    lap("phase 12 (telemetry, profiler window, serving the value "
+        "checkpoints)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -2985,7 +3203,8 @@ def main() -> int:
                    "training": train_launches[name],
                    "hrl_training": pixel_launches["hrl_training"][name],
                    "pixel_training": pixel_launches["pixel_training"][name],
-                   **{run: value_launches[run][name] for run in VALUE_RUNS}}
+                   **{run: value_launches[run][name] for run in VALUE_RUNS},
+                   "value_serving": vserve_launches[name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

@@ -25,9 +25,13 @@ iterations (a stage) of 32 envs x 128 steps.  Value family (``--algo
 dqn|qrdqn|ddpg``, :mod:`repro_torch.rl.trainer.value`): fxp8 behaviour
 actors, lr 1e-3, 300 iterations of 32 envs x 8 steps, replay capacity
 50,000, n-step 3, 4 updates an iteration, ``learn_start`` from the
-algo's config (256), a checkpoint every 50.  Flags of options the port
-does not have yet raise ``NotImplementedError`` naming the slice that
-brings them.
+algo's config (256), a checkpoint every 50.  ``--metrics-dir`` writes
+``obs/v1`` telemetry (``train.jsonl``; ``tools/obs_summary.py`` renders
+it) and ``--profile-dir`` a ``torch.profiler`` trace of
+``--profile-steps`` iterations from ``--profile-start``; the run's params
+stay bitwise those of a run without them.  Several devices (``--mesh``,
+``--mesh-devices``, ``--sync``) raise ``NotImplementedError`` naming the
+sharded slice.
 """
 from __future__ import annotations
 
@@ -38,10 +42,6 @@ from repro_torch.rl.inference import (NETS, ON_POLICY_ALGOS, VALUE_ALGOS,
                                       not_in_slice)
 from repro_torch.rl.replay import KINDS as REPLAY_KINDS
 from repro_torch.rl.trainer import rl_train, value_train
-
-# knobs read only by options of later slices: given at all, they raise
-LATER_KNOBS = (("profile_start", "observability"),
-               ("profile_steps", "observability"))
 
 
 def main(argv=None):
@@ -92,20 +92,20 @@ def main(argv=None):
     ap.add_argument("--learn-start", type=int, default=None,
                     help="min replay size before updates (default: the "
                          "algo config's, 256)")
-    # observability
-    ap.add_argument("--metrics-dir", default=None)
-    ap.add_argument("--profile-dir", default=None)
-    ap.add_argument("--profile-start", type=int, default=None,
-                    help="observability; the reference's default 0")
-    ap.add_argument("--profile-steps", type=int, default=None,
-                    help="observability; the reference's default 1")
+    # observability (docs/observability.md)
+    ap.add_argument("--metrics-dir", default=None,
+                    help="write obs/v1 JSONL telemetry (train.jsonl) "
+                         "here; training stays bitwise identical")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace into this dir")
+    ap.add_argument("--profile-start", type=int, default=0,
+                    help="global step the profiler window opens at")
+    ap.add_argument("--profile-steps", type=int, default=1,
+                    help="iterations the profiler window spans")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu, the plain PyTorch path")
     args = ap.parse_args(argv)
     actor_policy = None if args.fp32_actors else args.actor_policy
-    for dest, slice_name in LATER_KNOBS:
-        if getattr(args, dest) is not None:
-            raise not_in_slice("--" + dest.replace("_", "-"), slice_name)
     if args.algo not in VALUE_ALGOS and (args.replay != "uniform"
                                          or args.tqc_drop
                                          or args.sync is not None):
@@ -150,7 +150,9 @@ def main(argv=None):
                     per_beta_iters=args.per_beta_iters,
                     tqc_drop=args.tqc_drop, max_lag=args.max_lag,
                     metrics_dir=args.metrics_dir,
-                    profile_dir=args.profile_dir, device=args.device)
+                    profile_dir=args.profile_dir,
+                    profile_start=args.profile_start,
+                    profile_steps=args.profile_steps, device=args.device)
         return
     rl_train(args.env, args.agent,
              args.iters if args.iters is not None else 40,
@@ -165,7 +167,8 @@ def main(argv=None):
              mesh_kind=args.mesh or "host", mesh_devices=args.mesh_devices,
              algo=args.algo, net=args.net, frame_stack_k=args.frame_stack,
              metrics_dir=args.metrics_dir, profile_dir=args.profile_dir,
-             device=args.device)
+             profile_start=args.profile_start,
+             profile_steps=args.profile_steps, device=args.device)
 
 
 if __name__ == "__main__":

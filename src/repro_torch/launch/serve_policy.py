@@ -5,20 +5,29 @@
         --ckpt /path/to/dqn_run --policy w8 --episodes 200 \
         --slots 64 --batch-bucket 32 --check-parity
 
-Loads a value-RL checkpoint written by either package, packs the Q net
-to int8/int4 ``QTensor``s and serves a bank of concurrent episode slots
-through the micro-batching engine on the card (``--device cpu`` runs the
-plain PyTorch path instead), reporting actions/s, p50/p99 per-request
-latency, mean episode return and the packed model footprint.
+Loads a value-RL checkpoint written by either package (dqn, qrdqn or
+ddpg, with TQC's critics or not; mlp or conv), packs the behaviour net
+(the Q net, or the ddpg actor) to int8/int4 ``QTensor``s and serves a
+bank of concurrent episode slots through the micro-batching engine on
+the card (``--device cpu`` runs the plain PyTorch path instead),
+reporting actions/s, p50/p99 per-request latency, mean episode return
+and the packed model footprint.
 ``--check-parity`` first asserts that the served greedy actions are
 bit-identical to the evaluation path (guaranteed at w8).
+``--metrics-dir`` writes ``obs/v1`` ``serve`` windows (``serve.jsonl``,
+one every ``--metrics-every`` loop steps) and ``--profile-dir`` a
+``torch.profiler`` trace of the serving loop with its ``profile``
+record.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 from typing import Optional
 
 from repro_torch.device import DeviceLike
+from repro_torch.obs import SCHEMA, JsonlSink, ProfileWindow
 from repro_torch.serve import (PRECISIONS, PolicyServer, check_parity,
                                load_policy, serve_episodes)
 
@@ -31,7 +40,9 @@ def serve_policy(ckpt_dir: str, algo: Optional[str] = None,
                  temperature: float = 1.0, episodes: int = 100,
                  n_slots: int = 64, max_bucket: int = 32,
                  seed: int = 0, do_check_parity: bool = False,
-                 verbose: bool = True, device: DeviceLike = None):
+                 verbose: bool = True, metrics_dir: Optional[str] = None,
+                 metrics_every: int = 50, profile_dir: Optional[str] = None,
+                 device: DeviceLike = None):
     policy = load_policy(ckpt_dir, algo=algo, net=net, env_name=env_name,
                          step=step, device=device)
     if verbose:
@@ -56,7 +67,31 @@ def serve_policy(ckpt_dir: str, algo: Optional[str] = None,
     server = PolicyServer(policy, precision=precision, mode=mode,
                           temperature=temperature, max_bucket=max_bucket,
                           seed=seed)
-    stats = serve_episodes(server, episodes, n_slots=n_slots, seed=seed)
+    sink = None
+    if metrics_dir:
+        sink = JsonlSink(
+            os.path.join(metrics_dir, "serve.jsonl"),
+            run={"driver": "serve_policy", "algo": policy.algo,
+                 "env": policy.env_name, "net": policy.net,
+                 "precision": precision, "mode": mode,
+                 "n_slots": n_slots, "max_bucket": max_bucket,
+                 "seed": seed})
+    prof = None
+    if profile_dir:
+        prof = ProfileWindow(profile_dir, device=policy.device)
+        prof.tick(0)
+    try:
+        stats = serve_episodes(server, episodes, n_slots=n_slots, seed=seed,
+                               telemetry=sink, flush_every=metrics_every)
+    finally:
+        if prof:
+            prof.stop()
+            if sink:
+                sink.write({"schema": SCHEMA, "kind": "profile",
+                            "t_wall": time.time(), "dir": profile_dir,
+                            "window": [0, int(server._requests)]})
+        if sink:
+            sink.close()
     s = stats.server
     if verbose:
         mib = 1024 * 1024
@@ -101,6 +136,15 @@ def main(argv=None):
     ap.add_argument("--check-parity", action="store_true",
                     help="assert served greedy actions match the "
                          "evaluation path before serving")
+    # observability (docs/observability.md)
+    ap.add_argument("--metrics-dir", default=None,
+                    help="write obs/v1 JSONL telemetry (serve.jsonl) here")
+    ap.add_argument("--metrics-every", type=int, default=50,
+                    help="loop steps per serve record (0: one record "
+                         "for the whole run)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the serving "
+                         "loop into this dir")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -111,7 +155,9 @@ def main(argv=None):
                  temperature=args.temperature, episodes=args.episodes,
                  n_slots=args.slots, max_bucket=args.batch_bucket,
                  seed=args.seed, do_check_parity=args.check_parity,
-                 device=args.device)
+                 metrics_dir=args.metrics_dir,
+                 metrics_every=args.metrics_every,
+                 profile_dir=args.profile_dir, device=args.device)
 
 
 if __name__ == "__main__":

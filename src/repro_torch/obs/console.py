@@ -3,7 +3,7 @@ library writes lines to a terminal."""
 from __future__ import annotations
 
 import sys
-from typing import Optional, TextIO
+from typing import Dict, Optional, TextIO
 
 
 class Console:
@@ -22,3 +22,17 @@ class Console:
     def warn(self, line: str) -> None:
         print(f"warning: {line}", file=self.stream)
 
+
+def fmt_metrics(metrics: Dict, keys, precision: int = 3) -> str:
+    """Render selected metrics as ``k=v`` pairs (missing keys skipped),
+    in the benchmarks' emit style."""
+    parts = []
+    for k in keys:
+        if k not in metrics:
+            continue
+        v = metrics[k]
+        if isinstance(v, float):
+            parts.append(f"{k}={v:.{precision}f}")
+        else:
+            parts.append(f"{k}={v}")
+    return "  ".join(parts)

@@ -9,7 +9,7 @@ reference, so both packages report latency the same way.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -51,6 +51,9 @@ class FixedHistogram:
         self.min = min(self.min, v)
         self.max = max(self.max, v)
 
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
     def percentile(self, q: float) -> float:
         """Approximate q-th percentile (0..100), linear within the
         containing bucket; exact when all mass is one value."""
@@ -71,6 +74,11 @@ class FixedHistogram:
         inbucket = self.counts[b]
         frac = ((rank - prev) / inbucket) if inbucket else 0.0
         return float(lo + (hi - lo) * min(max(frac, 0.0), 1.0))
+
+    def to_dict(self) -> Dict:
+        """The JSONL ``hists`` entry shape (edges + counts)."""
+        return {"edges": [float(e) for e in self.edges],
+                "counts": [int(c) for c in self.counts]}
 
     def reset(self) -> None:
         self.counts[:] = 0

@@ -9,10 +9,9 @@ served policy cannot drift from what evaluation measures: the server
 calls the one greedy forward with packed ``QTensor`` weights, evaluation
 with fp32 weights under the same quant policy.
 
-The port trains ppo/a2c and dqn/qrdqn/ddpg on one device and serves
-conv dqn; the options still to port (several devices, telemetry, the
-serving of the other value nets) raise ``NotImplementedError`` naming
-the slice that brings them.
+The port trains ppo/a2c and dqn/qrdqn/ddpg on one device, with
+telemetry, and serves every value checkpoint; several devices, still to
+port, raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -47,8 +46,8 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
         "slice of the PyTorch port (the port trains ppo/a2c — the mlp "
         "agent, the E2HRL agent with --two-stage, --net conv on the "
         "pixel envs — and dqn/qrdqn/ddpg with uniform or prioritized "
-        "replay on one device, over every env, and serves dqn over "
-        "--net conv)")
+        "replay on one device, over every env, with telemetry and "
+        "profiler windows, and serves every value checkpoint)")
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,

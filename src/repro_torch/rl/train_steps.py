@@ -16,6 +16,13 @@ test draws the reference's with JAX and passes them in.  Each iteration
 exposes its two phases, ``rollout_phase`` and ``learn_phase``, for a
 caller that times or profiles them apart.  Neither reads a value back
 to the host.
+
+Telemetry: each iteration's ``record(mbuf, ...)`` makes the reference's
+writes into a :mod:`repro_torch.obs.metrics` buffer and returns it.  The
+writes consume values the iteration already computed (the return, the
+episode count, ε, the replay's size and PER's max priority), take no
+draw, read nothing back to the host and feed nothing back, so a run
+that records computes bitwise what one that does not does.
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import counter_add, gauge_max, gauge_set
 from repro_torch.optim import adamw_update
 from repro_torch.rl.actor_learner import collect, collect_value, fleet_mask
 from repro_torch.rl.envs.spaces import Discrete
 from repro_torch.rl.ppo import batch_from_traj, minibatch_epochs, \
     value_and_grad
+from repro_torch.rl.replay import replay_size
 from repro_torch.rl.rollout import episode_returns, episode_returns_from
 from repro_torch.rl.value import (ddpg_actor_loss, ddpg_critic_loss_td,
                                   epsilon, fma32, nstep_targets, polyak)
@@ -104,8 +113,17 @@ def make_onpolicy_iteration(env, apply_fn, a_policy, dist, pcfg, loss_fn,
         ret, n_ep = episode_returns(res.traj)
         return params, opt, res.final_env, res.final_obs, ret, n_ep
 
+    def record(mbuf, ret, n_ep, alive):
+        """The iteration's metric writes (the reference's)."""
+        mbuf = counter_add(mbuf, "env_steps", rollout_len * n_envs)
+        mbuf = counter_add(mbuf, "episodes", n_ep)
+        mbuf = gauge_set(mbuf, "return_mean", ret)
+        return gauge_set(mbuf, "alive_frac",
+                         alive.to(torch.float32).mean())
+
     iteration.rollout_phase = rollout_phase
     iteration.learn_phase = learn_phase
+    iteration.record = record
     return iteration
 
 
@@ -189,8 +207,11 @@ def make_value_iteration(env, agent, rb, a_policy, sched, ocfg, *,
     def q_learner(p, o):
         return agent.q_apply(p, o, None)
 
+    def eps_at(it: int) -> float:
+        return epsilon(it * rollout_len, cfg) if discrete else 0.0
+
     def rollout_phase(packed, draws: ValueDraws, est, obs, it: int):
-        eps = epsilon(it * rollout_len, cfg) if discrete else 0.0
+        eps = eps_at(it)
         return collect_value(packed, env, agent.behave, a_policy, draws.step,
                              est, obs, rollout_len, eps)
 
@@ -271,8 +292,21 @@ def make_value_iteration(env, agent, rb, a_policy, sched, ocfg, *,
         ret, n_ep = episode_returns_from(R, D | Tr)
         return params, target, opt, buf, est, obs, ret, n_ep
 
+    def record(mbuf, it: int, buf, ret, n_ep, n_envs: int):
+        """The iteration's metric writes (the reference's
+        ``_value_metric_updates``): ε at the compiled fp32 value."""
+        mbuf = counter_add(mbuf, "env_steps", rollout_len * n_envs)
+        mbuf = counter_add(mbuf, "episodes", n_ep)
+        mbuf = gauge_set(mbuf, "return_mean", ret)
+        mbuf = gauge_set(mbuf, "epsilon", eps_at(it))
+        mbuf = gauge_set(mbuf, "replay_size", replay_size(buf))
+        if rb.prioritized:
+            mbuf = gauge_max(mbuf, "replay_max_priority", buf.max_p)
+        return mbuf
+
     iteration.rollout_phase = rollout_phase
     iteration.learn_phase = learn_phase
     iteration.add_rollout, iteration.beta = add_rollout, beta
     iteration.update = update
+    iteration.record = record
     return iteration

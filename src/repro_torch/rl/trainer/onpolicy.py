@@ -18,9 +18,12 @@ on the Adam moments left from stage "action".  ``--net conv`` trains
 the conv actor-critic over the pixel pipeline (running normalization,
 then ``--frame-stack``).
 
-Not in this slice, each raising ``NotImplementedError`` that names its
-slice: several devices (the sharded slice), ``--metrics-dir``/
-``--profile-dir`` (observability).
+``metrics_dir`` writes the ``obs/v1`` telemetry (``env_steps``,
+``episodes``, ``return_mean``, ``alive_frac`` from the iteration, the
+loop's host metrics and spans), ``profile_dir`` a ``torch.profiler``
+trace of ``profile_steps`` steps from ``profile_start``; neither changes
+the run.  Several devices raise ``NotImplementedError`` naming the
+sharded slice.
 """
 from __future__ import annotations
 
@@ -32,13 +35,14 @@ from repro_torch.configs.e2hrl import HRLConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hrl
+from repro_torch.obs import MetricSpec
 from repro_torch.optim import AdamWConfig, adamw_init, constant
 from repro_torch.rl.actor_learner import pack_weights
 from repro_torch.rl.dists import distribution_for
 from repro_torch.rl.envs import Environment, make
 from repro_torch.rl.envs.spaces import head_dim
 from repro_torch.rl.inference import (ON_POLICY_ALGOS, VALUE_ALGOS,
-                                      build_env, not_in_slice)
+                                      build_env)
 from repro_torch.rl.nets import (conv_ac_apply, conv_ac_init, mlp_ac_apply,
                                  mlp_ac_init)
 from repro_torch.rl.ppo import PPOConfig, a2c_loss, ppo_loss, stage_mask
@@ -103,8 +107,8 @@ class OnPolicyTrainer(Trainer):
                  mesh_devices: Optional[int] = None, log_every: int = 5,
                  verbose: bool = True, algo: str = "ppo", net: str = "mlp",
                  frame_stack_k: int = 1, metrics_dir: Optional[str] = None,
-                 profile_dir: Optional[str] = None,
-                 device: DeviceLike = None):
+                 profile_dir: Optional[str] = None, profile_start: int = 0,
+                 profile_steps: int = 1, device: DeviceLike = None):
         if algo not in ON_POLICY_ALGOS:
             raise ValueError(f"rl_train drives the on-policy family "
                              f"{ON_POLICY_ALGOS}; use value_train for "
@@ -113,9 +117,6 @@ class OnPolicyTrainer(Trainer):
         if two_stage and agent != "hrl":
             raise ValueError("--two-stage trains the HRL sub-goal "
                              "curriculum and requires --agent hrl")
-        if metrics_dir or profile_dir:
-            raise not_in_slice("--metrics-dir/--profile-dir",
-                               "observability")
         dev = resolve_device(device)
         n_slots = resolve_mesh(mesh_kind, mesh_devices, n_envs, verbose)
         # actors run (max_lag - 1) versions behind the freshest push:
@@ -123,7 +124,10 @@ class OnPolicyTrainer(Trainer):
         super().__init__(iters=iters, seed=seed, ckpt_dir=ckpt_dir,
                          save_every=save_every, log_every=log_every,
                          verbose=verbose, device=dev, n_slots=n_slots,
-                         max_lag=max_lag, fetch_lag=max_lag - 1)
+                         max_lag=max_lag, fetch_lag=max_lag - 1,
+                         metrics_dir=metrics_dir, profile_dir=profile_dir,
+                         profile_start=profile_start,
+                         profile_steps=profile_steps)
         if net == "conv":
             self.env = build_env(env_name, net, frame_stack_k)
         else:
@@ -165,6 +169,16 @@ class OnPolicyTrainer(Trainer):
             rollout_len=self.rollout_len, n_envs=self.n_envs,
             n_slots=self.n_slots)
 
+    def metric_spec(self) -> MetricSpec:
+        return MetricSpec(counters=("env_steps", "episodes"),
+                          gauges=("return_mean", "alive_frac"))
+
+    def run_meta(self) -> dict:
+        meta = super().run_meta()
+        meta.update(algo=self.algo, env=self.env_name, n_envs=self.n_envs,
+                    rollout_len=self.rollout_len)
+        return meta
+
     def draws(self, gen: torch.Generator):
         """One iteration's sampling noise and permutations from ``gen``."""
         return draw_iteration(gen, self.dist, self.head_dim,
@@ -180,6 +194,9 @@ class OnPolicyTrainer(Trainer):
             state.params, state.opt, state.est, state.obs, packed,
             self.draws(gen), stage_ctx, alive)
         return onpolicy_state(params, opt, est, obs), ret, n_ep
+
+    def record(self, iteration, mbuf, state, ret, n_ep, g, alive):
+        return iteration.record(mbuf, ret, n_ep, alive)
 
     def stage_setup(self, state, stage):
         # the stage's grad mask; a subtree masked from the first step
@@ -252,7 +269,8 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
              mesh_devices: Optional[int] = None, log_every: int = 5,
              verbose: bool = True, algo: str = "ppo", net: str = "mlp",
              frame_stack_k: int = 1, metrics_dir: Optional[str] = None,
-             profile_dir: Optional[str] = None, device: DeviceLike = None,
+             profile_dir: Optional[str] = None, profile_start: int = 0,
+             profile_steps: int = 1, device: DeviceLike = None,
              state_out: Optional[dict] = None):
     """On-policy training (the paper's Fig. 2 system) on ``device``
     (default: the card) — see :class:`OnPolicyTrainer`.  Returns
@@ -267,6 +285,7 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
         mesh_kind=mesh_kind, mesh_devices=mesh_devices,
         log_every=log_every, verbose=verbose, algo=algo, net=net,
         frame_stack_k=frame_stack_k, metrics_dir=metrics_dir,
-        profile_dir=profile_dir, device=device)
+        profile_dir=profile_dir, profile_start=profile_start,
+        profile_steps=profile_steps, device=device)
     state, history = trainer.train(state_out=state_out)
     return state.params, history

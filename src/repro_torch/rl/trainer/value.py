@@ -16,9 +16,13 @@ The replay buffer and the PER tree are part of the checkpoint, with the
 reference's metadata, so a resume restores bitwise; a checkpoint's
 flags are validated before its tree is read.
 
-Not in this slice, each raising ``NotImplementedError`` that names its
-slice: several devices (``--mesh``/``--sync``, the sharded slice) and
-``--metrics-dir``/``--profile-dir`` (observability).
+``metrics_dir`` writes the ``obs/v1`` telemetry (``env_steps``,
+``episodes``, ``return_mean``, ``epsilon``, ``replay_size`` and, under
+PER, ``replay_max_priority`` from the iteration, the loop's host metrics
+and spans), ``profile_dir`` a ``torch.profiler`` trace of
+``profile_steps`` steps from ``profile_start``; neither changes the run.
+Several devices (``--mesh``/``--sync``) raise ``NotImplementedError``
+naming the sharded slice.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.core.policy import get_policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import MetricSpec
 from repro_torch.optim import AdamWConfig, adamw_init, constant
 from repro_torch.rl.actor_learner import pack_weights
 from repro_torch.rl.envs import make
@@ -92,8 +97,8 @@ class ValueTrainer(Trainer):
                  mesh_kind: Optional[str] = None,
                  mesh_devices: Optional[int] = None,
                  max_lag: int = 1, metrics_dir: Optional[str] = None,
-                 profile_dir: Optional[str] = None,
-                 device: DeviceLike = None):
+                 profile_dir: Optional[str] = None, profile_start: int = 0,
+                 profile_steps: int = 1, device: DeviceLike = None):
         if algo not in VALUE_ALGOS:
             raise ValueError(f"value_train drives {VALUE_ALGOS}, got "
                              f"{algo!r}; use rl_train for "
@@ -105,13 +110,13 @@ class ValueTrainer(Trainer):
         if mesh_kind is not None:
             raise not_in_slice(f"--algo {algo} --mesh {mesh_kind}",
                                "sharded paths")
-        if metrics_dir or profile_dir:
-            raise not_in_slice("--metrics-dir/--profile-dir",
-                               "observability")
         dev = resolve_device(device)
         super().__init__(iters=iters, seed=seed, ckpt_dir=ckpt_dir,
                          save_every=save_every, log_every=log_every,
-                         verbose=verbose, device=dev, max_lag=max_lag)
+                         verbose=verbose, device=dev, max_lag=max_lag,
+                         metrics_dir=metrics_dir, profile_dir=profile_dir,
+                         profile_start=profile_start,
+                         profile_steps=profile_steps)
         self.algo, self.env_name, self.net = algo, env_name, net
         self.n_envs, self.rollout_len = n_envs, rollout_len
         self.frame_stack_k = frame_stack_k
@@ -160,6 +165,20 @@ class ValueTrainer(Trainer):
             updates_per_iter=self.updates_per_iter,
             per_beta0=self.per_beta0, beta_iters=self.beta_iters)
 
+    def metric_spec(self) -> MetricSpec:
+        gauges = ["return_mean", "epsilon", "replay_size"]
+        if self.rb.prioritized:
+            gauges.append("replay_max_priority")
+        return MetricSpec(counters=("env_steps", "episodes"),
+                          gauges=tuple(gauges))
+
+    def run_meta(self) -> dict:
+        meta = super().run_meta()
+        meta.update(algo=self.algo, env=self.env_name, net=self.net,
+                    n_envs=self.n_envs, rollout_len=self.rollout_len,
+                    replay=self.replay, sync="lockstep")
+        return meta
+
     def size_after(self, g: int) -> int:
         """The replay size after step ``g``'s add: every iteration adds
         ``rollout_len * n_envs`` transitions (known on the host)."""
@@ -184,6 +203,10 @@ class ValueTrainer(Trainer):
             state.params, state.target, state.opt, state.replay, packed,
             state.est, state.obs, self.draws(gen, g), g)
         return value_state(p, t, o, b, est, obs), ret, n_ep
+
+    def record(self, iteration, mbuf, state, ret, n_ep, g, alive):
+        return iteration.record(mbuf, g, state.replay, ret, n_ep,
+                                self.n_envs)
 
     def eval_policy(self, params, n_envs: int = 16,
                     n_steps: Optional[int] = None,
@@ -263,10 +286,17 @@ class ValueTrainer(Trainer):
         return (f"resumed at iter {start} "
                 f"(replay size {int(replay_size(state.replay))})")
 
+    def host_metrics(self, metrics: dict, g: int) -> dict:
+        # without the buffer the window record still carries the replay
+        # fill, which the host knows
+        if "replay_size" in metrics:
+            return {}
+        return {"replay_size": self.size_after(g)}
+
     def log_line(self, it, ret, n_ep, metrics: dict, stage) -> str:
         return (f"iter {it:4d}  return {float(ret):8.2f}  "
                 f"episodes {int(n_ep):4d}  "
-                f"replay {self.size_after(it):6d}")
+                f"replay {int(metrics['replay_size']):6d}")
 
     def export_state(self, state, state_out) -> None:
         if state_out is not None:
@@ -290,8 +320,8 @@ def value_train(algo: str = "dqn", env_name: str = "cartpole",
                 mesh_kind: Optional[str] = None,
                 mesh_devices: Optional[int] = None,
                 max_lag: int = 1, metrics_dir: Optional[str] = None,
-                profile_dir: Optional[str] = None,
-                device: DeviceLike = None):
+                profile_dir: Optional[str] = None, profile_start: int = 0,
+                profile_steps: int = 1, device: DeviceLike = None):
     """Off-policy value-based training on ``device`` (default: the
     card) — see :class:`ValueTrainer`.  Returns (params, history);
     ``state_out`` receives the final ``env_state``/``obs``/``replay``."""
@@ -305,7 +335,9 @@ def value_train(algo: str = "dqn", env_name: str = "cartpole",
         net=net, frame_stack_k=frame_stack_k, replay=replay,
         per_alpha=per_alpha, per_beta0=per_beta0,
         per_beta_iters=per_beta_iters, tqc_drop=tqc_drop,
-        mesh_kind=mesh_kind, mesh_devices=mesh_devices, max_lag=max_lag, metrics_dir=metrics_dir, profile_dir=profile_dir,
+        mesh_kind=mesh_kind, mesh_devices=mesh_devices, max_lag=max_lag,
+        metrics_dir=metrics_dir, profile_dir=profile_dir,
+        profile_start=profile_start, profile_steps=profile_steps,
         device=device)
     state, history = trainer.train(state_out=state_out)
     return state.params, history

@@ -7,8 +7,10 @@ cost: the per-tensor requantization after each layer takes its scale
 over every row of the bucket, zero padding rows included, so the port
 pads exactly as the reference does and its Q-values agree row for row.
 The engine records each request's wall latency (a micro-batch's wall,
-synchronized with the card) in a bounded histogram and reports
-actions/s, p50/p99 and the packed model footprint.
+synchronized with the card) in a bounded histogram, and the requests of
+each bucket size, and reports actions/s, p50/p99 and the packed model
+footprint; :func:`serve_episodes` writes them as ``obs/v1`` ``serve``
+windows when given a sink.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantizer import quantized_nbytes
-from repro_torch.obs import FixedHistogram, SpanClock
+from repro_torch.obs import SCHEMA, FixedHistogram, JsonlSink, SpanClock
 from repro_torch.rl.rollout import init_envs
 from repro_torch.serve.loader import PRECISIONS, ServedPolicy
 
@@ -165,7 +167,12 @@ class PolicyServer:
         }
 
     def bucket_requests(self) -> Dict[int, int]:
+        """Requests answered per padded micro-batch bucket size."""
         return dict(self._bucket_requests)
+
+    def latency_hist(self) -> Dict:
+        """The latency histogram's ``{edges, counts}`` (seconds)."""
+        return self._latency.to_dict()
 
     def reset_stats(self):
         self._latency.reset()
@@ -187,11 +194,21 @@ class EpisodeStats:
 
 
 def serve_episodes(server: PolicyServer, episodes: int, n_slots: int = 64,
-                   seed: int = 0,
-                   max_env_steps: Optional[int] = None) -> EpisodeStats:
+                   seed: int = 0, max_env_steps: Optional[int] = None,
+                   telemetry: Optional[JsonlSink] = None,
+                   flush_every: int = 0) -> EpisodeStats:
     """Run ``n_slots`` concurrent auto-resetting episode slots on the
     policy's device until ``episodes`` episodes complete, every action
-    answered through the server's micro-batching path."""
+    answered through the server's micro-batching path.
+
+    With ``telemetry`` (a :class:`~repro_torch.obs.sink.JsonlSink`) the
+    loop writes ``serve`` records: one per ``flush_every`` loop steps (0:
+    one record for the whole run), each with the window's request count,
+    inference seconds, env steps and finished episodes, the latency
+    histogram's delta, the per-bucket request counts and the
+    ``infer``/``env`` spans.  ``EpisodeStats.spans`` holds the spans no
+    record took: the whole run's without ``telemetry``.
+    """
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
     env = server.policy.env
@@ -205,8 +222,42 @@ def serve_episodes(server: PolicyServer, episodes: int, n_slots: int = 64,
     server.reset_stats()
 
     clock = SpanClock()
+    prev_r = 0
+    prev_inf = 0.0
+    prev_counts = np.array(server._latency.counts)
+    prev_buckets: Dict[int, int] = {}
+    prev_steps = prev_eps = 0
+
+    def flush_window(env_steps: int, done_episodes: int):
+        nonlocal prev_r, prev_inf, prev_counts, prev_buckets
+        nonlocal prev_steps, prev_eps
+        r1 = server._requests
+        if telemetry is None or r1 == prev_r:
+            return
+        counts = np.array(server._latency.counts)
+        buckets = server.bucket_requests()
+        telemetry.write({
+            "schema": SCHEMA, "kind": "serve", "t_wall": time.time(),
+            "window": [prev_r, r1],
+            "metrics": {"requests": r1 - prev_r,
+                        "infer_s": server._infer_s - prev_inf,
+                        "env_steps": env_steps - prev_steps,
+                        "episodes": done_episodes - prev_eps},
+            "hists": {"latency_s": {
+                "edges": [float(e) for e in server._latency.edges],
+                "counts": [int(c) for c in counts - prev_counts]}},
+            "buckets": {str(b): n - prev_buckets.get(b, 0)
+                        for b, n in buckets.items()
+                        if n - prev_buckets.get(b, 0)},
+            "spans": clock.drain(),
+        })
+        prev_r, prev_inf, prev_counts = r1, server._infer_s, counts
+        prev_buckets = buckets
+        prev_steps, prev_eps = env_steps, done_episodes
+
     done_episodes = 0
     env_steps = 0
+    loop_steps = 0
     acc = np.zeros(n_slots, np.float64)       # running per-slot return
     returns: List[float] = []
     t0 = time.perf_counter()
@@ -218,12 +269,16 @@ def serve_episodes(server: PolicyServer, episodes: int, n_slots: int = 64,
             fin = (d | tr).cpu().numpy()
             r = r.cpu().numpy()
         env_steps += n_slots
+        loop_steps += 1
         acc += r.astype(np.float64)
         if fin.any():
             returns.extend(acc[fin].tolist())
             done_episodes += int(fin.sum())
             acc[fin] = 0.0
+        if flush_every and loop_steps % flush_every == 0:
+            flush_window(env_steps, done_episodes)
     wall = time.perf_counter() - t0
+    flush_window(env_steps, done_episodes)
     mean_ret = float(np.mean(returns)) if returns else float("nan")
     return EpisodeStats(episodes=done_episodes, env_steps=env_steps,
                         mean_return=mean_ret, wall_s=wall,
@@ -232,10 +287,12 @@ def serve_episodes(server: PolicyServer, episodes: int, n_slots: int = 64,
 
 def check_parity(policy: ServedPolicy, precision: str = "w8",
                  n_obs: int = 128, seed: int = 0) -> int:
-    """Mismatch count between the served greedy head (packed QTensor
-    weights) and the evaluation greedy head (fp32 weights under the same
-    quant policy) on a rollout of real observations.  Zero at w8 by
-    construction: both round on the same fxp8 grid in the same order."""
+    """Count of observations (rows) whose served greedy action (packed
+    QTensor weights) differs from the evaluation greedy head's (fp32
+    weights under the same quant policy) on a rollout of real
+    observations; a multi-dimensional action counts once.  Zero at w8
+    by construction: both round on the same fxp8 grid in the same
+    order."""
     if precision not in PRECISIONS or precision == "fp32":
         raise ValueError("parity is defined for the packed precisions "
                          f"('w8', 'w4'), got {precision!r}")
@@ -249,7 +306,10 @@ def check_parity(policy: ServedPolicy, precision: str = "w8",
     while seen < n_obs:
         a_eval = agent.greedy(policy.params, obs, pol)
         a_serve = agent.greedy(served, obs, pol)
-        mismatches += int((a_eval != a_serve).sum())
+        diff = a_eval != a_serve
+        if diff.ndim > 1:
+            diff = diff.reshape(diff.shape[0], -1).any(dim=1)
+        mismatches += int(diff.sum())
         seen += n_slots
         est, obs, *_ = env.step(est, a_eval)
     return mismatches

@@ -176,13 +176,16 @@ def test_loader_errors_and_unported_paths(tmp_path):
                                   gen=torch.Generator().manual_seed(0),
                                   device="cpu")
     assert agent.params["q"]["w"].shape == (128, 4 * 32)
-    # serving a checkpoint other than conv dqn names the serving slice
+    # a conv qrdqn checkpoint loads (its env state from the template:
+    # this one saved none, so the normalizer is the template's)
     ck = str(tmp_path / "qrdqn")
-    TManager(ck).save(1, (agent.params, None, None, None, None, None),
+    est, obs = tinit_envs(tinf.build_env("keydoor", "conv", 1), 0, 1, "cpu")
+    TManager(ck).save(1, (agent.params, None, None, None, est, obs),
                       metadata={"algo": "qrdqn", "net": "conv",
                                 "env": "keydoor"})
-    with pytest.raises(NotImplementedError, match="serving"):
-        load_policy(ck, device="cpu")
+    served = load_policy(ck, device="cpu")
+    assert (served.algo, served.net, served.step) == ("qrdqn", "conv", 1)
+    assert torch.equal(served.params["q"]["w"], agent.params["q"]["w"])
     # --net mlp is the vector view (images flattened), as the
     # reference's; the classic-control envs build
     assert tinf.build_env("keydoor", "mlp").obs_shape == (3072,)

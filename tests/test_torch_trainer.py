@@ -259,17 +259,9 @@ def test_cli_prints_iteration_lines(capsys):
 
 @pytest.mark.parametrize("argv,slice_name", [
     (["--agent", "hrl", "--two-stage", "--mesh-devices", "2"], "sharded"),
-    (["--net", "conv", "--env", "catch", "--metrics-dir", "m"],
-     "observability"),
     (["--mesh-devices", "2"], "sharded"),
     (["--mesh", "production"], "sharded"),
-    (["--metrics-dir", "m"], "observability"),
-    (["--profile-dir", "p"], "observability"),
-    (["--profile-start", "0"], "observability"),
-    (["--profile-steps", "2"], "observability"),
-    (["--algo", "dqn", "--mesh", "host"], "sharded paths"),
-    (["--algo", "ddpg", "--env", "pendulum", "--profile-dir", "p"],
-     "observability")])
+    (["--algo", "dqn", "--mesh", "host"], "sharded paths")])
 def test_unported_flags_name_their_slice(argv, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         tcli.main(["--device", "cpu", "--iters", "1"] + argv)
