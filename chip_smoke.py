@@ -34,7 +34,10 @@ non-zero:
    its neighbours (tanh at x, sigmoid at 2x, n 6, 7, 13), tanh at n = 6
    equal to the JAX reference's eager value; Q-Conv and Q-MAC at the
    pixel runs' convs and products, and Q-MAC at the value runs' other
-   two ([M, 3] x [3, 64], [M, 128] x [128, 96]);
+   two ([M, 3] x [3, 64], [M, 128] x [128, 96]); both Q-MAC products at
+   TinyLlama's (K, N) = (2048, 2048), (2048, 256), (2048, 5632), (5632,
+   2048) at M = 4, 128 and 4096 and its head (2048, 32000) at M = 4 and
+   8, with w8 and w4 codes;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -45,6 +48,12 @@ non-zero:
    [4096, 8192] and [256, 65536], int8 at 2^26 elements, and a
    1-element V-ACT call as the launch floor under this timing; Q-MAC
    also at the fxp8 actor's [32, 64] x [64, 64] and [32, 4] x [4, 64];
+   the fused Q-MAC at TinyLlama's products at M = 4 (a decode step at
+   batch 4) and M = 4096 (an 8 x 512 prefill), and its head, each with
+   its launch plan, its bound and, as a yardstick, ``torch._int_mm``
+   followed by the two scale multiplies (cuBLASLt's int8 tensor cores;
+   at M <= 16, which it refuses, on the rows padded with zeros to 32),
+   summed over a decode step's and a prefill's 155 products;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -122,7 +131,23 @@ non-zero:
    without ``--metrics-dir``, history and params bitwise equal; a
    ``--profile-dir`` window of 2 PPO steps whose trace holds a ``qmac``
    kernel row;
-13. print the kernels' JSON line, then the device line last.
+13. serving TinyLlama-1.1B at its published widths (22 layers, d_model
+   2048, 32 heads, 4 KV heads, d_ff 5632, vocab 32,000; random weights
+   from seed 0) through ``repro_torch.launch.serve.serve(..., smoke=
+   False)``: w8a8kv8 at batch 4, prompt 32, gen 16 and at batch 8,
+   prompt 512, gen 32, and w4a8 at batch 4, prompt 32, gen 16, each
+   after a warm-up call at its batch and prompt: PTQ MiB, prefill and
+   decode tok/s, the first ids; exactly 155 ``qmac_i8_deq`` a forward
+   (22 x 7 + the head) and 155 x gen a call, no ``qmac_i8``, every id in
+   [0, 32000); then the same model at 2 layers on the card and on the
+   CPU from the same PTQ'd params (the card's PTQ of the same fp32
+   params bitwise the CPU's): a 4 x 32 prefill and 8 greedy steps,
+   every int8 activation code compared by row and forward, tokens equal
+   but in rows after a differing code (counted), logits within 1e-5 of
+   their largest magnitude in the other rows; and a profile of a decode
+   step and an 8 x 512 prefill (device time by kernel, idle share, the
+   port's launches and PyTorch's);
+14. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -1773,18 +1798,25 @@ def _phases(torch, dev, device, g=0, **kw):
 
 
 def _recorded_codes(torch, fn):
-    """``fn()``'s output and the int8 codes of every activation the fxp8
+    """``fn()``'s output and the int8 codes of every activation the int8
     program quantized in it, by row: each product's and conv's
-    row-quantized input and each activation's requantized output (on the
-    tensor-wide grid ``activation`` puts it on), [B, n]."""
+    row-quantized input, each KV payload the attention quantizes, and
+    each activation's requantized output (on the tensor-wide grid
+    ``activation`` puts it on), [B, n]."""
     from repro_torch.core import fxp, qmatmul, vact
-    from repro_torch.nn import conv
+    from repro_torch.nn import attention, conv
 
     rec = []
     rowwise, fake_quant = qmatmul.quantize_rowwise, vact.fake_quant
+    quant_kv = attention._quant_kv
 
     def record_rowwise(x, bits):
         q, scale = rowwise(x, bits)
+        rec.append(q)
+        return q, scale
+
+    def record_kv(x, bits):
+        q, scale = quant_kv(x, bits)
         rec.append(q)
         return q, scale
 
@@ -1794,11 +1826,13 @@ def _recorded_codes(torch, fn):
 
     qmatmul.quantize_rowwise = conv.quantize_rowwise = record_rowwise
     vact.fake_quant = record_requant
+    attention._quant_kv = record_kv
     try:
         out = fn()
     finally:
         qmatmul.quantize_rowwise = conv.quantize_rowwise = rowwise
         vact.fake_quant = fake_quant
+        attention._quant_kv = quant_kv
     b = (out if isinstance(out, torch.Tensor) else out[0]).shape[0]
     return out, torch.cat([r.reshape(b, -1).to(torch.int32) for r in rec],
                           -1)
@@ -3091,6 +3125,323 @@ def telemetry_leaves_training_alone(torch, dev, card, work):
                              "kernel row, or no [1, 3] profile record")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving TinyLlama-1.1B (and its products in phases 3-4)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "tinyllama-1.1b"
+# TinyLlama's products (K, N): wq and wo [2048, 2048], wk and wv [2048,
+# 256], gate and up [2048, 5632], down [5632, 2048]; the head [2048,
+# 32000] runs at M = batch (prefill projects only its last position)
+LM_KN = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
+LM_HEAD_KN = (2048, 32000)
+LM_ROWS = (4, 128, 4096)
+LM_HEAD_ROWS = (4, 8)
+# a forward launches the fused product at 7 products a layer + the head
+LM_PER_FORWARD = 7 * 22 + 1
+# (policy, batch, prompt, gen): the reference's defaults at w8a8kv8 and
+# w4a8, and an 8 x 512 prefill with 32 generated tokens
+LM_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 512, 32),
+           ("w4a8", 4, 32, 16))
+# card against CPU: full width at 2 layers, prefill + 8 greedy steps
+LM_PARITY_LAYERS = 2
+LM_PARITY_STEPS = 8
+
+
+def check_lm_kernels(torch, dev, worst):
+    """Phase 3, TinyLlama's products: ``qmac_i8_deq`` and ``qmac_i8``
+    at every block product (``LM_KN``) at M = 4 (decode), 128 (a 4 x 32
+    prefill) and 4096 (an 8 x 512 prefill), and the head at M = 4 and
+    8, with w8 and w4 codes (qmax 127 and 7 in the int8 container),
+    bitwise equal to the plain version."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(20)
+    cases = [(m, k, n) for k, n in LM_KN for m in LM_ROWS]
+    cases += [(m,) + LM_HEAD_KN for m in LM_HEAD_ROWS]
+    for m, k, n in cases:
+        for qmax in (127, 7):
+            qx = _i8(torch, g, dev, (m, k))
+            qw = torch.randint(-qmax, qmax + 1, (k, n), generator=g,
+                               device=dev, dtype=torch.int32).to(torch.int8)
+            sx = torch.rand((m, 1), generator=g, device=dev) * 0.02 + 1e-4
+            sw = torch.rand((n,), generator=g, device=dev) * 0.02 + 1e-4
+            got = qmac_ops.qmac_i8_deq(qx, sx, qw, sw)
+            want = qmac_ops.qmac_i8_deq_plain(qx, sx, qw, sw)
+            err = (got - want).abs().max().item()
+            worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8_deq != plain at the LM's "
+                                     f"M,K,N={m},{k},{n} qmax {qmax} (max "
+                                     f"abs err {err})")
+            got = qmac_ops.qmac_i8(qx, qw)
+            want = qmac_ops.qmac_i8_plain(qx, qw)
+            worst["qmac_i8"] = max(worst["qmac_i8"], float(
+                (got.long() - want.long()).abs().max().item()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8 != plain at the LM's "
+                                     f"M,K,N={m},{k},{n} qmax {qmax}")
+    torch.cuda.synchronize()
+    print(f"Q-MAC at TinyLlama's products: {len(cases) * 2} cases (w8 and "
+          "w4 codes), fused fp32 and int32 bitwise equal to the plain "
+          f"version ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def _time_qmac_lm(torch, g, dev, m, k, n):
+    """The fused product at one LM shape, with its launch plan, its plain
+    version and the yardstick ``torch._int_mm`` followed by the two scale
+    multiplies (cuBLASLt's int8 tensor cores; it takes M > 16, so at
+    M <= 16 the yardstick runs on the rows padded with zeros to 32 and
+    says so)."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    qx, qw = _i8(torch, g, dev, (m, k)), _i8(torch, g, dev, (k, n))
+    sx = torch.rand((m, 1), generator=g, device=dev) * 0.01
+    sw = torch.rand((1, n), generator=g, device=dev) * 0.01
+    p = qmac_ops.split_plan(m, k, n)
+    b_ms, b_by = bound_ms(m * k + k * n + 4 * m + 4 * n + 4 * m * n,
+                          2.0 * m * n * k, 2.0 * m * n)
+    pad = 32 if m <= 16 else m
+    qx_y = torch.cat([qx, qx.new_zeros((pad - m, k))]) if pad > m else qx
+    sx_y = torch.cat([sx, sx.new_zeros((pad - m, 1))]) if pad > m else sx
+    lib = _yardstick(torch, lambda: (torch._int_mm(qx_y, qw).to(
+        torch.float32) * sx_y) * sw, "torch._int_mm")
+    return dict(
+        shape=f"M={m} K={k} N={n}",
+        plan=f"{p.splits} slices of {p.slice} B, {p.blocks} blocks",
+        ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq(qx, sx, qw, sw)),
+        plain_ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq_plain(
+            qx, sx, qw, sw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        library=("torch._int_mm + 2 scale multiplies"
+                 + (f", rows padded {m} -> 32" if pad > m else "")))
+
+
+def time_lm_kernels(torch, dev):
+    """Phase 4, TinyLlama's fused products at M = 4 (a decode step at
+    batch 4) and M = 4096 (an 8 x 512 prefill), and the head at M = 4.
+    Returns the rows, and prints the decode step's and the prefill's
+    products summed over a forward (22 layers x 7 + the head)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    per_layer = {(2048, 2048): 2, (2048, 256): 2, (2048, 5632): 2,
+                 (5632, 2048): 1}
+    for m in (4, 4096):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for k, n in LM_KN:
+            r = _time_qmac_lm(torch, g, dev, m, k, n)
+            rows.append(r)
+            for key in tot:
+                tot[key] += 22 * per_layer[(k, n)] * (r[key] or 0.0)
+        head = _time_qmac_lm(torch, g, dev, 4 if m == 4 else 8, *LM_HEAD_KN)
+        rows.append(head)
+        for key in tot:
+            tot[key] += head[key] or 0.0
+        what = "a decode step (batch 4)" if m == 4 else "an 8 x 512 prefill"
+        print(f"qmac_i8_deq over {what}, 155 products: kernel "
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"torch._int_mm yardstick {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms")
+    print(f"TinyLlama's products timed in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def lm_serving(torch, dev, card):
+    """Phase 13: ``repro_torch.launch.serve.serve`` on TinyLlama-1.1B at
+    its published widths (seed 0) for each of ``LM_RUNS``, each after a
+    warm-up call at the same batch and prompt: PTQ MiB, prefill and
+    decode tok/s, the first generated ids; exactly ``LM_PER_FORWARD``
+    ``qmac_i8_deq`` launches a forward (``gen`` forwards a call), no
+    ``qmac_i8``, every id in [0, 32000).  Returns the path's launches."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import serve
+
+    kernels.reset_launch_counts()
+    warmed = set()
+    for policy, batch, prompt, gen in LM_RUNS:
+        kw = dict(smoke=False, policy_name=policy, batch=batch,
+                  prompt_len=prompt, seed=0, device=dev)
+        if (batch, prompt) not in warmed:
+            serve(LM_ARCH, gen=2, verbose=False, **kw)
+            warmed.add((batch, prompt))
+        before = kernels.launch_counts()
+        print(f"{LM_ARCH} {policy} batch {batch} prompt {prompt} gen {gen} "
+              f"on {card}:")
+        toks, t = serve(LM_ARCH, gen=gen, **kw)
+        after = kernels.launch_counts()
+        deq = after["qmac_i8_deq"] - before["qmac_i8_deq"]
+        i32 = after["qmac_i8"] - before["qmac_i8"]
+        print(f"  prefill {batch * prompt / t['t_prefill']:.1f} tok/s, "
+              f"decode {batch * (gen - 1) / t['t_decode']:.1f} tok/s; "
+              f"qmac_i8_deq {deq} = {LM_PER_FORWARD} x {gen} forwards, "
+              f"qmac_i8 {i32}; first ids {toks[:, :8].tolist()}")
+        if deq != LM_PER_FORWARD * gen or i32:
+            raise AssertionError(f"{policy}: {deq} fused and {i32} int32 "
+                                 f"products, not {LM_PER_FORWARD} x {gen} "
+                                 "and 0")
+        if toks.shape != (batch, gen) or int(toks.min()) < 0 \
+                or int(toks.max()) >= 32000:
+            raise AssertionError(f"{policy}: bad tokens {toks.shape} in "
+                                 f"[{int(toks.min())}, {int(toks.max())}]")
+    return kernels.launch_counts()
+
+
+def lm_card_vs_cpu(torch, dev):
+    """Phase 13: TinyLlama at full width and ``LM_PARITY_LAYERS`` layers,
+    w8a8kv8, the same PTQ'd params on the card and on the CPU (the PTQ on
+    the card of the same fp32 params bitwise equal to the CPU's): a 4 x
+    32 prefill and ``LM_PARITY_STEPS`` greedy decode steps on each
+    device, each on its own tokens, exactly 7 x 2 + 1 fused products a
+    forward on the card.  Every int8 activation code (row inputs, KV
+    payloads, the SiLU requant) is compared by batch row and forward and
+    the differing ones printed; greedy tokens must be equal, except in a
+    row at or after a forward in which one of its codes differed; logits
+    within 1e-5 of their largest magnitude in the rows with no differing
+    code so far.  (With the LM's reductions and library functions through
+    fp64, ``core.exact``, the devices agree bit for bit but for a rare
+    fp64 double rounding on a rounding tie, which the rule exempts.)"""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.fxp import QTensor
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.launch.serve import pad_caches, sample
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = get_arch(LM_ARCH).replace(n_layers=LM_PARITY_LAYERS)
+    pol = get_policy("w8a8kv8")
+    fp = transformer.init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    cpu_params = quantize_params(fp, pol)
+    card_ptq = quantize_params(tree_map(lambda t: t.to(dev), fp), pol)
+    is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
+    for (p, a), (_, b) in zip(leaves_with_path(cpu_params, is_q),
+                              leaves_with_path(card_ptq, is_q), strict=True):
+        pairs = ((a.qvalue, b.qvalue), (a.scale, b.scale)) if is_q(a) \
+            else ((a, b),)
+        for x, y in pairs:
+            if not bits_equal(torch, x, y.cpu()):
+                raise AssertionError(f"PTQ on the card != CPU at {p}")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params, is_leaf=is_q)
+    per_forward = LM_PARITY_LAYERS * 7 + 1
+    prompts = torch.randint(0, cfg.vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(torch.int32)
+    runs = []
+    for where, params in ((dev, card_params), (torch.device("cpu"),
+                                               cpu_params)):
+        logits_all, toks, codes, launches = [], [], [], []
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            (logits, caches), c = _recorded_codes(
+                torch, lambda: transformer.prefill(
+                    params, prompts.to(where), cfg, pol, pol.kv_bits))
+            launches.append(kernels.launch_counts()["qmac_i8_deq"])
+            caches = pad_caches(caches, LM_PARITY_STEPS)
+            codes.append(c.cpu())
+            logits_all.append(logits.cpu())
+            for i in range(LM_PARITY_STEPS):
+                tok = sample(logits, 0.0)
+                toks.append(tok.cpu())
+                kernels.reset_launch_counts()
+                (logits, caches), c = _recorded_codes(
+                    torch, lambda tok=tok, caches=caches, i=i:
+                    transformer.decode_step(params, tok, caches, 32 + i, cfg,
+                                            pol, pol.kv_bits))
+                launches.append(kernels.launch_counts()["qmac_i8_deq"])
+                codes.append(c.cpu())
+                logits_all.append(logits.cpu())
+            toks.append(sample(logits, 0.0).cpu())
+        runs.append((torch.stack(logits_all), torch.cat(toks, 1), codes,
+                     launches))
+    (ld, td, cd, nd), (lc, tc, cc, _) = runs
+    if nd != [per_forward] * (LM_PARITY_STEPS + 1):
+        raise AssertionError(f"card forwards launched {nd} fused products, "
+                             f"not {per_forward} each")
+    # differ[f, b]: forward f of row b holds a code that differs
+    differ = torch.stack([(a != b).sum(-1) for a, b in zip(cd, cc,
+                                                          strict=True)])
+    flipped = torch.cumsum(differ, 0) > 0          # at or before forward f
+    scale = lc.abs().max().item()
+    err = (ld - lc).abs().amax(-1)                 # [forwards, B]
+    worst_ok = (err * ~flipped).max().item()
+    # token f is chosen from forward f's logits
+    tok_bad = (td != tc).T & ~flipped
+    print(f"{LM_ARCH} at {LM_PARITY_LAYERS} layers, w8a8kv8, card vs CPU: "
+          f"greedy tokens equal in {int((td == tc).sum())} of {td.numel()}; "
+          f"int8 codes that differ by forward and row "
+          f"{differ.T.tolist()} (of {cd[0].shape[1]} in the prefill, "
+          f"{cd[1].shape[1]} a decode step, a row); largest logit abs err "
+          f"{err.max().item():.3g} ({worst_ok:.3g} in rows with no code "
+          f"differing yet; logits' largest magnitude {scale:.3g}); "
+          f"{per_forward} fused products a forward")
+    if bool(tok_bad.any()):
+        raise AssertionError("card and CPU chose different tokens in a row "
+                             "with no differing int8 code")
+    if worst_ok > 1e-5 * scale:
+        raise AssertionError(f"card and CPU logits {worst_ok} apart in rows "
+                             "with no differing int8 code")
+
+
+def profile_lm(torch, dev):
+    """Phase 13: where the time goes in one decode step (batch 4, a
+    48-slot cache) and one 8 x 512 prefill, at w8a8kv8 and full width:
+    device time by kernel, wall time, idle share, launches split into the
+    port's (the wrappers' counters) and PyTorch's (the trace's rest)."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import transformer
+
+    cfg = get_arch(LM_ARCH)
+    pol = get_policy("w8a8kv8")
+    params = quantize_params(transformer.init(
+        torch.Generator().manual_seed(0), cfg, device=dev), pol)
+    g = torch.Generator().manual_seed(1)
+    small = torch.randint(0, cfg.vocab, (4, 32), generator=g).to(
+        torch.int32).to(dev)
+    big = torch.randint(0, cfg.vocab, (8, 512), generator=g).to(
+        torch.int32).to(dev)
+    with torch.no_grad():
+        logits, caches = transformer.prefill(params, small, cfg, pol, 8)
+        caches = pad_caches(caches, 16)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+
+        def decode():
+            transformer.decode_step(params, tok, caches, 32, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        def prefill():
+            transformer.prefill(params, big, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        out = {}
+        for what, fn, n in (("decode step, batch 4", decode, 5),
+                            ("prefill 8 x 512", prefill, 3)):
+            kernels.reset_launch_counts()
+            fn()
+            port = sum(kernels.launch_counts().values())
+            if kernels.launch_counts()["qmac_i8_deq"] != LM_PER_FORWARD:
+                raise AssertionError(f"{what}: "
+                                     f"{kernels.launch_counts()} launches")
+            wall, rows, launches, why = _profiled(torch, fn, n)
+            _print_profile(f"{LM_ARCH} w8a8kv8 {what}", wall, rows, launches,
+                           why, top=12)
+            qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
+            busy = sum(r[0] for r in rows)
+            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
+                  f"{'not measured' if launches is None else launches - port}"
+                  f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy")
+            out[what] = (wall, busy, launches, port)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3130,10 +3481,14 @@ def main() -> int:
     for check in (check_hrl_kernels, check_split_and_band_edges,
                   check_ew_and_cell_edges, check_softmax_and_q8_edges,
                   check_training_kernels, check_pixel_kernels,
-                  check_value_kernels):
+                  check_value_kernels, check_lm_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
+    lm_rows = time_lm_kernels(torch, dev)
+    for r in lm_rows:
+        print_row("qmac_i8_deq", r)
+    rows["qmac_i8_deq"] += lm_rows
     lap("phase 4 (kernel timing)")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -3179,6 +3534,10 @@ def main() -> int:
                                     os.path.join(work, "phase12"))
     lap("phase 12 (telemetry, profiler window, serving the value "
         "checkpoints)")
+    lm_launches = lm_serving(torch, dev, card)
+    lm_card_vs_cpu(torch, dev)
+    profile_lm(torch, dev)
+    lap("phase 13 (serving TinyLlama-1.1B)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -3204,7 +3563,8 @@ def main() -> int:
                    "hrl_training": pixel_launches["hrl_training"][name],
                    "pixel_training": pixel_launches["pixel_training"][name],
                    **{run: value_launches[run][name] for run in VALUE_RUNS},
-                   "value_serving": vserve_launches[name]}
+                   "value_serving": vserve_launches[name],
+                   "lm_serving": lm_launches[name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

@@ -1,0 +1,11 @@
+"""Phi-3-mini-3.8B [arXiv:2404.14219]: RoPE SwiGLU GQA (kv == heads)."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32,
+    d_ff=8192, vocab=32064, head_dim=96,
+    rope_theta=1e4, act="silu",
+    microbatches=2,
+    source="arXiv:2404.14219",
+)

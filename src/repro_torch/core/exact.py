@@ -1,0 +1,47 @@
+"""The LM layers' reductions and transcendental functions, computed in
+fp64 and rounded once to the working dtype.
+
+In fp32 the card and the CPU sum a contraction in another order, and
+their ``rsqrt``, ``exp``, ``sin`` and ``cos`` differ in the last bit.
+Under an int8 policy every activation is quantized again after each
+layer, and at full width (rows of 2,048-5,632 values) an ulp lands some
+value on the other side of a rounding tie in nearly every quantization:
+the two devices' int8 codes then part and the difference grows layer
+by layer.  Through fp64 each result is the correctly rounded one on
+both devices (the fp64 sums and functions differ by a few fp64 ulps,
+which move the rounded value only when it lies within that of a
+rounding boundary), so the card computes the CPU's plain program bit
+for bit.  Each function costs two dtype conversions beside its op.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def einsum(spec: str, *ops: Tensor, dtype=None) -> Tensor:
+    """``torch.einsum`` of the operands widened to fp64, rounded to
+    ``dtype`` (default: the first operand's)."""
+    out = torch.einsum(spec, *(o.to(torch.float64) for o in ops))
+    return out.to(dtype or ops[0].dtype)
+
+
+def _unary(fn):
+    def f(x: Tensor) -> Tensor:
+        return fn(x.to(torch.float64)).to(x.dtype)
+    f.__name__ = fn.__name__
+    f.__doc__ = f"``torch.{fn.__name__}`` through fp64."
+    return f
+
+
+rsqrt = _unary(torch.rsqrt)
+exp = _unary(torch.exp)
+sin = _unary(torch.sin)
+cos = _unary(torch.cos)
+sigmoid = _unary(torch.sigmoid)
+
+
+def total(x: Tensor, dim: int = -1) -> Tensor:
+    """The sum over ``dim`` (kept) through fp64."""
+    return x.to(torch.float64).sum(dim=dim, keepdim=True).to(x.dtype)

@@ -30,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fake_quant
 from repro_torch.core.policy import QuantPolicy, cordic_iterations
 
@@ -136,7 +137,8 @@ _NATIVE = {
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu
-    "silu": F.silu,
+    # jax.nn.silu's x * sigmoid(x), its sigmoid through fp64
+    "silu": lambda x: x * exact.sigmoid(x),
     "identity": lambda x: x,
 }
 

@@ -1,0 +1,167 @@
+"""Quantized batched LM serving, a prefill and a decode loop (port of
+``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --policy w8a8kv8 --batch 4 --prompt-len 32 --gen 16
+
+Weights PTQ'd to int8/int4 QTensors, activations int8 at every product
+(on the card, the Q-MAC kernel's fused product), the KV cache int8 under
+``w8a8kv8``, greedy or temperature sampling.  Runs on the card unless
+``device="cpu"`` / ``--device cpu`` is given.
+
+As in the reference, ``--smoke`` is ``store_true`` with a default of
+True, so the CLI always serves the reduced config; the published widths
+are reached through ``serve(arch, smoke=False)``.  The reference's
+``make_host_mesh`` and sharding hints are not ported (with one device
+they change nothing); the sharded paths bring them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.core.fxp import div_scalar
+from repro_torch.core.policy import get_policy
+from repro_torch.core.quantizer import quantize_params, quantized_nbytes
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.registry import model_for
+
+Tensor = torch.Tensor
+
+
+def pad_caches(caches, extra: int):
+    """Grow attention-cache capacity by ``extra`` zero slots (prefill
+    built them at prompt length; decode needs prompt + gen).  Ring
+    buffers (marked by 'pos') pass through unchanged."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "k" in node and "v" in node and "pos" not in node:
+                out = dict(node)
+                for key in ("k", "v", "k_scale", "v_scale"):
+                    if key in node:
+                        arr = node[key]
+                        t_axis = arr.ndim - 3
+                        shape = list(arr.shape)
+                        shape[t_axis] = extra
+                        out[key] = torch.cat([arr, arr.new_zeros(shape)],
+                                             dim=t_axis)
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(caches)
+
+
+def gumbel(gen: torch.Generator, shape, device) -> Tensor:
+    """Standard Gumbel draws ``-log(-log(u))``, u uniform in [tiny, 1),
+    drawn on the CPU generator (the same draws on every device)."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def sample(logits: Tensor, temperature: float, g=None) -> Tensor:
+    """The next token [B, 1] int32: argmax at ``temperature <= 0``, else
+    the Gumbel argmax ``jax.random.categorical`` computes,
+    ``argmax(g + logits / temperature)`` with Gumbel draws ``g``."""
+    if temperature <= 0:
+        return torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+    scaled = div_scalar(logits, temperature)
+    return torch.argmax(g + scaled, -1, keepdim=True).to(torch.int32)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@torch.no_grad()
+def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
+          batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          temperature: float = 0.0, seed: int = 0,
+          weight_ptq: bool = True, verbose: bool = True,
+          device: DeviceLike = None):
+    """Random weights from ``seed``, prompts from ``seed + 1``; returns
+    (tokens [batch, gen] int32, {"t_prefill", "t_decode"} in seconds on
+    the host clock, each ended by a wait for the card)."""
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    policy = get_policy(policy_name)
+    model = model_for(cfg)
+    dev = resolve_device(device)
+
+    params = model.init(torch.Generator().manual_seed(seed), cfg,
+                        device=dev)
+    if weight_ptq and policy.quantized_w:
+        params = quantize_params(params, policy)
+        stored, fp32 = quantized_nbytes(params)
+        if verbose:
+            print(f"PTQ weights: {stored / 2**20:.1f} MiB "
+                  f"(fp32 {fp32 / 2**20:.1f} MiB, "
+                  f"{fp32 / max(stored, 1):.2f}x smaller)")
+
+    draws = torch.Generator().manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                            generator=draws).to(torch.int32).to(dev)
+    kv_bits = policy.kv_bits
+
+    def next_token(logits):
+        g = None if temperature <= 0 else gumbel(draws, logits.shape, dev)
+        return sample(logits, temperature, g)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompts, cfg, policy, kv_bits)
+    caches = pad_caches(caches, gen)     # capacity: prompt_len + gen
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    token = next_token(logits)
+    out_tokens = [token]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = model.decode_step(params, token, caches,
+                                           prompt_len + i, cfg, policy,
+                                           kv_bits)
+        token = next_token(logits)
+        out_tokens.append(token)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    toks = torch.cat(out_tokens, dim=1)
+    if verbose:
+        print(f"prefill: {batch}x{prompt_len} tok in {t_prefill:.3f}s "
+              f"({batch * prompt_len / max(t_prefill, 1e-9):.0f} tok/s)")
+        print(f"decode:  {batch}x{gen - 1} tok in {t_decode:.3f}s "
+              f"({batch * (gen - 1) / max(t_decode, 1e-9):.0f} tok/s)")
+        print(f"sample output ids: {toks[0, :10].tolist()}")
+    return toks, {"t_prefill": t_prefill, "t_decode": t_decode}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--policy", default="w8a8kv8")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain PyTorch path)")
+    args = ap.parse_args(argv)
+    serve(args.arch, args.smoke, args.policy, args.batch,
+          args.prompt_len, args.gen, args.temperature,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

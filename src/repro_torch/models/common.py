@@ -1,0 +1,106 @@
+"""Shared model plumbing: stacked layer init, the LM head, losses
+(port of ``repro.models.common``, forward only).
+
+The reference's ``distributed.sharding.constrain`` layout hints are
+dropped: with no mesh they return their input, and the sharded paths
+bring them back.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.fxp import div_scalar
+from repro_torch.core.qmatmul import q_matmul
+from repro_torch.nn.linear import embedding_attend
+from repro_torch.tree import leaves_with_path, map_with_path
+
+Tensor = torch.Tensor
+
+
+def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
+    """The error an unported model family or option raises, naming the
+    slice of the port that brings it."""
+    return NotImplementedError(
+        f"{what} is not ported yet: it arrives with the {slice_name} "
+        "slice of the PyTorch port (the port serves the dense decoder "
+        "LMs)")
+
+
+def stack_init(block_init_fn: Callable, gen: torch.Generator, n: int,
+               device="cpu"):
+    """``n`` blocks drawn one after another from ``gen`` on the CPU, each
+    leaf stacked on a leading layer axis ``[n, ...]`` and placed on
+    ``device``."""
+    blocks = [block_init_fn(gen) for _ in range(n)]
+    by_path = {}
+    for block in blocks:
+        for path, leaf in leaves_with_path(block):
+            by_path.setdefault(path, []).append(leaf)
+    del blocks[1:]
+    return map_with_path(
+        lambda path, _x: torch.stack(by_path.pop(path)).to(device),
+        blocks[0])
+
+
+def cross_entropy(logits: Tensor, labels: Tensor,
+                  mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token CE: logsumexp minus the label logit."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - lab
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return nll.mean()
+
+
+def chunked_ce(head_fn: Callable, x: Tensor, labels: Tensor,
+               mask: Optional[Tensor] = None, chunk: int = 1024) -> Tensor:
+    """Head + CE a token chunk at a time, so the [B, S, vocab] logits are
+    never whole; the sums run over the chunks in order, as the
+    reference's scan carries them."""
+    B, S, _ = x.shape
+    if chunk is None or S <= chunk or S % chunk != 0:
+        return cross_entropy(head_fn(x), labels, mask)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, S, chunk):
+        logits = head_fn(x[:, i:i + chunk]).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1,
+                           labels[:, i:i + chunk, None].long())[..., 0]
+        m_c = mask[:, i:i + chunk] if mask is not None \
+            else torch.ones_like(lse)
+        tot = tot + ((lse - lab) * m_c).sum()
+        cnt = cnt + m_c.sum()
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def sinusoidal_positions(length: int, d_model: int,
+                         device="cpu") -> Tensor:
+    """Whisper-style sinusoidal position embeddings [length, d_model]."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    log_base = torch.log(dim.new_full((), 10000.0))
+    inv = torch.exp(-dim * div_scalar(log_base, d_model // 2 - 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def logits_from_hidden(x: Tensor, head, tie_emb, policy,
+                       n_valid: Optional[int] = None) -> Tensor:
+    """Final projection to fp32 logits; padded vocab columns (see
+    ``configs.base.pad_vocab``) get -1e9."""
+    if tie_emb is not None:
+        logits = embedding_attend(tie_emb, x, policy)
+    else:
+        logits = q_matmul(x, head, policy)
+    logits = logits.to(torch.float32)
+    if n_valid is not None and n_valid < logits.shape[-1]:
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits + torch.where(cols < n_valid, 0.0, -1e9)
+    return logits

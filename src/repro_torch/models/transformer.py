@@ -1,0 +1,207 @@
+"""Decoder-only LM family, dense (qwen2/stablelm/phi3/tinyllama/
+chameleon) — port of ``repro.models.transformer``.  Every product routes
+through q_matmul (on a CUDA tensor, Q-MAC).
+
+Block params are stacked ``[L, ...]`` as in the reference, and the
+layers are walked in a Python loop over the stacked leaves in place of
+its ``lax.scan``: a layer's weights are views ``w[i]`` (a QTensor's
+``qvalue[i]``, ``scale[i]``).  ``cfg.remat`` and ``cfg.scan_layers`` are
+compile knobs and change nothing here.  The MoE blocks (``nn/moe``)
+arrive with a later slice: an MoE config raises.  The reference's
+``distributed.sharding.constrain`` layout hints are dropped (with no
+mesh they return their input).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, pad_vocab
+from repro_torch.core.fxp import QTensor, is_qtensor
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import (chunked_ce, logits_from_hidden,
+                                       not_in_slice, stack_init)
+from repro_torch.nn.attention import (AttnConfig, attention_apply,
+                                      attention_decode, attention_init,
+                                      init_cache)
+from repro_torch.nn.linear import (embedding_apply, embedding_init,
+                                   linear_init)
+from repro_torch.nn.mlp import swiglu_apply, swiglu_init
+from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
+from repro_torch.tree import map_with_path
+
+Tensor = torch.Tensor
+
+
+def attn_config(cfg: ArchConfig) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, causal=True,
+        window=cfg.window, rope=cfg.rope, rope_theta=cfg.rope_theta,
+        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+        q_chunk=cfg.q_chunk)
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.is_moe:
+        raise not_in_slice(f"{cfg.name} (MoE blocks, nn/moe)",
+                           "MoE serving")
+
+
+def _block_init(gen, cfg: ArchConfig, dtype):
+    _dense_only(cfg)
+    return {
+        "ln1": rmsnorm_init(gen, cfg.d_model, dtype),
+        "attn": attention_init(gen, attn_config(cfg), dtype),
+        "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
+        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def _block_apply(p, x, cfg: ArchConfig, policy, positions):
+    h = rmsnorm_apply(p["ln1"], x)
+    x = x + attention_apply(p["attn"], h, attn_config(cfg), policy,
+                            positions=positions)
+    h = rmsnorm_apply(p["ln2"], x)
+    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act)
+
+
+def _block_prefill(p, x, cfg, policy, positions, kv_bits):
+    h = rmsnorm_apply(p["ln1"], x)
+    a, cache = attention_apply(p["attn"], h, attn_config(cfg), policy,
+                               positions=positions, return_cache=True,
+                               kv_bits=kv_bits)
+    x = x + a
+    h = rmsnorm_apply(p["ln2"], x)
+    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act), cache
+
+
+def _block_decode(p, x, cfg, policy, cache, index, kv_bits):
+    h = rmsnorm_apply(p["ln1"], x)
+    a, cache = attention_decode(p["attn"], h, attn_config(cfg), cache,
+                                index, policy, kv_bits=kv_bits)
+    x = x + a
+    h = rmsnorm_apply(p["ln2"], x)
+    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act), cache
+
+
+def layer(blocks, i: int):
+    """Layer ``i``'s params: a view of every stacked leaf."""
+    return map_with_path(
+        lambda _p, l: QTensor(l.qvalue[i], l.scale[i], l.bits)
+        if isinstance(l, QTensor) else l[i], blocks, is_leaf=is_qtensor)
+
+
+# ---------------------------------------------------------------------------
+# model init / forward
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+         device: DeviceLike = None):
+    """Random weights drawn from the CPU generator ``gen``, placed on
+    ``device`` (default: the card)."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    v_pad = pad_vocab(cfg.vocab)
+    params = {
+        "embed": embedding_init(gen, v_pad, cfg.d_model, dtype=dtype,
+                                device=dev),
+        "blocks": stack_init(lambda g: _block_init(g, cfg, dtype), gen,
+                             cfg.n_layers, dev),
+        "ln_f": rmsnorm_init(gen, cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(gen, cfg.d_model, v_pad, bias=False,
+                                        dtype=dtype, device=dev)
+    return params
+
+
+def _head(params, x, cfg, policy):
+    tie = params["embed"] if cfg.tie_embeddings else None
+    head = None if cfg.tie_embeddings else params["lm_head"]["w"]
+    return logits_from_hidden(x, head, tie, policy, n_valid=cfg.vocab)
+
+
+def _embed(params, tokens, policy):
+    x = embedding_apply(params["embed"], tokens, policy)
+    return x.to(policy.compute_dtype if policy else torch.float32)
+
+
+def _positions(tokens: Tensor) -> Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+
+def forward(params, tokens: Tensor, cfg: ArchConfig,
+            policy: Optional[QuantPolicy] = None,
+            return_hidden: bool = False) -> Tensor:
+    """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
+    _dense_only(cfg)
+    x = _embed(params, tokens, policy)
+    positions = _positions(tokens)
+    for i in range(cfg.n_layers):
+        x = _block_apply(layer(params["blocks"], i), x, cfg, policy,
+                         positions)
+    x = rmsnorm_apply(params["ln_f"], x)
+    if return_hidden:
+        return x
+    return _head(params, x, cfg, policy)
+
+
+def loss_fn(params, batch, cfg: ArchConfig,
+            policy: Optional[QuantPolicy] = None) -> Tensor:
+    x = forward(params, batch["tokens"], cfg, policy, return_hidden=True)
+    return chunked_ce(lambda h: _head(params, h, cfg, policy), x,
+                      batch["labels"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                kv_bits: int = 32, dtype=torch.float32, device="cpu"):
+    """Stacked per-layer KV caches [L, ...].  Sliding-window archs get
+    ring buffers of min(window, max_len) slots."""
+    cap = max_len if cfg.window is None else min(cfg.window, max_len)
+    ring = cfg.window is not None and cap < max_len
+    one = init_cache(batch, cap, cfg.n_kv_heads, cfg.hd, kv_bits, dtype,
+                     ring=ring, device=device)
+    return {k: v[None].expand((cfg.n_layers,) + v.shape).contiguous()
+            for k, v in one.items()}
+
+
+def _stack_caches(caches):
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def prefill(params, tokens: Tensor, cfg: ArchConfig,
+            policy: Optional[QuantPolicy] = None, kv_bits: int = 32):
+    """Prefill: (last-position logits [B, V], stacked caches)."""
+    _dense_only(cfg)
+    x = _embed(params, tokens, policy)
+    positions = _positions(tokens)
+    caches = []
+    for i in range(cfg.n_layers):
+        x, cache = _block_prefill(layer(params["blocks"], i), x, cfg,
+                                  policy, positions, kv_bits)
+        caches.append(cache)
+    x = rmsnorm_apply(params["ln_f"], x[:, -1:])
+    return _head(params, x, cfg, policy)[:, 0], _stack_caches(caches)
+
+
+def decode_step(params, token: Tensor, caches, index: int,
+                cfg: ArchConfig, policy: Optional[QuantPolicy] = None,
+                kv_bits: int = 32):
+    """One decode step: token [B, 1] -> (logits [B, V], caches).  Each
+    layer's cache is a view of the stacked one, updated in place."""
+    _dense_only(cfg)
+    x = _embed(params, token, policy)
+    for i in range(cfg.n_layers):
+        x, _ = _block_decode(layer(params["blocks"], i), x, cfg, policy,
+                             {k: v[i] for k, v in caches.items()}, index,
+                             kv_bits)
+    x = rmsnorm_apply(params["ln_f"], x)
+    return _head(params, x, cfg, policy)[:, 0], caches

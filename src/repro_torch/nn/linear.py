@@ -1,14 +1,15 @@
-"""Quantized linear layer — every product goes via q_matmul (port of
-``repro.nn.linear``)."""
+"""Quantized linear / embedding layers — every product goes via
+q_matmul (port of ``repro.nn.linear``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.core.fxp import QTensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qmatmul import q_matmul
-from repro_torch.nn.module import lecun_init, zeros_init
+from repro_torch.nn.module import lecun_init, normal_init, zeros_init
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -26,3 +27,30 @@ def linear_apply(p, x: torch.Tensor, policy: Optional[QuantPolicy] = None):
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
+                   init=None, dtype=torch.float32, device="cpu"):
+    """``{"emb": [vocab, d_model]}``."""
+    return {"emb": (init or normal_init(0.02))(gen, (vocab, d_model),
+                                                dtype, device)}
+
+
+def embedding_apply(p, ids: torch.Tensor,
+                    policy: Optional[QuantPolicy] = None):
+    """Token lookup; a QTensor table is gathered, then dequantized (one
+    byte a gathered element is read)."""
+    emb = p["emb"]
+    if isinstance(emb, QTensor):
+        rows = emb.qvalue[ids]
+        return rows.to(torch.float32) * emb.scale    # [1, d] or [1, 1]
+    return emb[ids]
+
+
+def embedding_attend(p, x: torch.Tensor,
+                     policy: Optional[QuantPolicy] = None):
+    """Tied LM head: logits = x @ emb^T."""
+    emb = p["emb"]
+    if isinstance(emb, QTensor):
+        emb = emb.deq(x.dtype)
+    return q_matmul(x, emb.transpose(0, 1), policy)

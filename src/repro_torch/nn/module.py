@@ -35,8 +35,22 @@ def he_init() -> Callable:
     return f
 
 
+def normal_init(stddev: float = 0.02) -> Callable:
+    def f(gen: torch.Generator, shape, dtype=torch.float32, device="cpu"):
+        x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+        return (x * stddev).to(dtype=dtype, device=device)
+    return f
+
+
 def zeros_init() -> Callable:
     def f(gen: torch.Generator, shape, dtype=torch.float32, device="cpu"):
         del gen
         return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    return f
+
+
+def ones_init() -> Callable:
+    def f(gen: torch.Generator, shape, dtype=torch.float32, device="cpu"):
+        del gen
+        return torch.ones(tuple(shape), dtype=dtype, device=device)
     return f

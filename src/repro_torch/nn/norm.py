@@ -1,0 +1,45 @@
+"""RMSNorm / LayerNorm, fp32 statistics (port of ``repro.nn.norm``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import exact
+from repro_torch.core.fxp import div_scalar
+from repro_torch.nn.module import ones_init, zeros_init
+
+Tensor = torch.Tensor
+
+
+def rmsnorm_init(gen: torch.Generator, d: int, dtype=torch.float32,
+                 device="cpu"):
+    return {"scale": ones_init()(gen, (d,), dtype, device)}
+
+
+def rmsnorm_apply(p, x: Tensor, eps: float = 1e-6) -> Tensor:
+    """The sum of squares and the ``rsqrt`` are fp32 (through fp64, see
+    ``core.exact``), as the reference's dot with
+    ``preferred_element_type=f32`` forms them; the normalization
+    multiplies stay in the input dtype."""
+    dt = x.dtype
+    ss = exact.einsum("...d,...d->...", x, x, dtype=torch.float32)[..., None]
+    inv = exact.rsqrt(div_scalar(ss, x.shape[-1]) + eps)
+    return x * inv.to(dt) * p["scale"].to(dt)
+
+
+def layernorm_init(gen: torch.Generator, d: int, dtype=torch.float32,
+                   device="cpu"):
+    return {"scale": ones_init()(gen, (d,), dtype, device),
+            "bias": zeros_init()(gen, (d,), dtype, device)}
+
+
+def layernorm_apply(p, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """Mean and (biased) variance in fp32, as ``jnp.var`` forms it: the
+    mean of the squared deviations."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    c = xf - mu
+    var = (c * c).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.pow(var + eps, -0.5)
+    return (out * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(dt)

@@ -1,0 +1,578 @@
+"""The LM layers of the PyTorch port (norms, RoPE, FFNs, embeddings,
+attention with its KV cache, the LM head) against the JAX package, at
+small widths.
+
+The same numpy inputs and params go to both packages; the reference
+runs op by op (``jax.disable_jit()``: compiled XLA fuses multiply-adds
+and rounds otherwise).  Tolerances:
+
+* integer payloads, int8 KV payloads and scales, masks: bitwise;
+* fp32 outputs: ``rtol=1e-6`` with an absolute part of 1e-6 of the
+  output's largest magnitude (``close``).  The two libraries sum a
+  contraction in another order and their ``exp``, ``rsqrt``, ``sin``
+  and ``cos`` differ in the last bit, so an entry near zero carries the
+  rounding of the larger terms that cancel into it;
+* with the ``one_library`` fixture the reference's library primitives
+  (``jnp.einsum``, ``jax.nn.softmax``, ``jax.lax.rsqrt``, ``jnp.sin``,
+  ``jnp.cos`` and the sigmoid of its SiLU) are computed by the port's
+  (``repro_torch.core.exact``: through fp64, rounded once), and the
+  layer under an int8 policy is then held bitwise: with each library's
+  own last bits an activation can land on the other side of a rounding
+  tie and move an int8 code.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core.vact as jvact
+from repro.core import policy as jpolicy
+from repro.core.fxp import QTensor as JQTensor
+from repro.launch import serve as jserve
+from repro.models import common as jcommon
+from repro.nn import attention as jattn
+from repro.nn import linear as jlinear
+from repro.nn import mlp as jmlp
+from repro.nn import norm as jnorm
+from repro.nn import rotary as jrotary
+from repro.nn.module import unbox
+from repro_torch.checkpoint import from_numpy_tree
+from repro_torch.core import exact
+from repro_torch.core import policy as tpolicy
+from repro_torch.core.fxp import QTensor
+from repro_torch.launch import serve as tserve
+from repro_torch.models import common as tcommon
+from repro_torch.nn import attention as tattn
+from repro_torch.nn import linear as tlinear
+from repro_torch.nn import mlp as tmlp
+from repro_torch.nn import norm as tnorm
+from repro_torch.nn import rotary as trotary
+
+
+# ---------------------------------------------------------------------------
+# helpers shared with test_torch_lm_serve.py
+# ---------------------------------------------------------------------------
+
+def to_torch(a):
+    """A numpy or jax array as a CPU tensor (bf16 kept as bf16)."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def to_numpy(t):
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy().astype(jnp.bfloat16)
+    return t.numpy()
+
+
+def carry(tree):
+    """The reference's params as the port's CPU tree."""
+    return from_numpy_tree(jax.tree.map(np.asarray, unbox(tree)), "cpu")
+
+
+def bits_equal(got, want):
+    got, want = np.asarray(to_numpy(got) if isinstance(got, torch.Tensor)
+                           else got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+def close(got, want, rtol=1e-6, scale=1e-6):
+    """fp32 agreement: ``rtol`` plus ``scale`` times the largest |want|
+    (see the module docstring)."""
+    if isinstance(got, torch.Tensor):
+        got = to_numpy(got)
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=scale * float(np.abs(want).max()))
+
+
+def _via_torch(orig, fn):
+    """``orig`` computed by the torch function ``fn`` (also inside the
+    reference's traced regions: ``jax.checkpoint`` traces even with jit
+    disabled)."""
+    def f(*args, **kw):
+        def call(*a):
+            return to_numpy(fn(*[to_torch(x) for x in a], **kw))
+        if not any(isinstance(a, jax.core.Tracer) for a in args):
+            return jnp.asarray(call(*args))
+        shape = jax.eval_shape(lambda *a: orig(*a, **kw), *args)
+        return jax.pure_callback(call, shape, *args)
+    return f
+
+
+def _port_einsum(spec):
+    def fn(*ts, preferred_element_type=None):
+        dtype = None if preferred_element_type is None else torch.float32
+        return exact.einsum(spec, *ts, dtype=dtype)
+    return fn
+
+
+def _port_softmax(t, axis=-1):
+    assert axis == -1
+    return tattn._softmax(t)
+
+
+@pytest.fixture
+def one_library(monkeypatch):
+    """The reference's library primitives computed by the port's, so both
+    packages round every primitive alike (see the module docstring)."""
+    einsum = jnp.einsum
+
+    def jeinsum(spec, *ops, **kw):
+        return _via_torch(lambda *a, **k: einsum(spec, *a, **k),
+                          _port_einsum(spec))(*ops, **kw)
+
+    sigmoid = _via_torch(jax.nn.sigmoid, exact.sigmoid)
+    monkeypatch.setattr(jnp, "einsum", jeinsum)
+    monkeypatch.setattr(jax.nn, "softmax",
+                        _via_torch(jax.nn.softmax, _port_softmax))
+    monkeypatch.setattr(jax.lax, "rsqrt", _via_torch(jax.lax.rsqrt,
+                                                     exact.rsqrt))
+    monkeypatch.setattr(jnp, "sin", _via_torch(jnp.sin, exact.sin))
+    monkeypatch.setattr(jnp, "cos", _via_torch(jnp.cos, exact.cos))
+    monkeypatch.setitem(jvact._NATIVE, "silu", lambda x: x * sigmoid(x))
+
+
+def policies(name):
+    return jpolicy.get_policy(name), tpolicy.get_policy(name)
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _normal(shape, seed=0, scale=1.0):
+    return (_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# norms, RoPE, FFNs
+# ---------------------------------------------------------------------------
+
+def test_initializers_match_the_reference_statistics():
+    from repro_torch.nn.module import normal_init, ones_init
+    g = torch.Generator().manual_seed(0)
+    x = normal_init(0.02)(g, (256, 64))
+    assert x.dtype == torch.float32
+    assert abs(float(x.std()) / 0.02 - 1) < 0.05
+    assert torch.equal(ones_init()(g, (3, 5), torch.bfloat16),
+                       torch.ones(3, 5, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm(dtype):
+    x = jnp.asarray(_normal((2, 5, 64), 1, 3.0)).astype(dtype)
+    scale = _normal((64,), 2) + 1.0
+    with jax.disable_jit():
+        want = jnorm.rmsnorm_apply({"scale": jnp.asarray(scale)}, x)
+    got = tnorm.rmsnorm_apply({"scale": torch.from_numpy(scale)},
+                              to_torch(x))
+    assert got.dtype == to_torch(want).dtype
+    if dtype == "float32":
+        close(got, want)
+    else:
+        # bf16 output: one bf16 ulp (2^-8) where the fp32 rsqrt scalar
+        # rounds to the other side
+        close(got, np.asarray(want, np.float32), rtol=2 ** -7, scale=0)
+
+
+def test_layernorm():
+    x = _normal((3, 7, 48), 3, 2.0) + 0.5
+    p = {"scale": _normal((48,), 4) + 1.0, "bias": _normal((48,), 5)}
+    with jax.disable_jit():
+        want = jnorm.layernorm_apply(jax.tree.map(jnp.asarray, p),
+                                     jnp.asarray(x))
+    got = tnorm.layernorm_apply({k: torch.from_numpy(v)
+                                 for k, v in p.items()}, torch.from_numpy(x))
+    close(got, want)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+@pytest.mark.parametrize("offset", [0, 37, 4095])
+def test_rope_at_decode_offsets(theta, offset):
+    x = _normal((2, 3, 4, 16), offset)
+    pos = (offset + np.arange(3)[None].repeat(2, 0)
+           + np.array([[0], [5]])).astype(np.int32)
+    with jax.disable_jit():
+        want = jrotary.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+        freqs = jrotary.rope_freqs(16, theta)
+    bits_equal(trotary.rope_freqs(16, theta), freqs)
+    close(trotary.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                             theta), want)
+
+
+def _swiglu_params(seed, d=32, f=64):
+    return {"w_gate": {"w": _normal((d, f), seed, d ** -0.5)},
+            "w_up": {"w": _normal((d, f), seed + 1, d ** -0.5)},
+            "w_down": {"w": _normal((f, d), seed + 2, f ** -0.5)}}
+
+
+@pytest.mark.parametrize("policy", ["fp32", "w8a8"])
+def test_swiglu(one_library, policy):
+    jp, tp = policies(policy)
+    p = _swiglu_params(7)
+    x = _normal((2, 5, 32), 8)
+    with jax.disable_jit():
+        want = jmlp.swiglu_apply(jax.tree.map(jnp.asarray, p),
+                                 jnp.asarray(x), jp)
+    got = tmlp.swiglu_apply(carry(p), torch.from_numpy(x), tp)
+    if policy == "fp32":
+        close(got, want)
+    else:
+        bits_equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["fp32", "w8a8"])
+def test_mlp(policy):
+    jp, tp = policies(policy)
+    p = {"w_in": {"w": _normal((32, 64), 9, 32 ** -0.5),
+                  "b": _normal((64,), 10, 0.1)},
+         "w_out": {"w": _normal((64, 32), 11, 0.125),
+                   "b": _normal((32,), 12, 0.1)}}
+    x = _normal((2, 5, 32), 13)
+    with jax.disable_jit():
+        want = jmlp.mlp_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                              jp, act="relu")
+    got = tmlp.mlp_apply(carry(p), torch.from_numpy(x), tp, act="relu")
+    if policy == "fp32":
+        close(got, want)
+    else:
+        bits_equal(got, want)
+
+
+def test_mlp_and_swiglu_init_shapes():
+    g = torch.Generator().manual_seed(0)
+    p = tmlp.swiglu_init(g, 8, 24)
+    assert {k: tuple(v["w"].shape) for k, v in p.items()} == {
+        "w_gate": (8, 24), "w_up": (8, 24), "w_down": (24, 8)}
+    p = tmlp.mlp_init(g, 8, 24)
+    assert tuple(p["w_in"]["b"].shape) == (24,)
+    assert "b" not in tmlp.mlp_init(g, 8, 24, bias=False)["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings and the LM head
+# ---------------------------------------------------------------------------
+
+def _tables(bits):
+    emb = _normal((40, 16), 14, 0.02)
+    jemb = jnp.asarray(emb)
+    if bits is None:
+        return {"emb": jemb}, {"emb": torch.from_numpy(emb)}
+    q = JQTensor.quant(jemb, bits, channel_axis=1)
+    return {"emb": q}, {"emb": QTensor(to_torch(q.qvalue),
+                                       to_torch(q.scale), bits)}
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_embedding_apply(bits):
+    jt, tt = _tables(bits)
+    ids = _rng(15).integers(0, 40, (3, 6)).astype(np.int32)
+    with jax.disable_jit():
+        want = jlinear.embedding_apply(jt, jnp.asarray(ids))
+    bits_equal(tlinear.embedding_apply(tt, torch.from_numpy(ids)), want)
+
+
+@pytest.mark.parametrize("bits,policy", [(None, "fp32"), (None, "w8a8"),
+                                         (8, "fp32"), (8, "w8a8"),
+                                         (4, "w4a8")])
+def test_embedding_attend(bits, policy):
+    jt, tt = _tables(bits)
+    jp, tp = policies(policy)
+    x = _normal((2, 3, 16), 16)
+    with jax.disable_jit():
+        want = jlinear.embedding_attend(jt, jnp.asarray(x), jp)
+    got = tlinear.embedding_attend(tt, torch.from_numpy(x), tp)
+    if policy == "fp32":
+        close(got, want)
+    else:
+        bits_equal(got, want)
+
+
+@pytest.mark.parametrize("n_valid", [None, 37, 40])
+@pytest.mark.parametrize("policy", ["fp32", "w8a8"])
+def test_logits_from_hidden(n_valid, policy):
+    jp, tp = policies(policy)
+    head = _normal((16, 40), 17, 0.25)
+    x = _normal((2, 3, 16), 18)
+    with jax.disable_jit():
+        want = jcommon.logits_from_hidden(jnp.asarray(x), jnp.asarray(head),
+                                          None, jp, n_valid=n_valid)
+    got = tcommon.logits_from_hidden(torch.from_numpy(x),
+                                     torch.from_numpy(head), None, tp,
+                                     n_valid=n_valid)
+    if policy == "fp32":
+        close(got, want)
+    else:
+        bits_equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [None, 4, 5])
+def test_cross_entropy_and_chunked_ce(chunk):
+    logits = _normal((2, 8, 40), 19, 3.0)
+    labels = _rng(20).integers(0, 40, (2, 8)).astype(np.int32)
+    mask = (_rng(21).random((2, 8)) > 0.3).astype(np.float32)
+    with jax.disable_jit():
+        want = jcommon.chunked_ce(lambda h: h, jnp.asarray(logits),
+                                  jnp.asarray(labels), jnp.asarray(mask),
+                                  chunk=chunk)
+        want_plain = jcommon.cross_entropy(jnp.asarray(logits),
+                                           jnp.asarray(labels))
+    got = tcommon.chunked_ce(lambda h: h, torch.from_numpy(logits),
+                             torch.from_numpy(labels),
+                             torch.from_numpy(mask), chunk=chunk)
+    close(got, want)
+    close(tcommon.cross_entropy(torch.from_numpy(logits),
+                                torch.from_numpy(labels)), want_plain)
+
+
+def test_sinusoidal_positions():
+    with jax.disable_jit():
+        want = jcommon.sinusoidal_positions(50, 32)
+    # angles reach 49 rad: one ulp of an angle moves sin/cos by ~4e-6
+    close(tcommon.sinusoidal_positions(50, 32), want, scale=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def _cache_pair(kv_bits, ring, seed=22, B=2, T=6, Hk=2, D=8):
+    """A reference cache and the port's copy, with some positions
+    written already."""
+    jc = jattn.init_cache(B, T, Hk, D, kv_bits, ring=ring)
+    k0, v0 = _normal((B, 3, Hk, D), seed), _normal((B, 3, Hk, D), seed + 1)
+    with jax.disable_jit():
+        jc = jattn.cache_update(jc, jnp.asarray(k0), jnp.asarray(v0), 0,
+                                kv_bits)
+    return jc, {k: to_torch(v) for k, v in jc.items()}
+
+
+@pytest.mark.parametrize("kv_bits", [32, 8])
+@pytest.mark.parametrize("index,S", [(3, 1), (5, 1), (2, 2), (5, 3)])
+def test_cache_update(kv_bits, index, S):
+    jc, tc = _cache_pair(kv_bits, ring=False)
+    k, v = _normal((2, S, 2, 8), 23), _normal((2, S, 2, 8), 24)
+    with jax.disable_jit():
+        want = jattn.cache_update(jc, jnp.asarray(k), jnp.asarray(v),
+                                  index, kv_bits)
+    got = tattn.cache_update(tc, torch.from_numpy(k), torch.from_numpy(v),
+                             index, kv_bits)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        bits_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("kv_bits", [32, 8])
+@pytest.mark.parametrize("index,S", [(3, 1), (7, 1), (4, 4)])
+def test_ring_update(kv_bits, index, S):
+    jc, tc = _cache_pair(kv_bits, ring=True)
+    k, v = _normal((2, S, 2, 8), 25), _normal((2, S, 2, 8), 26)
+    with jax.disable_jit():
+        want = jattn.cache_update(jc, jnp.asarray(k), jnp.asarray(v),
+                                  index, kv_bits)
+    got = tattn.cache_update(tc, torch.from_numpy(k), torch.from_numpy(v),
+                             index, kv_bits)
+    for key in want:
+        bits_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("kv_bits", [32, 8])
+def test_cache_kv(kv_bits):
+    jc, tc = _cache_pair(kv_bits, ring=False)
+    with jax.disable_jit():
+        want = jattn.cache_kv(jc)
+    for got, w in zip(tattn.cache_kv(tc), want, strict=True):
+        bits_equal(got, w)
+
+
+@pytest.mark.parametrize("kv_bits", [32, 8])
+def test_pad_caches(kv_bits):
+    """Stacked layer caches, a ring cache (passed through) and a nested
+    tuple, padded by 5 slots."""
+    lin, _ = _cache_pair(kv_bits, ring=False)
+    ring, _ = _cache_pair(kv_bits, ring=True)
+    stacked = {k: jnp.stack([v, v + 1]) for k, v in lin.items()}
+    tree = {"layers": stacked, "misc": (ring, {"n": jnp.arange(3)})}
+    want = jserve.pad_caches(tree, 5)
+    got = tserve.pad_caches(jax.tree.map(to_torch, tree), 5)
+    flat_w = jax.tree_util.tree_leaves_with_path(want)
+    flat_g = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(to_numpy, got, is_leaf=lambda x: isinstance(
+            x, torch.Tensor)))
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (_, g), (_, w) in zip(flat_g, flat_w, strict=True):
+        bits_equal(g, w)
+
+
+@pytest.mark.parametrize("causal,window,valid", [(True, None, None),
+                                                 (False, None, None),
+                                                 (True, 3, None),
+                                                 (True, None, 5),
+                                                 (True, 2, 6)])
+def test_mask_bias(causal, window, valid):
+    q_pos = np.array([[4, 5, 6], [0, 1, 2]], np.int32)
+    k_pos = np.arange(8, dtype=np.int32)[None].repeat(2, 0)
+    want = jattn._mask_bias(jnp.asarray(q_pos), jnp.asarray(k_pos), causal,
+                            window, valid)
+    got = tattn._mask_bias(torch.from_numpy(q_pos), torch.from_numpy(k_pos),
+                           causal, window, valid)
+    bits_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+ATTN = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8)
+
+# name -> (AttnConfig overrides, S)
+ATTN_CASES = {
+    "causal_gqa": ({}, 12),
+    "bidirectional": ({"causal": False}, 12),
+    "mha": ({"n_kv_heads": 4}, 12),
+    "chunked": ({"q_chunk": 16}, 32),
+    "direct_s32": ({"q_chunk": 512}, 32),
+    "ragged_chunk": ({"q_chunk": 5}, 12),
+    "window": ({"window": 4}, 12),
+    "qkv_bias": ({"qkv_bias": True}, 12),
+    "qk_norm": ({"qk_norm": True}, 12),
+    "no_rope": ({"rope": False}, 12),
+}
+
+
+def _attn_params(cfg, seed):
+    d, H, Hk, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": {"w": _normal((d, H * D), seed, d ** -0.5)},
+         "wk": {"w": _normal((d, Hk * D), seed + 1, d ** -0.5)},
+         "wv": {"w": _normal((d, Hk * D), seed + 2, d ** -0.5)},
+         "wo": {"w": _normal((H * D, d), seed + 3, (H * D) ** -0.5)}}
+    if cfg.qkv_bias:
+        for i, k in enumerate(("wq", "wk", "wv")):
+            p[k]["b"] = _normal((p[k]["w"].shape[1],), seed + 4 + i, 0.1)
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": _normal((D,), seed + 8, 0.1) + 1}
+        p["k_norm"] = {"scale": _normal((D,), seed + 9, 0.1) + 1}
+    return p
+
+
+def _check(got, want, policy):
+    if policy == "fp32":
+        close(got, want)
+    else:
+        bits_equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["fp32", "w8a8kv8"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_apply_and_its_cache(one_library, case, policy):
+    over, S = ATTN_CASES[case]
+    jcfg = jattn.AttnConfig(**{**ATTN, **over})
+    tcfg = tattn.AttnConfig(**dataclasses.asdict(jcfg))
+    jp, tp = policies(policy)
+    p = _attn_params(jcfg, 30)
+    x = _normal((2, S, 32), 31)
+    with jax.disable_jit():
+        want, wcache = jattn.attention_apply(
+            jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg, jp,
+            return_cache=True, kv_bits=jp.kv_bits)
+    got, gcache = tattn.attention_apply(carry(p), torch.from_numpy(x), tcfg,
+                                        tp, return_cache=True,
+                                        kv_bits=tp.kv_bits)
+    _check(got, want, policy)
+    assert sorted(gcache) == sorted(wcache)
+    for key in wcache:
+        if policy == "fp32":
+            close(gcache[key], wcache[key])
+        else:
+            bits_equal(gcache[key], wcache[key])
+
+
+@pytest.mark.parametrize("policy", ["fp32", "w8a8kv8"])
+@pytest.mark.parametrize("case", ["causal_gqa", "mha", "window", "qkv_bias",
+                                  "qk_norm", "ring"])
+def test_attention_decode(one_library, case, policy):
+    """Prefill 6 positions, then 5 decode steps against a cache of 12
+    slots (``ring``: a 4-slot ring buffer with window 4)."""
+    over = {"window": 4} if case == "ring" else ATTN_CASES[case][0]
+    jcfg = jattn.AttnConfig(**{**ATTN, **over})
+    tcfg = tattn.AttnConfig(**dataclasses.asdict(jcfg))
+    jp, tp = policies(policy)
+    kv = jp.kv_bits
+    p = _attn_params(jcfg, 40)
+    jparams, tparams = jax.tree.map(jnp.asarray, p), carry(p)
+    x = _normal((2, 11, 32), 41)
+    cap = 4 if case == "ring" else 12
+    jc = jattn.init_cache(2, cap, jcfg.n_kv_heads, 8, kv,
+                          ring=case == "ring")
+    tc = {k: to_torch(v) for k, v in jc.items()}
+    with jax.disable_jit():
+        for t in range(11):
+            xt = jnp.asarray(x[:, t:t + 1])
+            want, jc = jattn.attention_decode(jparams, xt, jcfg, jc,
+                                              jnp.asarray(t, jnp.int32), jp,
+                                              kv_bits=kv)
+            got, tc = tattn.attention_decode(tparams,
+                                             torch.from_numpy(x[:, t:t + 1]),
+                                             tcfg, tc, t, tp, kv_bits=kv)
+            _check(got, want, policy)
+            for key in jc:
+                if policy == "fp32" and key in ("k", "v"):
+                    close(tc[key], jc[key])
+                else:
+                    bits_equal(tc[key], jc[key])
+
+
+@pytest.mark.parametrize("policy", ["fp32", "w8a8kv8"])
+def test_cross_attention(one_library, policy):
+    """The cross branch: prefill against encoder states (no causal mask,
+    RoPE on q only), then decode against their int8/fp cache."""
+    jcfg = jattn.AttnConfig(**ATTN, cross=True)
+    tcfg = tattn.AttnConfig(**dataclasses.asdict(jcfg))
+    jp, tp = policies(policy)
+    p = _attn_params(jcfg, 50)
+    jparams, tparams = jax.tree.map(jnp.asarray, p), carry(p)
+    x, enc = _normal((2, 5, 32), 51), _normal((2, 7, 32), 52)
+    with jax.disable_jit():
+        want = jattn.attention_apply(jparams, jnp.asarray(x), jcfg, jp,
+                                     encoder_out=jnp.asarray(enc))
+        k = np.asarray(jattn.linear_apply(jparams["wk"], jnp.asarray(enc),
+                                          jp)).reshape(2, 7, 2, 8)
+        v = np.asarray(jattn.linear_apply(jparams["wv"], jnp.asarray(enc),
+                                          jp)).reshape(2, 7, 2, 8)
+        jcross = jattn.cache_update(jattn.init_cache(2, 7, 2, 8, jp.kv_bits),
+                                    jnp.asarray(k), jnp.asarray(v), 0,
+                                    jp.kv_bits)
+        wdec, _ = jattn.attention_decode(jparams, jnp.asarray(x[:, :1]),
+                                         jcfg, None, jnp.asarray(3, jnp.int32),
+                                         jp, cross_cache=jcross,
+                                         kv_bits=jp.kv_bits)
+    got = tattn.attention_apply(tparams, torch.from_numpy(x), tcfg, tp,
+                                encoder_out=torch.from_numpy(enc))
+    _check(got, want, policy)
+    tcross = {kk: to_torch(vv) for kk, vv in jcross.items()}
+    gdec, _ = tattn.attention_decode(tparams, torch.from_numpy(x[:, :1]),
+                                     tcfg, None, 3, tp, cross_cache=tcross,
+                                     kv_bits=tp.kv_bits)
+    _check(gdec, wdec, policy)
+
+
+def test_attention_init_tree():
+    cfg = tattn.AttnConfig(**ATTN, qkv_bias=True, qk_norm=True)
+    p = tattn.attention_init(torch.Generator().manual_seed(0), cfg)
+    jpar = unbox(jattn.attention_init(jax.random.PRNGKey(0),
+                                      jattn.AttnConfig(**ATTN, qkv_bias=True,
+                                                       qk_norm=True)))
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jpar)
+    assert jax.tree.map(lambda t: tuple(t.shape), p, is_leaf=lambda x:
+                        isinstance(x, torch.Tensor)) == shapes
