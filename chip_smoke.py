@@ -37,7 +37,9 @@ non-zero:
    two ([M, 3] x [3, 64], [M, 128] x [128, 96]); both Q-MAC products at
    TinyLlama's (K, N) = (2048, 2048), (2048, 256), (2048, 5632), (5632,
    2048) at M = 4, 128 and 4096 and its head (2048, 32000) at M = 4 and
-   8, with w8 and w4 codes;
+   8, with w8 and w4 codes; the fused Q-MAC at whisper's (1280, 1280),
+   (1280, 5120), (5120, 1280) at M = 4, 128 and 3584 and its head (1280,
+   51968) at M = 4 and 8, with w8 and w4 codes;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -53,7 +55,9 @@ non-zero:
    its launch plan, its bound and, as a yardstick, ``torch._int_mm``
    followed by the two scale multiplies (cuBLASLt's int8 tensor cores;
    at M <= 16, which it refuses, on the rows padded with zeros to 32),
-   summed over a decode step's and a prefill's 155 products;
+   summed over a decode step's and a prefill's 155 products; the same
+   for whisper's products, summed over a decode step at batch 4 (257) and
+   an 8 x 448 prefill (513);
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -147,7 +151,20 @@ non-zero:
    their largest magnitude in the other rows; and a profile of a decode
    step and an 8 x 512 prefill (device time by kernel, idle share, the
    port's launches and PyTorch's);
-14. print the kernels' JSON line, then the device line last.
+14. serving whisper-large-v3 at its published widths (32 + 32 layers,
+   d_model 1280, 20 heads, d_ff 5120, vocab 51,866; random weights from
+   seed 0; stub frame embeddings as long as the prompt) through
+   ``serve(..., smoke=False)``: w8a8kv8 at batch 4, prompt 32, gen 16 and
+   at batch 8, prompt 448, gen 16, and w4a8 at batch 4, prompt 32, gen
+   16, each after a warm-up call at its batch and prompt: PTQ MiB,
+   prefill and decode tok/s, the first ids; exactly 513 + 257 x (gen -
+   1) ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866);
+   then the model at 2 + 2 layers on the card and on the CPU from the
+   same PTQ'd params, frames and prompts: a 4 x 32 prefill and 8 greedy
+   steps, every int8 activation code, every logit and all 36 tokens
+   equal; and a profile of a decode step and an 8 x 448 prefill, with
+   Q-MAC's share of the busy time;
+15. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -1016,7 +1033,10 @@ def _time_qmac(torch, g, dev, m, k, n):
         ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq(qx, sx, qw, sw)),
         plain_ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq_plain(
             qx, sx, qw, sw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by,
+        # the LM rows' yardstick: the int8 product, then the two scales
+        library_ms=_yardstick(torch, lambda: (torch._int_mm(qx, qw).to(
+            torch.float32) * sx) * sw, "torch._int_mm + 2 scale multiplies"))
     return i32, deq
 
 
@@ -1247,9 +1267,11 @@ def time_kernels(torch, dev):
     (cartpole's mlp, E2HRL on keydoor, the conv actor-critic on catch),
     and V-ACT's softmax and int8 kernels also past the path's sizes.  No single PyTorch call computes a CORDIC
     activation bit for bit: ``torch.tanh`` and ``torch.softmax`` are the
-    approximate yardsticks of ``vact_ew`` and ``vact_softmax``; the int8
-    kernel and the fused cell have none.  Each kernel's first row is the
-    one the JSON line reports."""
+    approximate yardsticks of ``vact_ew`` and ``vact_softmax``; no single
+    PyTorch call computes the CORDIC int8 map or the fused LSTM cell, so
+    those have none.  The fused Q-MAC's yardstick is ``torch._int_mm``
+    then the two scale multiplies, where it takes the shape.  Each
+    kernel's first row is the one the JSON line reports."""
     g = torch.Generator(device=dev).manual_seed(7)
     rows = {"qmac_i8": [], "qmac_i8_deq": [], "qconv_i8_taps": [],
             "vact_ew": [], "vact_ew_q8": [], "vact_softmax": [],
@@ -3148,18 +3170,14 @@ LM_PARITY_LAYERS = 2
 LM_PARITY_STEPS = 8
 
 
-def check_lm_kernels(torch, dev, worst):
-    """Phase 3, TinyLlama's products: ``qmac_i8_deq`` and ``qmac_i8``
-    at every block product (``LM_KN``) at M = 4 (decode), 128 (a 4 x 32
-    prefill) and 4096 (an 8 x 512 prefill), and the head at M = 4 and
-    8, with w8 and w4 codes (qmax 127 and 7 in the int8 container),
-    bitwise equal to the plain version."""
+def _check_lm_products(torch, dev, worst, what, cases, seed, int32=True):
+    """Phase 3: ``qmac_i8_deq`` (and with ``int32`` ``qmac_i8``) at
+    each (M, K, N) of ``cases``, with w8 and w4 codes (qmax 127 and 7 in
+    the int8 container), bitwise equal to the plain version."""
     from repro_torch.kernels.qmac import ops as qmac_ops
 
     t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(20)
-    cases = [(m, k, n) for k, n in LM_KN for m in LM_ROWS]
-    cases += [(m,) + LM_HEAD_KN for m in LM_HEAD_ROWS]
+    g = torch.Generator(device=dev).manual_seed(seed)
     for m, k, n in cases:
         for qmax in (127, 7):
             qx = _i8(torch, g, dev, (m, k))
@@ -3172,21 +3190,34 @@ def check_lm_kernels(torch, dev, worst):
             err = (got - want).abs().max().item()
             worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"], err)
             if not bits_equal(torch, got, want):
-                raise AssertionError(f"qmac_i8_deq != plain at the LM's "
+                raise AssertionError(f"qmac_i8_deq != plain at {what}'s "
                                      f"M,K,N={m},{k},{n} qmax {qmax} (max "
                                      f"abs err {err})")
+            if not int32:
+                continue
             got = qmac_ops.qmac_i8(qx, qw)
             want = qmac_ops.qmac_i8_plain(qx, qw)
             worst["qmac_i8"] = max(worst["qmac_i8"], float(
                 (got.long() - want.long()).abs().max().item()))
             if not bits_equal(torch, got, want):
-                raise AssertionError(f"qmac_i8 != plain at the LM's "
+                raise AssertionError(f"qmac_i8 != plain at {what}'s "
                                      f"M,K,N={m},{k},{n} qmax {qmax}")
     torch.cuda.synchronize()
-    print(f"Q-MAC at TinyLlama's products: {len(cases) * 2} cases (w8 and "
-          "w4 codes), fused fp32 and int32 bitwise equal to the plain "
-          f"version ({time.perf_counter() - t0:.1f} s)")
+    kinds = "fused fp32 and int32" if int32 else "fused fp32"
+    print(f"Q-MAC at {what}'s products: {len(cases) * 2} cases (w8 and w4 "
+          f"codes), {kinds} bitwise equal to the plain version "
+          f"({time.perf_counter() - t0:.1f} s)")
     return worst
+
+
+def check_lm_kernels(torch, dev, worst):
+    """Phase 3, TinyLlama's products: ``qmac_i8_deq`` and ``qmac_i8``
+    at every block product (``LM_KN``) at M = 4 (decode), 128 (a 4 x 32
+    prefill) and 4096 (an 8 x 512 prefill), and the head at M = 4 and
+    8, with w8 and w4 codes, bitwise equal to the plain version."""
+    cases = [(m, k, n) for k, n in LM_KN for m in LM_ROWS]
+    cases += [(m,) + LM_HEAD_KN for m in LM_HEAD_ROWS]
+    return _check_lm_products(torch, dev, worst, "TinyLlama", cases, 20)
 
 
 def _time_qmac_lm(torch, g, dev, m, k, n):
@@ -3219,74 +3250,95 @@ def _time_qmac_lm(torch, g, dev, m, k, n):
                  + (f", rows padded {m} -> 32" if pad > m else "")))
 
 
-def time_lm_kernels(torch, dev):
-    """Phase 4, TinyLlama's fused products at M = 4 (a decode step at
-    batch 4) and M = 4096 (an 8 x 512 prefill), and the head at M = 4.
-    Returns the rows, and prints the decode step's and the prefill's
-    products summed over a forward (22 layers x 7 + the head)."""
+def _time_lm_forwards(torch, dev, what, seed, forwards):
+    """Phase 4: the fused product at each shape of ``forwards`` (name ->
+    [(M, K, N, products of that shape a forward)]), timed once a shape,
+    and each forward's products summed.  Returns the rows."""
     t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(21)
-    rows = []
-    per_layer = {(2048, 2048): 2, (2048, 256): 2, (2048, 5632): 2,
-                 (5632, 2048): 1}
-    for m in (4, 4096):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows, timed = [], {}
+    for name, products in forwards.items():
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        for k, n in LM_KN:
-            r = _time_qmac_lm(torch, g, dev, m, k, n)
-            rows.append(r)
+        for m, k, n, count in products:
+            if (m, k, n) not in timed:
+                timed[(m, k, n)] = _time_qmac_lm(torch, g, dev, m, k, n)
+                rows.append(timed[(m, k, n)])
             for key in tot:
-                tot[key] += 22 * per_layer[(k, n)] * (r[key] or 0.0)
-        head = _time_qmac_lm(torch, g, dev, 4 if m == 4 else 8, *LM_HEAD_KN)
-        rows.append(head)
-        for key in tot:
-            tot[key] += head[key] or 0.0
-        what = "a decode step (batch 4)" if m == 4 else "an 8 x 512 prefill"
-        print(f"qmac_i8_deq over {what}, 155 products: kernel "
+                tot[key] += count * (timed[(m, k, n)][key] or 0.0)
+        n_products = sum(p[3] for p in products)
+        print(f"qmac_i8_deq over {name}, {n_products} products: kernel "
               f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
               f"torch._int_mm yardstick {tot['library_ms']:.4f} ms, bound "
               f"{tot['bound_ms']:.4f} ms")
-    print(f"TinyLlama's products timed in {time.perf_counter() - t0:.1f} s")
+    print(f"{what}'s products timed in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
-def lm_serving(torch, dev, card):
-    """Phase 13: ``repro_torch.launch.serve.serve`` on TinyLlama-1.1B at
-    its published widths (seed 0) for each of ``LM_RUNS``, each after a
-    warm-up call at the same batch and prompt: PTQ MiB, prefill and
-    decode tok/s, the first generated ids; exactly ``LM_PER_FORWARD``
-    ``qmac_i8_deq`` launches a forward (``gen`` forwards a call), no
-    ``qmac_i8``, every id in [0, 32000).  Returns the path's launches."""
+def time_lm_kernels(torch, dev):
+    """Phase 4, TinyLlama's fused products at M = 4 (a decode step at
+    batch 4) and M = 4096 (an 8 x 512 prefill), and the head at M = 4
+    and 8, summed over a forward (22 layers x 7 + the head)."""
+    per_layer = {(2048, 2048): 2, (2048, 256): 2, (2048, 5632): 2,
+                 (5632, 2048): 1}
+
+    def forward(m, head_m):
+        return [(m, k, n, 22 * c) for (k, n), c in per_layer.items()] \
+            + [(head_m,) + LM_HEAD_KN + (1,)]
+
+    return _time_lm_forwards(torch, dev, "TinyLlama", 21, {
+        "a decode step (batch 4)": forward(4, 4),
+        "an 8 x 512 prefill": forward(4096, 8)})
+
+
+def _serve_runs(torch, dev, card, arch, runs, per_call, vocab):
+    """``repro_torch.launch.serve.serve`` on ``arch`` at its published
+    widths (seed 0) for each (policy, batch, prompt, gen) of ``runs``,
+    each after a warm-up call at the same batch and prompt: PTQ MiB,
+    prefill and decode tok/s, the first generated ids; exactly
+    ``per_call(gen)`` ``qmac_i8_deq`` launches a call, no ``qmac_i8``,
+    every id in [0, vocab).  Returns the path's launches, warm-ups
+    included."""
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
 
     kernels.reset_launch_counts()
     warmed = set()
-    for policy, batch, prompt, gen in LM_RUNS:
+    for policy, batch, prompt, gen in runs:
         kw = dict(smoke=False, policy_name=policy, batch=batch,
                   prompt_len=prompt, seed=0, device=dev)
         if (batch, prompt) not in warmed:
-            serve(LM_ARCH, gen=2, verbose=False, **kw)
+            serve(arch, gen=2, verbose=False, **kw)
             warmed.add((batch, prompt))
         before = kernels.launch_counts()
-        print(f"{LM_ARCH} {policy} batch {batch} prompt {prompt} gen {gen} "
+        print(f"{arch} {policy} batch {batch} prompt {prompt} gen {gen} "
               f"on {card}:")
-        toks, t = serve(LM_ARCH, gen=gen, **kw)
+        toks, t = serve(arch, gen=gen, **kw)
         after = kernels.launch_counts()
         deq = after["qmac_i8_deq"] - before["qmac_i8_deq"]
         i32 = after["qmac_i8"] - before["qmac_i8"]
         print(f"  prefill {batch * prompt / t['t_prefill']:.1f} tok/s, "
               f"decode {batch * (gen - 1) / t['t_decode']:.1f} tok/s; "
-              f"qmac_i8_deq {deq} = {LM_PER_FORWARD} x {gen} forwards, "
-              f"qmac_i8 {i32}; first ids {toks[:, :8].tolist()}")
-        if deq != LM_PER_FORWARD * gen or i32:
-            raise AssertionError(f"{policy}: {deq} fused and {i32} int32 "
-                                 f"products, not {LM_PER_FORWARD} x {gen} "
+              f"qmac_i8_deq {deq} (want {per_call(gen)}), qmac_i8 {i32}; "
+              f"first ids {toks[:, :8].tolist()}")
+        if deq != per_call(gen) or i32:
+            raise AssertionError(f"{arch} {policy}: {deq} fused and {i32} "
+                                 f"int32 products, not {per_call(gen)} "
                                  "and 0")
         if toks.shape != (batch, gen) or int(toks.min()) < 0 \
-                or int(toks.max()) >= 32000:
-            raise AssertionError(f"{policy}: bad tokens {toks.shape} in "
-                                 f"[{int(toks.min())}, {int(toks.max())}]")
+                or int(toks.max()) >= vocab:
+            raise AssertionError(f"{arch} {policy}: bad tokens {toks.shape}"
+                                 f" in [{int(toks.min())}, "
+                                 f"{int(toks.max())}]")
     return kernels.launch_counts()
+
+
+def lm_serving(torch, dev, card):
+    """Phase 13: TinyLlama-1.1B at its published widths for each of
+    ``LM_RUNS``: exactly ``LM_PER_FORWARD`` ``qmac_i8_deq`` launches a
+    forward (``gen`` forwards a call), no ``qmac_i8``, every id in [0,
+    32000).  Returns the path's launches."""
+    return _serve_runs(torch, dev, card, LM_ARCH, LM_RUNS,
+                       lambda gen: LM_PER_FORWARD * gen, 32000)
 
 
 def lm_card_vs_cpu(torch, dev):
@@ -3442,6 +3494,221 @@ def profile_lm(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: serving whisper-large-v3 (and its products in phases 3-4)
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_LAYERS = 32              # each of the encoder and the decoder
+WHISPER_VOCAB = 51866
+# whisper's products (K, N): q, k, v, o of both attentions [1280, 1280],
+# w_in [1280, 5120], w_out [5120, 1280]; the head [1280, 51968] (the
+# vocab padded by configs.base.pad_vocab) at M = batch
+WHISPER_KN = ((1280, 1280), (1280, 5120), (5120, 1280))
+WHISPER_HEAD_KN = (1280, 51968)
+WHISPER_ROWS = (4, 128, 3584)
+WHISPER_HEAD_ROWS = (4, 8)
+# fused products a prefill launches: the encoder 6 a layer (q, k, v, o,
+# w_in, w_out), the decoder 10 (self q, k, v, o; cross q, k, v, o; w_in,
+# w_out), the head once; a decode step: 8 a decoder layer (self 4, cross
+# q and o, w_in, w_out) and the head
+WHISPER_PREFILL = 16 * WHISPER_LAYERS + 1
+WHISPER_DECODE = 8 * WHISPER_LAYERS + 1
+# (policy, batch, prompt = frames, gen): the reference CLI's defaults,
+# whisper's whole 448-token decoder context, and the w4 weights
+WHISPER_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 448, 16),
+                ("w4a8", 4, 32, 16))
+WHISPER_PARITY_LAYERS = 2
+
+
+def check_whisper_kernels(torch, dev, worst):
+    """Phase 3, whisper's products: ``qmac_i8_deq`` at every block
+    product (``WHISPER_KN``) at M = 4 (decode), 128 (a 4 x 32 prefill)
+    and 3584 (an 8 x 448 prefill), and the head at M = 4 and 8, with w8
+    and w4 codes, bitwise equal to the plain version."""
+    cases = [(m, k, n) for k, n in WHISPER_KN for m in WHISPER_ROWS]
+    cases += [(m,) + WHISPER_HEAD_KN for m in WHISPER_HEAD_ROWS]
+    return _check_lm_products(torch, dev, worst, "whisper", cases, 23,
+                              int32=False)
+
+
+def time_whisper_kernels(torch, dev):
+    """Phase 4, whisper's fused products summed over a decode step at
+    batch 4 (M = 4: 32 x 8 products and the head) and an 8 x 448 prefill
+    (M = 3584: 32 x 6 in the encoder, 32 x 10 in the decoder, the head at
+    M = 8)."""
+    L = WHISPER_LAYERS
+    sq, up, down = WHISPER_KN
+    return _time_lm_forwards(torch, dev, "whisper", 24, {
+        "a whisper decode step (batch 4)": [
+            (4,) + sq + (6 * L,), (4,) + up + (L,), (4,) + down + (L,),
+            (4,) + WHISPER_HEAD_KN + (1,)],
+        "a whisper 8 x 448 prefill": [
+            (3584,) + sq + (12 * L,), (3584,) + up + (2 * L,),
+            (3584,) + down + (2 * L,), (8,) + WHISPER_HEAD_KN + (1,)]})
+
+
+def whisper_serving(torch, dev, card):
+    """Phase 14: whisper-large-v3 at its published widths (32 + 32
+    layers, d_model 1280, 20 heads, d_ff 5120, vocab 51,866) for each of
+    ``WHISPER_RUNS``: exactly 513 + 257 x (gen - 1) ``qmac_i8_deq`` a
+    call, no ``qmac_i8``, every id in [0, 51866).  Returns the path's
+    launches."""
+    return _serve_runs(torch, dev, card, WHISPER_ARCH, WHISPER_RUNS,
+                       lambda gen: WHISPER_PREFILL
+                       + WHISPER_DECODE * (gen - 1), WHISPER_VOCAB)
+
+
+def whisper_card_vs_cpu(torch, dev):
+    """Phase 14: whisper at full width and ``WHISPER_PARITY_LAYERS`` +
+    ``WHISPER_PARITY_LAYERS`` layers, w8a8kv8, the same PTQ'd params on
+    the card and on the CPU (the card's PTQ of the same fp32 params
+    bitwise the CPU's), the same frames and prompts: a 4 x 32 prefill and
+    ``LM_PARITY_STEPS`` greedy decode steps on each device, each on its
+    own tokens, 33 and 17 fused products a forward on the card.  Every
+    int8 activation code (row inputs, KV payloads of both caches, the
+    GELU requant) and every logit must be equal, and all 36 greedy
+    tokens; what differs is printed before the check fails."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.fxp import QTensor
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.launch.serve import pad_caches, sample
+    from repro_torch.models import encdec
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    n = WHISPER_PARITY_LAYERS
+    cfg = get_arch(WHISPER_ARCH).replace(n_layers=n)
+    pol = get_policy("w8a8kv8")
+    fp = encdec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cpu_params = quantize_params(fp, pol)
+    card_ptq = quantize_params(tree_map(lambda t: t.to(dev), fp), pol)
+    is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
+    for (p, a), (_, b) in zip(leaves_with_path(cpu_params, is_q),
+                              leaves_with_path(card_ptq, is_q), strict=True):
+        pairs = ((a.qvalue, b.qvalue), (a.scale, b.scale)) if is_q(a) \
+            else ((a, b),)
+        for x, y in pairs:
+            if not bits_equal(torch, x, y.cpu()):
+                raise AssertionError(f"PTQ on the card != CPU at {p}")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params, is_leaf=is_q)
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn((4, 32, cfg.d_model), generator=g)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g).to(
+        torch.int32)
+    runs = []
+    for where, params in ((dev, card_params), (torch.device("cpu"),
+                                               cpu_params)):
+        logits_all, toks, codes, launches = [], [], [], []
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            batch = {"frames": frames.to(where),
+                     "tokens": prompts.to(where)}
+            (logits, caches), c = _recorded_codes(
+                torch, lambda: encdec.prefill(params, batch, cfg, pol,
+                                              pol.kv_bits))
+            launches.append(kernels.launch_counts()["qmac_i8_deq"])
+            caches = pad_caches(caches, LM_PARITY_STEPS)
+            codes.append(c.cpu())
+            logits_all.append(logits.cpu())
+            for i in range(LM_PARITY_STEPS):
+                tok = sample(logits, 0.0)
+                toks.append(tok.cpu())
+                kernels.reset_launch_counts()
+                (logits, caches), c = _recorded_codes(
+                    torch, lambda tok=tok, caches=caches, i=i:
+                    encdec.decode_step(params, tok, caches, 32 + i, cfg,
+                                       pol, pol.kv_bits))
+                launches.append(kernels.launch_counts()["qmac_i8_deq"])
+                codes.append(c.cpu())
+                logits_all.append(logits.cpu())
+            toks.append(sample(logits, 0.0).cpu())
+        runs.append((torch.stack(logits_all), torch.cat(toks, 1), codes,
+                     launches))
+    (ld, td, cd, nd), (lc, tc, cc, _) = runs
+    want = [16 * n + 1] + [8 * n + 1] * LM_PARITY_STEPS
+    differ = torch.stack([(a != b).sum(-1) for a, b in zip(cd, cc,
+                                                          strict=True)])
+    logits_apart = int((ld.view(torch.int32) != lc.view(torch.int32)).sum())
+    err = (ld - lc).abs().max().item()
+    same = int((td == tc).sum())
+    print(f"{WHISPER_ARCH} at {n} + {n} layers, w8a8kv8, card vs CPU: "
+          f"greedy tokens equal in {same} of {td.numel()}; int8 codes that "
+          f"differ by forward and row {differ.T.tolist()} (of "
+          f"{cd[0].shape[1]} in the prefill, {cd[1].shape[1]} a decode "
+          f"step, a row); logits apart {logits_apart} of {ld.numel()}, "
+          f"largest abs err {err:.3g}; fused products a forward {nd}")
+    if nd != want:
+        raise AssertionError(f"card forwards launched {nd} fused products, "
+                             f"not {want}")
+    if int(differ.sum()) or logits_apart or same != td.numel():
+        raise AssertionError("whisper: card and CPU differ (codes, logits "
+                             "or tokens)")
+
+
+def profile_whisper(torch, dev):
+    """Phase 14: where the time goes in one decode step (batch 4, a
+    48-slot self cache, the cross cache padded to 48) and one 8 x 448
+    prefill, at w8a8kv8 and full width: device time by kernel, wall
+    time, idle share, the port's launches and PyTorch's, Q-MAC's share
+    of the busy time."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import encdec
+
+    cfg = get_arch(WHISPER_ARCH)
+    pol = get_policy("w8a8kv8")
+    params = quantize_params(encdec.init(
+        torch.Generator().manual_seed(0), cfg, device=dev), pol)
+    g = torch.Generator().manual_seed(1)
+
+    def inputs(b, s):
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=g).to(
+                    dev),
+                "tokens": torch.randint(0, cfg.vocab, (b, s), generator=g
+                                        ).to(torch.int32).to(dev)}
+
+    small, big = inputs(4, 32), inputs(8, 448)
+    with torch.no_grad():
+        logits, caches = encdec.prefill(params, small, cfg, pol, 8)
+        caches = pad_caches(caches, 16)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+
+        def decode():
+            encdec.decode_step(params, tok, caches, 32, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        def prefill():
+            encdec.prefill(params, big, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        out = {}
+        for what, fn, n, per in (
+                ("decode step, batch 4", decode, 5, WHISPER_DECODE),
+                ("prefill 8 x 448", prefill, 3, WHISPER_PREFILL)):
+            kernels.reset_launch_counts()
+            fn()
+            port = sum(kernels.launch_counts().values())
+            if kernels.launch_counts()["qmac_i8_deq"] != per:
+                raise AssertionError(f"{what}: "
+                                     f"{kernels.launch_counts()} launches")
+            wall, rows, launches, why = _profiled(torch, fn, n)
+            _print_profile(f"{WHISPER_ARCH} w8a8kv8 {what}", wall, rows,
+                           launches, why, top=12)
+            qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
+            busy = sum(r[0] for r in rows)
+            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
+                  f"{'not measured' if launches is None else launches - port}"
+                  f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy "
+                  f"({qmac_ms / max(busy, 1e-9):.3f})")
+            out[what] = (wall, busy, launches, port)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3481,11 +3748,12 @@ def main() -> int:
     for check in (check_hrl_kernels, check_split_and_band_edges,
                   check_ew_and_cell_edges, check_softmax_and_q8_edges,
                   check_training_kernels, check_pixel_kernels,
-                  check_value_kernels, check_lm_kernels):
+                  check_value_kernels, check_lm_kernels,
+                  check_whisper_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
-    lm_rows = time_lm_kernels(torch, dev)
+    lm_rows = time_lm_kernels(torch, dev) + time_whisper_kernels(torch, dev)
     for r in lm_rows:
         print_row("qmac_i8_deq", r)
     rows["qmac_i8_deq"] += lm_rows
@@ -3538,6 +3806,10 @@ def main() -> int:
     lm_card_vs_cpu(torch, dev)
     profile_lm(torch, dev)
     lap("phase 13 (serving TinyLlama-1.1B)")
+    whisper_launches = whisper_serving(torch, dev, card)
+    whisper_card_vs_cpu(torch, dev)
+    profile_whisper(torch, dev)
+    lap("phase 14 (serving whisper-large-v3)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -3564,7 +3836,8 @@ def main() -> int:
                    "pixel_training": pixel_launches["pixel_training"][name],
                    **{run: value_launches[run][name] for run in VALUE_RUNS},
                    "value_serving": vserve_launches[name],
-                   "lm_serving": lm_launches[name]}
+                   "lm_serving": lm_launches[name],
+                   "whisper_serving": whisper_launches[name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

@@ -2,7 +2,8 @@
 fp64 and rounded once to the working dtype.
 
 In fp32 the card and the CPU sum a contraction in another order, and
-their ``rsqrt``, ``exp``, ``sin`` and ``cos`` differ in the last bit.
+their ``rsqrt``, ``exp``, ``log``, ``sin``, ``cos``, ``tanh`` and ``pow``
+differ in the last bit.
 Under an int8 policy every activation is quantized again after each
 layer, and at full width (rows of 2,048-5,632 values) an ulp lands some
 value on the other side of a rounding tie in nearly every quantization:
@@ -16,6 +17,8 @@ for bit.  Each function costs two dtype conversions beside its op.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.fxp import div_scalar
 
 Tensor = torch.Tensor
 
@@ -37,11 +40,32 @@ def _unary(fn):
 
 rsqrt = _unary(torch.rsqrt)
 exp = _unary(torch.exp)
+log = _unary(torch.log)
 sin = _unary(torch.sin)
 cos = _unary(torch.cos)
 sigmoid = _unary(torch.sigmoid)
+tanh = _unary(torch.tanh)
+
+
+def pow(x: Tensor, e: float) -> Tensor:  # noqa: A001 (torch.pow's name)
+    """``torch.pow`` of ``x`` to the scalar ``e`` through fp64."""
+    return torch.pow(x.to(torch.float64), e).to(x.dtype)
 
 
 def total(x: Tensor, dim: int = -1) -> Tensor:
     """The sum over ``dim`` (kept) through fp64."""
     return x.to(torch.float64).sum(dim=dim, keepdim=True).to(x.dtype)
+
+
+def mean(x: Tensor, dim: int = -1) -> Tensor:
+    """``jnp.mean`` over ``dim`` (kept): the sum through fp64, rounded
+    once, divided by the count in ``x``'s dtype."""
+    return div_scalar(total(x, dim), x.shape[dim])
+
+
+def var(x: Tensor, dim: int = -1) -> Tensor:
+    """``jnp.var`` over ``dim`` (kept, biased): the mean of the squared
+    deviations from ``mean(x)``, the deviations and their squares in
+    ``x``'s dtype, as the reference forms them."""
+    c = x - mean(x, dim)
+    return mean(c * c, dim)

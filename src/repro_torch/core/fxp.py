@@ -76,6 +76,21 @@ def dequantize(q: Tensor, scale: Tensor, dtype=torch.float32) -> Tensor:
     return q.to(dtype) * scale.to(dtype)
 
 
+def quantize_eq1(w: Tensor, n: int = 8) -> Tuple[Tensor, Tensor]:
+    """The paper's Eq. (1) uniform affine quantizer,
+    ``Q_n(W) = round(W * 2^n / (|min(W, 0)| + |max(W, 0)|))``: an affine
+    grid of 2^n steps across the observed span, clipped to
+    ``[-2^n, 2^n]``.  Returns (q, scale), ``scale = span / 2^n``, q as
+    floats."""
+    zero = w.new_zeros(())
+    lo = torch.abs(torch.minimum(w.min(), zero))
+    hi = torch.abs(torch.maximum(w.max(), zero))
+    span = torch.clamp_min(lo + hi, 1e-12)
+    scale = div_scalar(span, 2.0 ** n)
+    q = torch.clamp(torch.round(w / scale), -(2.0 ** n), 2.0 ** n)
+    return q, scale
+
+
 def _fake_quant_fwd(x: Tensor, bits: int,
                     channel_axis: Optional[int]) -> Tensor:
     q, s = quantize(x, bits, channel_axis)

@@ -83,3 +83,21 @@ def quantized_nbytes(params) -> Tuple[int, int]:
             stored += leaf.numel() * leaf.element_size()
             fp32 += leaf.numel() * 4
     return stored, fp32
+
+
+class EmaCalibrator:
+    """Running abs-max EMA for static activation scales (QAT helper):
+    the first update takes the abs-max, later ones
+    ``momentum * state + (1 - momentum) * amax``."""
+
+    def __init__(self, momentum: float = 0.99):
+        self.momentum = momentum
+
+    def init(self, device="cpu") -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    def update(self, state: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        amax = torch.abs(x).amax()
+        return torch.where(state == 0, amax,
+                           self.momentum * state
+                           + (1 - self.momentum) * amax)

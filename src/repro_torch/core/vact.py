@@ -28,7 +28,6 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fake_quant
@@ -128,6 +127,17 @@ def cordic_softmax(x: Tensor, n_iters: int, axis: int = -1) -> Tensor:
     return e / torch.sum(e, dim=axis, keepdim=True)
 
 
+def _gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu`` (``approximate=True``), its expression op by op:
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))`` with
+    ``c = sqrt(2/pi)`` and 0.044715 rounded to ``x``'s dtype and the tanh
+    through fp64; the cube is ``x * x * x``, as XLA multiplies out
+    ``x ** 3``."""
+    c = x.new_full((), math.sqrt(2.0 / math.pi))
+    inner = c * (x + x.new_full((), 0.044715) * (x * x * x))
+    return x * (0.5 * (1.0 + exact.tanh(inner)))
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
@@ -136,7 +146,7 @@ _NATIVE = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu
+    "gelu": _gelu,
     # jax.nn.silu's x * sigmoid(x), its sigmoid through fp64
     "silu": lambda x: x * exact.sigmoid(x),
     "identity": lambda x: x,

@@ -3,9 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --policy w8a8kv8 --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
 
-Weights PTQ'd to int8/int4 QTensors, activations int8 at every product
-(on the card, the Q-MAC kernel's fused product), the KV cache int8 under
+The dense decoder LMs and the enc-dec family (whisper).  Weights PTQ'd
+to int8/int4 QTensors, activations int8 at every product (on the card,
+the Q-MAC kernel's fused product), the KV cache int8 under
 ``w8a8kv8``, greedy or temperature sampling.  Runs on the card unless
 ``device="cpu"`` / ``--device cpu`` is given.
 
@@ -89,7 +91,13 @@ def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
           device: DeviceLike = None):
     """Random weights from ``seed``, prompts from ``seed + 1``; returns
     (tokens [batch, gen] int32, {"t_prefill", "t_decode"} in seconds on
-    the host clock, each ended by a wait for the card)."""
+    the host clock, each ended by a wait for the card).
+
+    An enc-dec config (whisper) also takes stub frame embeddings
+    ``[batch, prompt_len, d_model]``, as the reference does: the encoder
+    is as long as the prompt.  The ``seed + 1`` generator draws the
+    frames (standard normals) first, then the prompts, then any Gumbel
+    draws."""
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
@@ -108,8 +116,13 @@ def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
                   f"{fp32 / max(stored, 1):.2f}x smaller)")
 
     draws = torch.Generator().manual_seed(seed + 1)
+    if cfg.is_encdec:
+        frames = torch.randn((batch, prompt_len, cfg.d_model),
+                             generator=draws).to(dev)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=draws).to(torch.int32).to(dev)
+    batch_in = {"frames": frames, "tokens": prompts} if cfg.is_encdec \
+        else prompts
     kv_bits = policy.kv_bits
 
     def next_token(logits):
@@ -118,7 +131,7 @@ def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, prompts, cfg, policy, kv_bits)
+    logits, caches = model.prefill(params, batch_in, cfg, policy, kv_bits)
     caches = pad_caches(caches, gen)     # capacity: prompt_len + gen
     _sync(dev)
     t_prefill = time.perf_counter() - t0

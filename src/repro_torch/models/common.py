@@ -11,6 +11,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar
 from repro_torch.core.qmatmul import q_matmul
 from repro_torch.nn.linear import embedding_attend
@@ -25,7 +26,7 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} "
         "slice of the PyTorch port (the port serves the dense decoder "
-        "LMs)")
+        "LMs and the enc-dec family)")
 
 
 def stack_init(block_init_fn: Callable, gen: torch.Generator, n: int,
@@ -81,14 +82,17 @@ def chunked_ce(head_fn: Callable, x: Tensor, labels: Tensor,
 
 def sinusoidal_positions(length: int, d_model: int,
                          device="cpu") -> Tensor:
-    """Whisper-style sinusoidal position embeddings [length, d_model]."""
+    """Whisper-style sinusoidal position embeddings [length, d_model]:
+    the reference's expression, its ``log``, ``exp``, ``sin`` and ``cos``
+    through fp64 (``core.exact``), so every device builds the same
+    table."""
     pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d_model // 2, dtype=torch.float32,
                        device=device)[None, :]
-    log_base = torch.log(dim.new_full((), 10000.0))
-    inv = torch.exp(-dim * div_scalar(log_base, d_model // 2 - 1))
+    log_base = exact.log(dim.new_full((), 10000.0))
+    inv = exact.exp(-dim * div_scalar(log_base, d_model // 2 - 1))
     ang = pos * inv
-    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return torch.cat([exact.sin(ang), exact.cos(ang)], dim=-1)
 
 
 def logits_from_hidden(x: Tensor, head, tie_emb, policy,

@@ -173,7 +173,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
             for k, v in one.items()}
 
 
-def _stack_caches(caches):
+def stack_caches(caches):
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
@@ -189,7 +189,7 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig,
                                   policy, positions, kv_bits)
         caches.append(cache)
     x = rmsnorm_apply(params["ln_f"], x[:, -1:])
-    return _head(params, x, cfg, policy)[:, 0], _stack_caches(caches)
+    return _head(params, x, cfg, policy)[:, 0], stack_caches(caches)
 
 
 def decode_step(params, token: Tensor, caches, index: int,

@@ -252,16 +252,25 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                       for i in range(0, S, q_chunk)], dim=1)
 
 
-def _project_qkv(p, x: Tensor, kv_src: Tensor, cfg: AttnConfig, policy):
-    B = x.shape[0]
-    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear_apply(p["wq"], x, policy).reshape(B, -1, H, D)
+def project_q(p, x: Tensor, cfg: AttnConfig, policy) -> Tensor:
+    """The queries [B, S, H, D] (qk-normed if the config says so)."""
+    q = linear_apply(p["wq"], x, policy).reshape(
+        x.shape[0], -1, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+    return q
+
+
+def project_kv(p, kv_src: Tensor, cfg: AttnConfig,
+               policy) -> Tuple[Tensor, Tensor]:
+    """The keys and values [B, T, Hk, D] of ``kv_src`` (the keys
+    qk-normed if the config says so)."""
+    B, Hk, D = kv_src.shape[0], cfg.n_kv_heads, cfg.head_dim
     k = linear_apply(p["wk"], kv_src, policy).reshape(B, -1, Hk, D)
     v = linear_apply(p["wv"], kv_src, policy).reshape(B, -1, Hk, D)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
-    return q, k, v
+    return k, v
 
 
 def _compute_dtype(policy: Optional[QuantPolicy]):
@@ -273,17 +282,22 @@ def attention_apply(p, x: Tensor, cfg: AttnConfig,
                     positions: Optional[Tensor] = None,
                     encoder_out: Optional[Tensor] = None,
                     cache=None, kv_bits: int = 32,
-                    return_cache: bool = False):
+                    return_cache: bool = False,
+                    kv: Optional[Tuple[Tensor, Tensor]] = None):
     """Full-sequence attention (train / prefill).
 
     If ``return_cache`` and not cross-attention, also returns the filled
-    KV cache (quantized per kv_bits) for later decode steps.
+    KV cache (quantized per kv_bits) for later decode steps.  ``kv``:
+    the keys and values ``project_kv`` gave already (an enc-dec prefill
+    projects the encoder's once for its cross cache and its attention),
+    in place of projecting them here.
     """
     B, S, _ = x.shape
     kv_src = encoder_out if cfg.cross else x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q, k, v = _project_qkv(p, x, kv_src, cfg, policy)
+    q = project_q(p, x, cfg, policy)
+    k, v = project_kv(p, kv_src, cfg, policy) if kv is None else kv
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         if not cfg.cross:
@@ -321,7 +335,9 @@ def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
     if cfg.cross:
         # cross-attention: cross_cache holds the (static) encoder K/V
         k, v = cache_kv(cross_cache, cdt)
-        q, _, _ = _project_qkv(p, x, x, cfg, policy)
+        # the reference projects k and v of x here too and drops them
+        # (dead code under jit); only the queries are projected
+        q = project_q(p, x, cfg, policy)
         if cfg.rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         T = k.shape[1]
@@ -330,7 +346,8 @@ def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
         out = gqa_attend(q, k, v, bias, cdt)
         out = linear_apply(p["wo"], out.reshape(B, 1, -1), policy)
         return out, cache
-    q, k_new, v_new = _project_qkv(p, x, x, cfg, policy)
+    q = project_q(p, x, cfg, policy)
+    k_new, v_new = project_kv(p, x, cfg, policy)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)

@@ -33,13 +33,14 @@ def layernorm_init(gen: torch.Generator, d: int, dtype=torch.float32,
 
 
 def layernorm_apply(p, x: Tensor, eps: float = 1e-5) -> Tensor:
-    """Mean and (biased) variance in fp32, as ``jnp.var`` forms it: the
-    mean of the squared deviations."""
+    """The reference's program: fp32 mean and (biased) variance, the
+    mean of the squared deviations as ``jnp.var`` forms it, then
+    ``(xf - mu) * (var + eps) ** -0.5 * scale + bias``; the two sums
+    and the power through fp64, each rounded once (``core.exact``)."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    c = xf - mu
-    var = (c * c).mean(dim=-1, keepdim=True)
-    out = (xf - mu) * torch.pow(var + eps, -0.5)
+    mu = exact.mean(xf)
+    var = exact.var(xf)
+    out = (xf - mu) * exact.pow(var + eps, -0.5)
     return (out * p["scale"].to(torch.float32)
             + p["bias"].to(torch.float32)).to(dt)

@@ -68,6 +68,13 @@ def next_key(key: Tensor) -> Tensor:
     return torch.stack([key[:, 0], (key[:, 1] + 1) & _M32], dim=1)
 
 
+def split_key(key: Tensor) -> Tensor:
+    """A new reset stream derived from ``key``: a fresh 32-bit id and a
+    zero counter (the wrappers' ``jax.random.split``)."""
+    ids = _mix32(key[:, 0] ^ 0x9E3779B9)
+    return torch.stack([ids, torch.zeros_like(ids)], dim=1)
+
+
 def auto_reset(done: Tensor, fresh: Any, nxt: Any) -> Any:
     """Select ``fresh`` state leaves where ``done`` ([B]), else ``nxt``."""
     if isinstance(fresh, torch.Tensor):

@@ -104,6 +104,11 @@ def step(s: EnvState, action: Tensor):
     return out, render(out), reward, done, truncated, render(nxt)
 
 
+def subgoal_reached(s: EnvState) -> Tensor:
+    """Oracle sub-goal indicator (key picked), [B]: HRL diagnostics."""
+    return s.has_key
+
+
 def make() -> Environment:
     spec = EnvSpec("keydoor",
                    observation_space=Box(0.0, 1.0, (IMG, IMG, 3)),

@@ -59,3 +59,10 @@ def head_dim(space: Space) -> int:
     if isinstance(space, Box):
         return 2 * math.prod(space.shape)
     raise TypeError(f"no policy head for space {space!r}")
+
+
+def flat_dim(space: Space) -> int:
+    """Number of scalars in one element of the space."""
+    if isinstance(space, Discrete):
+        return 1
+    return int(math.prod(space.shape))

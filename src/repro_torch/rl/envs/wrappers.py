@@ -1,14 +1,14 @@
-"""Environment wrappers of the pixel pipeline and the MLP view of image
-envs (port of the frame-stack, running-normalization and flattening
-parts of ``repro.rl.envs.wrappers``).
+"""Composable environment wrappers (port of ``repro.rl.envs.wrappers``):
+affine observation and reward transforms, a time limit, the MLP view of
+image envs and the pixel pipeline.
 
 Each wrapper takes an :class:`Environment` and returns a new one whose
 batched reset/step close over the inner functions; a wrapper that needs
-a carry (frame buffer, Welford stats) wraps the inner state in a
-NamedTuple with the reference's field names, so checkpointed env states
-carry the same keys in both packages.  Every wrapper tags its step
-(``wrapper_stack(env)``), so the order-sensitive composition can be
-checked: normalize raw frames first, stack after
+a carry (time-limit counter, frame buffer, Welford stats) wraps the
+inner state in a NamedTuple with the reference's field names, so
+checkpointed env states carry the same keys in both packages.  Every
+wrapper tags its step (``wrapper_stack(env)``), so the order-sensitive
+composition can be checked: normalize raw frames first, stack after
 (:func:`pixel_pipeline`).
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.rl.envs.base import Environment
+from repro_torch.rl.envs.base import Environment, auto_reset, split_key
 from repro_torch.rl.envs.spaces import Box
 
 Tensor = torch.Tensor
@@ -40,6 +40,58 @@ def _wrap(env: Environment, name: str, *, reset, step,
 def _per_env(mask: Tensor, like: Tensor) -> Tensor:
     """A [B] mask (or count) shaped to broadcast over ``like``'s leaves."""
     return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
+
+
+# ---------------------------------------------------------------------------
+# stateless observation / reward transforms
+# ---------------------------------------------------------------------------
+
+def normalize_observation(env: Environment, mean, std) -> Environment:
+    """Affine observation transform ``(obs - mean) / std`` with constant
+    ``mean``/``std`` (scalars or obs-shaped)."""
+    mean = torch.as_tensor(mean, dtype=torch.float32)
+    std = torch.as_tensor(std, dtype=torch.float32)
+    if bool((std == 0).any()):
+        raise ValueError("normalize_observation: std must be non-zero")
+
+    def norm(obs: Tensor) -> Tensor:
+        return (obs.to(torch.float32) - mean.to(obs.device)) \
+            / std.to(obs.device)
+
+    def reset(key):
+        state, obs = env.reset(key)
+        return state, norm(obs)
+
+    def step(state, action):
+        state, obs, reward, done, truncated, final_obs = \
+            env.step(state, action)
+        return state, norm(obs), reward, done, truncated, norm(final_obs)
+
+    in_space = env.observation_space
+    if isinstance(in_space, Box) and in_space.bounded:
+        # the elementwise bounds' tightest enclosing interval (a negative
+        # std flips low and high per element)
+        lo = (in_space.low - mean) / std
+        hi = (in_space.high - mean) / std
+        space = Box(float(torch.minimum(lo, hi).min()),
+                    float(torch.maximum(lo, hi).max()), env.obs_shape)
+    else:
+        space = Box(-math.inf, math.inf, env.obs_shape)
+    spec = dataclasses.replace(env.spec, observation_space=space)
+    return _wrap(env, "normalize_observation", reset=reset, step=step,
+                 spec=spec)
+
+
+def scale_reward(env: Environment, scale: float) -> Environment:
+    """Multiply rewards by a constant (rounded to fp32)."""
+
+    def step(state, action):
+        state, obs, reward, done, truncated, final_obs = \
+            env.step(state, action)
+        return (state, obs, reward * reward.new_full((), scale), done,
+                truncated, final_obs)
+
+    return _wrap(env, "scale_reward", reset=env.reset, step=step)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +130,52 @@ def ensure_vector_obs(env: Environment) -> Environment:
     if len(env.obs_shape) == 1:
         return env
     return flatten_observation(env)
+
+
+# ---------------------------------------------------------------------------
+# time limit
+# ---------------------------------------------------------------------------
+
+class TimeLimitState(NamedTuple):
+    inner: Any
+    t: Tensor           # [B] int32 steps taken in the current episode
+    key: Tensor         # [B, 2] int64 reset stream of the forced reset
+
+
+def time_limit(env: Environment, max_steps: int) -> Environment:
+    """Truncate episodes after ``max_steps`` wrapper-level steps.
+
+    A pure timeout is reported as ``truncated`` (never folded into
+    ``done``); if the inner env terminates on the timeout tick, ``done``
+    wins.  On a pure timeout the inner env is reset from the wrapper's
+    own stream, which then moves to a new one; ``final_obs`` stays the
+    pre-reset observation.
+    """
+
+    def reset(key):
+        state, obs = env.reset(key)
+        t = torch.zeros(key.shape[0], dtype=torch.int32, device=key.device)
+        return TimeLimitState(state, t, split_key(key)), obs
+
+    def step(state, action):
+        inner, obs, reward, done, truncated, final_obs = \
+            env.step(state.inner, action)
+        t = state.t + 1
+        # a pure wrapper timeout: the episode still alive at the limit
+        timeout = (t >= max_steps) & ~done & ~truncated
+        truncated = truncated | timeout
+        fresh_inner, fresh_obs = env.reset(state.key)
+        inner = auto_reset(timeout, fresh_inner, inner)
+        obs = torch.where(_per_env(timeout, obs), fresh_obs, obs)
+        key = torch.where(timeout[:, None], split_key(state.key), state.key)
+        t = torch.where(done | truncated, 0, t).to(torch.int32)
+        return TimeLimitState(inner, t, key), obs, reward, done, \
+            truncated, final_obs
+
+    spec = dataclasses.replace(env.spec,
+                               max_steps=min(env.spec.max_steps,
+                                             max_steps))
+    return _wrap(env, "time_limit", reset=reset, step=step, spec=spec)
 
 
 # ---------------------------------------------------------------------------

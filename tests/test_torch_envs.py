@@ -15,9 +15,14 @@ import pytest
 import torch
 
 from repro.rl.envs import keydoor as jkd
+from repro.rl.envs import make as jmake
+from repro.rl.envs import registered as jregistered
+from repro.rl.envs import spaces as jspaces
 from repro.rl.envs import wrappers as jwr
 from repro_torch.rl.envs import keydoor as tkd
 from repro_torch.rl.envs import make as tmake
+from repro_torch.rl.envs import registered as tregistered
+from repro_torch.rl.envs import spaces as tspaces
 from repro_torch.rl.envs import wrappers as twr
 from repro_torch.rl.envs.base import uniform_ints
 from repro_torch.rl.rollout import env_keys, init_envs
@@ -221,3 +226,126 @@ def test_merge_and_frozen_normalization_match():
     _close(tout[5], jout[5])
     live = ~(_np(tout[3]) | _np(tout[4]))
     _close(_np(tout[1])[live], _np(jout[1])[live])
+
+
+# ---------------------------------------------------------------------------
+# the affine transforms, the time limit, the sub-goal oracle, flat_dim
+# ---------------------------------------------------------------------------
+
+def test_normalize_observation_and_scale_reward_exact():
+    """``(obs - mean) / std`` with obs-shaped stats and a reward scale,
+    stepped from the same states: observations, final observations and
+    rewards bitwise the reference's."""
+    s, a = _states(6)
+    mean = np.random.default_rng(6).random((32, 32, 3)).astype(np.float32)
+    std = np.float32(0.3)
+    jenv = jwr.scale_reward(jwr.normalize_observation(jkd.make(), mean,
+                                                      std), 0.25)
+    tenv = twr.scale_reward(twr.normalize_observation(tmake("keydoor"),
+                                                      mean, std), 0.25)
+    assert twr.wrapper_stack(tenv) == jwr.wrapper_stack(jenv) == (
+        "scale_reward", "normalize_observation")
+    jout = jax.vmap(jenv.step)(_jstate(s), jnp.asarray(a))
+    tout = tenv.step(_tstate(s), torch.from_numpy(a))
+    for i in (2, 3, 4, 5):
+        np.testing.assert_array_equal(_np(tout[i]), _np(jout[i]))
+    live = ~(_np(tout[3]) | _np(tout[4]))
+    np.testing.assert_array_equal(_np(tout[1])[live], _np(jout[1])[live])
+    _, obs = tenv.reset(env_keys(2, B, torch.device("cpu")))
+    assert obs.dtype == torch.float32 and obs.shape == (B, 32, 32, 3)
+
+
+@pytest.mark.parametrize("mean,std", [(1.0, 2.0),
+                                      ([-0.3, 0.0], [0.9, 0.035]),
+                                      (0.0, [-1.0, 1.0])])
+def test_normalize_observation_bounds(mean, std):
+    """The transformed space: the tightest interval enclosing the
+    elementwise bounds, as the reference computes it (mountain_car's
+    Box(-1.2, 0.6)); zero std refused."""
+    mean, std = np.float32(mean), np.float32(std)
+    jsp = jwr.normalize_observation(jmake("mountain_car"), mean,
+                                    std).observation_space
+    tsp = twr.normalize_observation(tmake("mountain_car"), mean,
+                                    std).observation_space
+    assert (tsp.low, tsp.high, tsp.shape) == (jsp.low, jsp.high, jsp.shape)
+    assert tsp.bounded
+    with pytest.raises(ValueError, match="non-zero"):
+        twr.normalize_observation(tmake("mountain_car"), 0.0,
+                                  np.array([1.0, 0.0], np.float32))
+
+
+def test_time_limit_against_the_reference():
+    """The wrapper's counter, flags, rewards and final observations
+    bitwise the reference's from the same states: rows at the wrapper's
+    limit time out (truncated, not done), a row that opens the door on
+    the limit tick is done, the inner env's own truncations pass
+    through; a timed-out row is a fresh episode from the wrapper's
+    stream, which moves on."""
+    s, a = _states(7)
+    t = np.array([9, 9, 3, 9, 9, 0, 8, 9], np.int32)
+    jenv = jwr.time_limit(jkd.make(), 10)
+    tenv = twr.time_limit(tmake("keydoor"), 10)
+    assert tenv.spec.max_steps == jenv.spec.max_steps == 10
+    keys = env_keys(3, B, torch.device("cpu"))
+    jst = jwr.TimeLimitState(_jstate(s), jnp.asarray(t),
+                             jax.random.split(jax.random.PRNGKey(1), B))
+    tst = twr.TimeLimitState(_tstate(s), torch.from_numpy(t), keys)
+    jout = jax.vmap(jenv.step)(jst, jnp.asarray(a))
+    tout = tenv.step(tst, torch.from_numpy(a))
+    for i in (2, 3, 4, 5):
+        np.testing.assert_array_equal(_np(tout[i]), _np(jout[i]))
+    np.testing.assert_array_equal(_np(tout[0].t), _np(jout[0].t))
+    done, trunc = _np(tout[3]), _np(tout[4])
+    assert done[1] and not trunc[1]          # the door on the limit tick
+    assert trunc[0] and trunc[4] and trunc[7] and trunc[2]
+    timeout = np.array([i in (0, 4, 7) for i in range(B)])
+    live = ~(done | trunc)
+    for f in ("agent", "key_pos", "door", "has_key", "t"):
+        np.testing.assert_array_equal(
+            _np(getattr(tout[0].inner, f))[live],
+            _np(getattr(jout[0].inner, f))[live])
+    fresh, fresh_obs = tkd.reset(keys)
+    rows = torch.from_numpy(timeout)
+    for f in fresh._fields:
+        assert torch.equal(getattr(tout[0].inner, f)[rows],
+                           getattr(fresh, f)[rows]), f
+    assert torch.equal(tout[1][rows], fresh_obs[rows])
+    assert not torch.equal(tout[0].key[rows], keys[rows])
+    assert torch.equal(tout[0].key[~rows], keys[~rows])
+
+
+def test_time_limit_truncates_and_force_resets():
+    """The reference's own test (tests/test_envs.py), batched: pendulum
+    (inner horizon 200) cut at 5 steps."""
+    env = twr.time_limit(tmake("pendulum"), 5)
+    assert env.spec.max_steps == 5
+    s, obs = init_envs(env, 0, B, "cpu")
+    assert (s.t == 0).all()
+    for _ in range(5):
+        s, obs, r, d, tr, final_obs = env.step(s, torch.zeros((B, 1)))
+    assert tr.all() and not d.any()
+    assert (s.t == 0).all() and (s.inner.t == 0).all()
+    assert ((obs >= -8.0) & (obs <= 8.0)).all()
+    assert not torch.allclose(final_obs, obs)
+
+
+def test_subgoal_reached():
+    s, a = _states(8)
+    jst, tst = _jstate(s), _tstate(s)
+    np.testing.assert_array_equal(_np(tkd.subgoal_reached(tst)),
+                                  _np(jax.vmap(jkd.subgoal_reached)(jst)))
+    jst = jax.vmap(jkd.step)(jst, jnp.asarray(a))[0]
+    tst = tkd.step(tst, torch.from_numpy(a))[0]
+    live = ~_np(tkd.step(_tstate(s), torch.from_numpy(a))[3])
+    np.testing.assert_array_equal(_np(tkd.subgoal_reached(tst))[live],
+                                  _np(jkd.subgoal_reached(jst))[live])
+    assert _np(tkd.subgoal_reached(tst))[0]         # row 0 picked the key
+
+
+@pytest.mark.parametrize("name", sorted(jregistered()))
+def test_flat_dim(name):
+    assert sorted(tregistered()) == sorted(jregistered())
+    jenv, tenv = jmake(name), tmake(name)
+    for jsp, tsp in ((jenv.observation_space, tenv.observation_space),
+                     (jenv.action_space, tenv.action_space)):
+        assert tspaces.flat_dim(tsp) == jspaces.flat_dim(jsp)

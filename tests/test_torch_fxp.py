@@ -224,3 +224,36 @@ def test_fake_quant_rowwise_ste_gradient_bitwise(bits):
                                * jnp.asarray(g)).sum())(jnp.asarray(x))
     _same_bits(want, _grad_t(lambda v: tfxp.fake_quant_rowwise(v, bits),
                              x, g))
+
+
+# ---------------------------------------------------------------------------
+# the paper's Eq. (1) quantizer and the EMA calibrator
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("kind", ["normal", "positive", "negative", "zeros"])
+def test_quantize_eq1_bitwise(kind, n):
+    """q and scale bitwise the reference's, a span on each side of zero,
+    one side only, and none (the 1e-12 floor)."""
+    x = _inputs((16, 32), 6)
+    x = {"normal": x, "positive": np.abs(x) + 0.1,
+         "negative": -np.abs(x) - 0.1, "zeros": np.zeros_like(x)}[kind]
+    jq, js = jfxp.quantize_eq1(jnp.asarray(x), n)
+    tq, ts = tfxp.quantize_eq1(torch.from_numpy(x), n)
+    _same_bits(jq, tq)
+    _same_bits(js[None], ts[None])          # 0-dim: viewed as one entry
+
+
+@pytest.mark.parametrize("momentum", [0.99, 0.9])
+def test_ema_calibrator_bitwise(momentum):
+    """The abs-max EMA over a stream of activations: the first update
+    takes the abs-max, the rest the EMA, each state bitwise."""
+    jc = jquant.EmaCalibrator(momentum)
+    tc = tquant.EmaCalibrator(momentum)
+    js, ts = jc.init(), tc.init()
+    _same_bits(js[None], ts[None])          # 0-dim: viewed as one entry
+    for i in range(6):
+        x = _inputs((8, 16), 10 + i) * (1.0 + i)
+        js = jc.update(js, jnp.asarray(x))
+        ts = tc.update(ts, torch.from_numpy(x))
+        _same_bits(js[None], ts[None])

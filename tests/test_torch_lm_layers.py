@@ -14,7 +14,10 @@ and rounds otherwise).  Tolerances:
   rounding of the larger terms that cancel into it;
 * with the ``one_library`` fixture the reference's library primitives
   (``jnp.einsum``, ``jax.nn.softmax``, ``jax.lax.rsqrt``, ``jnp.sin``,
-  ``jnp.cos`` and the sigmoid of its SiLU) are computed by the port's
+  ``jnp.cos``, the sigmoid of its SiLU, ``jnp.tanh`` (GELU's),
+  ``jnp.mean`` and ``jnp.var`` (LayerNorm's), ``jnp.power`` to a Python
+  float (LayerNorm's ``** -0.5``), ``jnp.exp`` and ``jnp.log`` (the
+  sinusoidal positions')) are computed by the port's
   (``repro_torch.core.exact``: through fp64, rounded once), and the
   layer under an int8 policy is then held bitwise: with each library's
   own last bits an activation can land on the other side of a rounding
@@ -28,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax._src.numpy as jnp_src
+import jax._src.numpy.ufuncs as jufuncs
 import repro.core.vact as jvact
 from repro.core import policy as jpolicy
 from repro.core.fxp import QTensor as JQTensor
@@ -41,6 +46,7 @@ from repro.nn import rotary as jrotary
 from repro.nn.module import unbox
 from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.core import exact
+from repro_torch.core import vact as tvact
 from repro_torch.core import policy as tpolicy
 from repro_torch.core.fxp import QTensor
 from repro_torch.launch import serve as tserve
@@ -132,7 +138,39 @@ def one_library(monkeypatch):
         return _via_torch(lambda *a, **k: einsum(spec, *a, **k),
                           _port_einsum(spec))(*ops, **kw)
 
+    def reduction(orig, fn):
+        def f(x, axis=None, keepdims=False, **kw):
+            assert axis == -1 and keepdims and not kw
+            return _via_torch(lambda a: orig(a, axis=-1, keepdims=True),
+                              fn)(x)
+        return f
+
+    def unary(orig, fn):
+        """``orig`` of an array or a Python float (weak-typed fp32)."""
+        port = _via_torch(orig, fn)
+        return lambda x: port(jnp.asarray(x, jnp.float32)
+                              if isinstance(x, float) else x)
+
+    power = jufuncs._power
+
+    def jpower(x1, x2):
+        # ``x ** e`` for a Python float ``e`` (LayerNorm's ``** -0.5``);
+        # an array exponent (RoPE's ``theta ** e``) stays the reference's
+        if isinstance(x2, float):
+            return _via_torch(lambda a: power(a, x2),
+                              lambda t: exact.pow(t, x2))(x1)
+        return power(x1, x2)
+
     sigmoid = _via_torch(jax.nn.sigmoid, exact.sigmoid)
+    tanh = unary(jnp.tanh, exact.tanh)
+    monkeypatch.setattr(jnp, "tanh", tanh)
+    # jax.nn.gelu's tanh (its module reads jax._src.numpy)
+    monkeypatch.setattr(jnp_src, "tanh", tanh)
+    monkeypatch.setattr(jnp, "exp", unary(jnp.exp, exact.exp))
+    monkeypatch.setattr(jnp, "log", unary(jnp.log, exact.log))
+    monkeypatch.setattr(jnp, "mean", reduction(jnp.mean, exact.mean))
+    monkeypatch.setattr(jnp, "var", reduction(jnp.var, exact.var))
+    monkeypatch.setattr(jufuncs, "_power", jpower)
     monkeypatch.setattr(jnp, "einsum", jeinsum)
     monkeypatch.setattr(jax.nn, "softmax",
                         _via_torch(jax.nn.softmax, _port_softmax))
@@ -197,6 +235,71 @@ def test_layernorm():
     close(got, want)
 
 
+LIBRARIES = ["one_library", "own"]
+
+
+def _libraries(request, library):
+    """Under ``one_library`` the result is held bitwise; with each
+    library's own primitives within rtol 1e-6 + atol 1e-6."""
+    if library == "one_library":
+        request.getfixturevalue("one_library")
+        return bits_equal
+    return lambda got, want, atol=1e-6: np.testing.assert_allclose(
+        to_numpy(got), np.asarray(want), rtol=1e-6, atol=atol)
+
+
+@pytest.mark.parametrize("library", LIBRARIES)
+def test_gelu(request, library):
+    """``core.vact``'s native GELU is ``jax.nn.gelu``'s expression
+    (approximate=True) op by op, its tanh through fp64: 200,000 draws of
+    3 N(0, 1) and the edges, and the int8 requant under w8a8."""
+    check = _libraries(request, library)
+    x = np.concatenate([_normal((200000,), 60, 3.0), np.array(
+        [0.0, -0.0, -4.879, 4.879, -12.0, 12.0, 1e-30, -1e-30, 30.0, -30.0],
+        np.float32)])
+    with jax.disable_jit():
+        want = jvact.activation(jnp.asarray(x), "gelu")
+        want_q = jvact.activation(jnp.asarray(x[:4096]), "gelu",
+                                  policies("w8a8")[0])
+    check(tvact.activation(torch.from_numpy(x), "gelu"), want)
+    got_q = tvact.activation(torch.from_numpy(x[:4096]), "gelu",
+                             policies("w8a8")[1])
+    if library == "one_library":
+        bits_equal(got_q, want_q)
+
+
+@pytest.mark.parametrize("library", LIBRARIES)
+def test_layernorm_at_d1280(request, library):
+    """whisper's width: [64, 1280] rows off zero mean."""
+    check = _libraries(request, library)
+    x = _normal((64, 1280), 61, 2.0) + 0.5
+    p = {"scale": _normal((1280,), 62, 0.1) + 1.0,
+         "bias": _normal((1280,), 63, 0.1)}
+    with jax.disable_jit():
+        want = jnorm.layernorm_apply(jax.tree.map(jnp.asarray, p),
+                                     jnp.asarray(x))
+    check(tnorm.layernorm_apply({k: torch.from_numpy(v)
+                                 for k, v in p.items()},
+                                torch.from_numpy(x)), want)
+
+
+@pytest.mark.parametrize("length", [8, 50, 448])
+@pytest.mark.parametrize("library", LIBRARIES)
+def test_sinusoidal_positions_at_d1280(request, library, length):
+    """whisper's width, up to its 448-token decoder context.  With each
+    library's own ``exp`` a frequency can differ by an ulp, and the angle
+    ``pos * inv`` then by up to ``pos`` ulps of ``inv`` (<= 1): the table
+    within atol 1e-6 plus one fp32 ulp of 1 (2^-23) a position."""
+    check = _libraries(request, library)
+    with jax.disable_jit():
+        want = jcommon.sinusoidal_positions(length, 1280)
+    got = tcommon.sinusoidal_positions(length, 1280)
+    if library == "one_library":
+        check(got, want)
+    else:
+        check(got, want, atol=1e-6 + (length - 1) * 2.0 ** -23)
+
+
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 @pytest.mark.parametrize("offset", [0, 37, 4095])
 def test_rope_at_decode_offsets(theta, offset):
@@ -232,8 +335,16 @@ def test_swiglu(one_library, policy):
         bits_equal(got, want)
 
 
-@pytest.mark.parametrize("policy", ["fp32", "w8a8"])
-def test_mlp(policy):
+@pytest.mark.parametrize("policy,act", [
+    pytest.param("fp32", "relu", id="fp32"),
+    pytest.param("w8a8", "relu", id="w8a8"),
+    pytest.param("fp32", "gelu", id="fp32-gelu"),
+    pytest.param("w8a8", "gelu", id="w8a8-gelu")])
+def test_mlp(request, policy, act):
+    """GELU (whisper's) under w8a8 with ``one_library``: the requantized
+    activation's int8 codes and the output bitwise."""
+    if act == "gelu" and policy != "fp32":
+        request.getfixturevalue("one_library")
     jp, tp = policies(policy)
     p = {"w_in": {"w": _normal((32, 64), 9, 32 ** -0.5),
                   "b": _normal((64,), 10, 0.1)},
@@ -242,8 +353,8 @@ def test_mlp(policy):
     x = _normal((2, 5, 32), 13)
     with jax.disable_jit():
         want = jmlp.mlp_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
-                              jp, act="relu")
-    got = tmlp.mlp_apply(carry(p), torch.from_numpy(x), tp, act="relu")
+                              jp, act=act)
+    got = tmlp.mlp_apply(carry(p), torch.from_numpy(x), tp, act=act)
     if policy == "fp32":
         close(got, want)
     else:

@@ -42,6 +42,7 @@ from repro.configs import registry as jreg
 from repro.configs import shapes as jshapes
 from repro.core import quantizer as jquant
 from repro.launch import serve as jserve
+from repro.models import encdec as jed
 from repro.models import registry as jmodels
 from repro.models import transformer as jtr
 from repro.nn.module import unbox
@@ -52,6 +53,7 @@ from repro_torch.core import qmatmul as tqm
 from repro_torch.core import quantizer as tquant
 from repro_torch.core.fxp import QTensor
 from repro_torch.launch import serve as tserve
+from repro_torch.models import encdec as ted
 from repro_torch.models import registry as tmodels
 from repro_torch.models import transformer as ttr
 from repro_torch.tree import leaves_with_path
@@ -97,8 +99,11 @@ def test_registry_names_and_unknown_arch():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_for(arch):
     cfg = treg.get_arch(arch)
-    later = {"encdec": "enc-dec", "ssm": "ssm and hybrid",
-             "hybrid": "ssm and hybrid"}
+    later = {"ssm": "ssm and hybrid", "hybrid": "ssm and hybrid"}
+    if cfg.family == "encdec":
+        assert tmodels.model_for(cfg) is ted
+        assert jmodels.model_for(jreg.get_arch(arch)) is jed
+        return
     if cfg.family in later:
         with pytest.raises(NotImplementedError, match=later[cfg.family]):
             tmodels.model_for(cfg)
