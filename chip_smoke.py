@@ -39,7 +39,10 @@ non-zero:
    2048) at M = 4, 128 and 4096 and its head (2048, 32000) at M = 4 and
    8, with w8 and w4 codes; the fused Q-MAC at whisper's (1280, 1280),
    (1280, 5120), (5120, 1280) at M = 4, 128 and 3584 and its head (1280,
-   51968) at M = 4 and 8, with w8 and w4 codes;
+   51968) at M = 4 and 8, and at mamba2's (2560, 10576), (5120, 2560)
+   and recurrentgemma's (4096, 4096), (4096, 256), (4096, 12288),
+   (12288, 4096) at M = 4, 128 and 4096 and their heads (2560, 50304)
+   and (4096, 256000) at M = 4 and 8, with w8 and w4 codes;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -57,7 +60,8 @@ non-zero:
    at M <= 16, which it refuses, on the rows padded with zeros to 32),
    summed over a decode step's and a prefill's 155 products; the same
    for whisper's products, summed over a decode step at batch 4 (257) and
-   an 8 x 448 prefill (513);
+   an 8 x 448 prefill (513), and for mamba2's (129) and recurrentgemma's
+   (293), summed over a decode step at batch 4 and an 8 x 512 prefill;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -137,10 +141,11 @@ non-zero:
    kernel row;
 13. serving TinyLlama-1.1B at its published widths (22 layers, d_model
    2048, 32 heads, 4 KV heads, d_ff 5632, vocab 32,000; random weights
-   from seed 0) through ``repro_torch.launch.serve.serve(..., smoke=
-   False)``: w8a8kv8 at batch 4, prompt 32, gen 16 and at batch 8,
-   prompt 512, gen 32, and w4a8 at batch 4, prompt 32, gen 16, each
-   after a warm-up call at its batch and prompt: PTQ MiB, prefill and
+   from seed 0, drawn once, PTQ'd once a policy) through
+   ``repro_torch.launch.serve.generate`` (the loop ``serve`` runs):
+   w8a8kv8 at batch 4, prompt 32, gen 16 and at batch 8, prompt 512,
+   gen 32, and w4a8 at batch 4, prompt 32, gen 16, each after a warm-up
+   call at its batch and prompt: PTQ MiB, prefill and
    decode tok/s, the first ids; exactly 155 ``qmac_i8_deq`` a forward
    (22 x 7 + the head) and 155 x gen a call, no ``qmac_i8``, every id in
    [0, 32000); then the same model at 2 layers on the card and on the
@@ -153,8 +158,8 @@ non-zero:
    port's launches and PyTorch's);
 14. serving whisper-large-v3 at its published widths (32 + 32 layers,
    d_model 1280, 20 heads, d_ff 5120, vocab 51,866; random weights from
-   seed 0; stub frame embeddings as long as the prompt) through
-   ``serve(..., smoke=False)``: w8a8kv8 at batch 4, prompt 32, gen 16 and
+   seed 0, drawn once; stub frame embeddings as long as the prompt)
+   through ``generate``: w8a8kv8 at batch 4, prompt 32, gen 16 and
    at batch 8, prompt 448, gen 16, and w4a8 at batch 4, prompt 32, gen
    16, each after a warm-up call at its batch and prompt: PTQ MiB,
    prefill and decode tok/s, the first ids; exactly 513 + 257 x (gen -
@@ -164,7 +169,21 @@ non-zero:
    steps, every int8 activation code, every logit and all 36 tokens
    equal; and a profile of a decode step and an 8 x 448 prefill, with
    Q-MAC's share of the busy time;
-15. print the kernels' JSON line, then the device line last.
+15. serving mamba2-2.7b (64 layers, d_model 2560, d_inner 5120, 80 SSD
+   heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
+   super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
+   window 2048, d_ff 12288, vocab 256,000) at their published widths,
+   each fp32 tree drawn once on the card (the host's peak RSS and the
+   card's peak allocation printed), through ``generate``: w8a8kv8 decode
+   at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
+   and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
+   129 and 293 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
+   share of the busy time); card against CPU at full width (mamba2 at 2
+   layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
+   32) and at the reduced recurrentgemma (window 8, 4 x 32), 8 greedy
+   steps: every int8 code, every logit and all 36 tokens equal;
+16. print the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -3290,29 +3309,59 @@ def time_lm_kernels(torch, dev):
         "an 8 x 512 prefill": forward(4096, 8)})
 
 
-def _serve_runs(torch, dev, card, arch, runs, per_call, vocab):
-    """``repro_torch.launch.serve.serve`` on ``arch`` at its published
-    widths (seed 0) for each (policy, batch, prompt, gen) of ``runs``,
-    each after a warm-up call at the same batch and prompt: PTQ MiB,
-    prefill and decode tok/s, the first generated ids; exactly
-    ``per_call(gen)`` ``qmac_i8_deq`` launches a call, no ``qmac_i8``,
-    every id in [0, vocab).  Returns the path's launches, warm-ups
-    included."""
+def _host_peak_gib() -> float:
+    """This process's peak resident set in GiB (Linux reports KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _draw_tree(torch, dev, arch):
+    """``arch``'s fp32 weights at its published widths, drawn once from
+    seed 0 as ``serve`` draws them, on ``dev``: (cfg, model, params)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.registry import model_for
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(arch)
+    model = model_for(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"{arch}: {n / 1e9:.2f} B parameters drawn (fp32, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call):
+    """``repro_torch.launch.serve.generate`` (the prefill and decode loop
+    ``serve`` runs) on the fp32 tree ``fp`` of ``cfg`` at its published
+    widths, PTQ'd once for each policy of ``runs`` ((policy, batch,
+    prompt, gen), prompts from seed 1), each run after a warm-up call at
+    its batch and prompt: PTQ MiB, prefill and decode tok/s, the first
+    ids; exactly ``per_call(gen)`` ``qmac_i8_deq`` launches a call, no
+    ``qmac_i8``, every id in [0, vocab).  Returns the path's launches,
+    warm-ups included."""
     from repro_torch import kernels
-    from repro_torch.launch.serve import serve
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.serve import generate, ptq
 
     kernels.reset_launch_counts()
     warmed = set()
+    name, params = None, None
     for policy, batch, prompt, gen in runs:
-        kw = dict(smoke=False, policy_name=policy, batch=batch,
-                  prompt_len=prompt, seed=0, device=dev)
+        pol = get_policy(policy)
+        print(f"{cfg.name} {policy} batch {batch} prompt {prompt} gen {gen} "
+              f"on {card}:")
+        if policy != name:
+            params = None                   # one PTQ'd tree at a time
+            params, name = ptq(fp, pol), policy
+        kw = dict(batch=batch, prompt_len=prompt, seed=0, device=dev)
         if (batch, prompt) not in warmed:
-            serve(arch, gen=2, verbose=False, **kw)
+            generate(model, params, cfg, pol, gen=2, verbose=False, **kw)
             warmed.add((batch, prompt))
         before = kernels.launch_counts()
-        print(f"{arch} {policy} batch {batch} prompt {prompt} gen {gen} "
-              f"on {card}:")
-        toks, t = serve(arch, gen=gen, **kw)
+        toks, t = generate(model, params, cfg, pol, gen=gen, **kw)
         after = kernels.launch_counts()
         deq = after["qmac_i8_deq"] - before["qmac_i8_deq"]
         i32 = after["qmac_i8"] - before["qmac_i8"]
@@ -3321,24 +3370,116 @@ def _serve_runs(torch, dev, card, arch, runs, per_call, vocab):
               f"qmac_i8_deq {deq} (want {per_call(gen)}), qmac_i8 {i32}; "
               f"first ids {toks[:, :8].tolist()}")
         if deq != per_call(gen) or i32:
-            raise AssertionError(f"{arch} {policy}: {deq} fused and {i32} "
-                                 f"int32 products, not {per_call(gen)} "
-                                 "and 0")
+            raise AssertionError(f"{cfg.name} {policy}: {deq} fused and "
+                                 f"{i32} int32 products, not "
+                                 f"{per_call(gen)} and 0")
         if toks.shape != (batch, gen) or int(toks.min()) < 0 \
-                or int(toks.max()) >= vocab:
-            raise AssertionError(f"{arch} {policy}: bad tokens {toks.shape}"
-                                 f" in [{int(toks.min())}, "
+                or int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"{cfg.name} {policy}: bad tokens "
+                                 f"{toks.shape} in [{int(toks.min())}, "
                                  f"{int(toks.max())}]")
     return kernels.launch_counts()
 
 
+def _profile_serving(torch, cfg, model, params, small, big, per_decode,
+                     per_prefill, n_prefill=3):
+    """Where the time goes in one decode step (after a prefill of
+    ``small``, its caches padded by 16 slots) and in one prefill of
+    ``big``, on the w8a8kv8 ``params`` at full width: device time by
+    kernel, wall time, idle share, launches split into the port's (the
+    wrappers' counters, ``per_decode`` and ``per_prefill`` fused products
+    asserted) and PyTorch's (the trace's rest), Q-MAC's share of the busy
+    time."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.serve import pad_caches
+
+    pol = get_policy("w8a8kv8")
+
+    def shape(b):
+        return tuple((b["tokens"] if isinstance(b, dict) else b).shape)
+
+    (sb, sp), (bb, bp) = shape(small), shape(big)
+    with torch.no_grad():
+        logits, caches = model.prefill(params, small, cfg, pol, 8)
+        caches = pad_caches(caches, 16)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+
+        def decode():
+            model.decode_step(params, tok, caches, sp, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        def prefill():
+            model.prefill(params, big, cfg, pol, 8)
+            torch.cuda.synchronize()
+
+        for what, fn, n, per in (
+                (f"decode step, batch {sb}", decode, 5, per_decode),
+                (f"prefill {bb} x {bp}", prefill, n_prefill, per_prefill)):
+            kernels.reset_launch_counts()
+            fn()
+            port = sum(kernels.launch_counts().values())
+            if kernels.launch_counts()["qmac_i8_deq"] != per:
+                raise AssertionError(f"{what}: "
+                                     f"{kernels.launch_counts()} launches")
+            wall, rows, launches, why = _profiled(torch, fn, n)
+            _print_profile(f"{cfg.name} w8a8kv8 {what}", wall, rows,
+                           launches, why, top=12)
+            qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
+            busy = sum(r[0] for r in rows)
+            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
+                  f"{'not measured' if launches is None else launches - port}"
+                  f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy "
+                  f"({qmac_ms / max(busy, 1e-9):.3f})")
+
+
+def _lm_path(torch, dev, card, arch, runs, per_call, prompts, per_decode,
+             per_prefill, n_prefill=3):
+    """One LM's serving path at full width: its fp32 tree drawn once,
+    ``_serve_runs`` over ``runs``, then ``_profile_serving`` on its w8a8kv8
+    PTQ with the two inputs ``prompts`` makes from a seed-1 generator
+    (``small``, ``big``).  Returns the runs' launches and the fp32 tree."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.serve import ptq
+
+    cfg, model, fp = _draw_tree(torch, dev, arch)
+    t0 = time.perf_counter()
+    launches = _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call)
+    t1 = time.perf_counter()
+    small, big = prompts(cfg, torch.Generator().manual_seed(1))
+    _profile_serving(torch, cfg, model,
+                     ptq(fp, get_policy("w8a8kv8"), verbose=False),
+                     _to(small, dev), _to(big, dev), per_decode, per_prefill,
+                     n_prefill)
+    print(f"{arch}: runs {t1 - t0:.1f} s, profiles "
+          f"{time.perf_counter() - t1:.1f} s")
+    return launches, fp
+
+
+def _to(batch_in, dev):
+    if isinstance(batch_in, dict):
+        return {k: v.to(dev) for k, v in batch_in.items()}
+    return batch_in.to(dev)
+
+
+def _token_prompts(torch, cfg, g, small, big):
+    """Prompts [batch, length] int32 of ``small`` and ``big`` drawn from
+    ``g``."""
+    return tuple(torch.randint(0, cfg.vocab, shape, generator=g).to(
+        torch.int32) for shape in (small, big))
+
+
 def lm_serving(torch, dev, card):
-    """Phase 13: TinyLlama-1.1B at its published widths for each of
-    ``LM_RUNS``: exactly ``LM_PER_FORWARD`` ``qmac_i8_deq`` launches a
-    forward (``gen`` forwards a call), no ``qmac_i8``, every id in [0,
-    32000).  Returns the path's launches."""
-    return _serve_runs(torch, dev, card, LM_ARCH, LM_RUNS,
-                       lambda gen: LM_PER_FORWARD * gen, 32000)
+    """Phase 13: TinyLlama-1.1B at its published widths, drawn once, for
+    each of ``LM_RUNS``: exactly ``LM_PER_FORWARD`` ``qmac_i8_deq``
+    launches a forward (``gen`` forwards a call), no ``qmac_i8``, every id
+    in [0, 32000); then a profile of a decode step (batch 4, a 48-slot
+    cache) and an 8 x 512 prefill.  Returns the path's launches."""
+    launches, _ = _lm_path(
+        torch, dev, card, LM_ARCH, LM_RUNS, lambda gen: LM_PER_FORWARD * gen,
+        lambda cfg, g: _token_prompts(torch, cfg, g, (4, 32), (8, 512)),
+        LM_PER_FORWARD, LM_PER_FORWARD)
+    return launches
 
 
 def lm_card_vs_cpu(torch, dev):
@@ -3439,61 +3580,6 @@ def lm_card_vs_cpu(torch, dev):
                              "with no differing int8 code")
 
 
-def profile_lm(torch, dev):
-    """Phase 13: where the time goes in one decode step (batch 4, a
-    48-slot cache) and one 8 x 512 prefill, at w8a8kv8 and full width:
-    device time by kernel, wall time, idle share, launches split into the
-    port's (the wrappers' counters) and PyTorch's (the trace's rest)."""
-    from repro_torch import kernels
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.core.policy import get_policy
-    from repro_torch.core.quantizer import quantize_params
-    from repro_torch.launch.serve import pad_caches
-    from repro_torch.models import transformer
-
-    cfg = get_arch(LM_ARCH)
-    pol = get_policy("w8a8kv8")
-    params = quantize_params(transformer.init(
-        torch.Generator().manual_seed(0), cfg, device=dev), pol)
-    g = torch.Generator().manual_seed(1)
-    small = torch.randint(0, cfg.vocab, (4, 32), generator=g).to(
-        torch.int32).to(dev)
-    big = torch.randint(0, cfg.vocab, (8, 512), generator=g).to(
-        torch.int32).to(dev)
-    with torch.no_grad():
-        logits, caches = transformer.prefill(params, small, cfg, pol, 8)
-        caches = pad_caches(caches, 16)
-        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-
-        def decode():
-            transformer.decode_step(params, tok, caches, 32, cfg, pol, 8)
-            torch.cuda.synchronize()
-
-        def prefill():
-            transformer.prefill(params, big, cfg, pol, 8)
-            torch.cuda.synchronize()
-
-        out = {}
-        for what, fn, n in (("decode step, batch 4", decode, 5),
-                            ("prefill 8 x 512", prefill, 3)):
-            kernels.reset_launch_counts()
-            fn()
-            port = sum(kernels.launch_counts().values())
-            if kernels.launch_counts()["qmac_i8_deq"] != LM_PER_FORWARD:
-                raise AssertionError(f"{what}: "
-                                     f"{kernels.launch_counts()} launches")
-            wall, rows, launches, why = _profiled(torch, fn, n)
-            _print_profile(f"{LM_ARCH} w8a8kv8 {what}", wall, rows, launches,
-                           why, top=12)
-            qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
-            busy = sum(r[0] for r in rows)
-            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
-                  f"{'not measured' if launches is None else launches - port}"
-                  f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy")
-            out[what] = (wall, busy, launches, port)
-    return out
-
-
 # ---------------------------------------------------------------------------
 # phase 14: serving whisper-large-v3 (and its products in phases 3-4)
 # ---------------------------------------------------------------------------
@@ -3548,40 +3634,50 @@ def time_whisper_kernels(torch, dev):
             (3584,) + down + (2 * L,), (8,) + WHISPER_HEAD_KN + (1,)]})
 
 
+def _whisper_inputs(torch, cfg, g, shape):
+    """Stub frames [batch, length, d_model] then prompts drawn from
+    ``g``."""
+    return {"frames": torch.randn(shape + (cfg.d_model,), generator=g),
+            "tokens": torch.randint(0, cfg.vocab, shape, generator=g).to(
+                torch.int32)}
+
+
 def whisper_serving(torch, dev, card):
     """Phase 14: whisper-large-v3 at its published widths (32 + 32
-    layers, d_model 1280, 20 heads, d_ff 5120, vocab 51,866) for each of
-    ``WHISPER_RUNS``: exactly 513 + 257 x (gen - 1) ``qmac_i8_deq`` a
-    call, no ``qmac_i8``, every id in [0, 51866).  Returns the path's
+    layers, d_model 1280, 20 heads, d_ff 5120, vocab 51,866), drawn once,
+    for each of ``WHISPER_RUNS``: exactly 513 + 257 x (gen - 1)
+    ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866); then
+    a profile of a decode step (batch 4, a 48-slot self cache, the cross
+    cache padded to 48) and an 8 x 448 prefill.  Returns the path's
     launches."""
-    return _serve_runs(torch, dev, card, WHISPER_ARCH, WHISPER_RUNS,
-                       lambda gen: WHISPER_PREFILL
-                       + WHISPER_DECODE * (gen - 1), WHISPER_VOCAB)
+    launches, _ = _lm_path(
+        torch, dev, card, WHISPER_ARCH, WHISPER_RUNS,
+        lambda gen: WHISPER_PREFILL + WHISPER_DECODE * (gen - 1),
+        lambda cfg, g: (_whisper_inputs(torch, cfg, g, (4, 32)),
+                        _whisper_inputs(torch, cfg, g, (8, 448))),
+        WHISPER_DECODE, WHISPER_PREFILL)
+    return launches
 
 
-def whisper_card_vs_cpu(torch, dev):
-    """Phase 14: whisper at full width and ``WHISPER_PARITY_LAYERS`` +
-    ``WHISPER_PARITY_LAYERS`` layers, w8a8kv8, the same PTQ'd params on
-    the card and on the CPU (the card's PTQ of the same fp32 params
-    bitwise the CPU's), the same frames and prompts: a 4 x 32 prefill and
+def _card_vs_cpu(torch, dev, what, cfg, model, fp, batch_in, prompt_len,
+                 want):
+    """``cfg``'s model at w8a8kv8 from the fp32 tree ``fp`` on the CPU:
+    the same PTQ'd params on the card and on the CPU (the card's PTQ of
+    the same fp32 params bitwise the CPU's) and the same inputs
+    ``batch_in`` (prompts, or whisper's frames and prompts): a prefill and
     ``LM_PARITY_STEPS`` greedy decode steps on each device, each on its
-    own tokens, 33 and 17 fused products a forward on the card.  Every
-    int8 activation code (row inputs, KV payloads of both caches, the
-    GELU requant) and every logit must be equal, and all 36 greedy
-    tokens; what differs is printed before the check fails."""
+    own tokens, ``want`` fused products by forward on the card.  Every
+    int8 activation code (row inputs, KV payloads, the GELU requants),
+    every logit and every greedy token must be equal; what differs is
+    printed before the check fails."""
     from repro_torch import kernels
-    from repro_torch.configs.registry import get_arch
     from repro_torch.core.fxp import QTensor
     from repro_torch.core.policy import get_policy
     from repro_torch.core.quantizer import quantize_params
     from repro_torch.launch.serve import pad_caches, sample
-    from repro_torch.models import encdec
     from repro_torch.tree import leaves_with_path, tree_map
 
-    n = WHISPER_PARITY_LAYERS
-    cfg = get_arch(WHISPER_ARCH).replace(n_layers=n)
     pol = get_policy("w8a8kv8")
-    fp = encdec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     cpu_params = quantize_params(fp, pol)
     card_ptq = quantize_params(tree_map(lambda t: t.to(dev), fp), pol)
     is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
@@ -3592,22 +3688,18 @@ def whisper_card_vs_cpu(torch, dev):
         for x, y in pairs:
             if not bits_equal(torch, x, y.cpu()):
                 raise AssertionError(f"PTQ on the card != CPU at {p}")
+    del card_ptq
     card_params = tree_map(lambda t: t.to(dev), cpu_params, is_leaf=is_q)
-    g = torch.Generator().manual_seed(1)
-    frames = torch.randn((4, 32, cfg.d_model), generator=g)
-    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g).to(
-        torch.int32)
     runs = []
     for where, params in ((dev, card_params), (torch.device("cpu"),
                                                cpu_params)):
         logits_all, toks, codes, launches = [], [], [], []
+        inputs = _to(batch_in, where)
         with torch.no_grad():
             kernels.reset_launch_counts()
-            batch = {"frames": frames.to(where),
-                     "tokens": prompts.to(where)}
             (logits, caches), c = _recorded_codes(
-                torch, lambda: encdec.prefill(params, batch, cfg, pol,
-                                              pol.kv_bits))
+                torch, lambda: model.prefill(params, inputs, cfg, pol,
+                                             pol.kv_bits))
             launches.append(kernels.launch_counts()["qmac_i8_deq"])
             caches = pad_caches(caches, LM_PARITY_STEPS)
             codes.append(c.cpu())
@@ -3618,8 +3710,8 @@ def whisper_card_vs_cpu(torch, dev):
                 kernels.reset_launch_counts()
                 (logits, caches), c = _recorded_codes(
                     torch, lambda tok=tok, caches=caches, i=i:
-                    encdec.decode_step(params, tok, caches, 32 + i, cfg,
-                                       pol, pol.kv_bits))
+                    model.decode_step(params, tok, caches, prompt_len + i,
+                                      cfg, pol, pol.kv_bits))
                 launches.append(kernels.launch_counts()["qmac_i8_deq"])
                 codes.append(c.cpu())
                 logits_all.append(logits.cpu())
@@ -3627,86 +3719,201 @@ def whisper_card_vs_cpu(torch, dev):
         runs.append((torch.stack(logits_all), torch.cat(toks, 1), codes,
                      launches))
     (ld, td, cd, nd), (lc, tc, cc, _) = runs
-    want = [16 * n + 1] + [8 * n + 1] * LM_PARITY_STEPS
     differ = torch.stack([(a != b).sum(-1) for a, b in zip(cd, cc,
                                                           strict=True)])
     logits_apart = int((ld.view(torch.int32) != lc.view(torch.int32)).sum())
     err = (ld - lc).abs().max().item()
     same = int((td == tc).sum())
-    print(f"{WHISPER_ARCH} at {n} + {n} layers, w8a8kv8, card vs CPU: "
-          f"greedy tokens equal in {same} of {td.numel()}; int8 codes that "
-          f"differ by forward and row {differ.T.tolist()} (of "
-          f"{cd[0].shape[1]} in the prefill, {cd[1].shape[1]} a decode "
-          f"step, a row); logits apart {logits_apart} of {ld.numel()}, "
-          f"largest abs err {err:.3g}; fused products a forward {nd}")
+    print(f"{what}, w8a8kv8, card vs CPU: greedy tokens equal in {same} of "
+          f"{td.numel()}; int8 codes that differ by forward and row "
+          f"{differ.T.tolist()} (of {cd[0].shape[1]} in the prefill, "
+          f"{cd[1].shape[1]} a decode step, a row); logits apart "
+          f"{logits_apart} of {ld.numel()}, largest abs err {err:.3g}; "
+          f"fused products a forward {nd}")
     if nd != want:
         raise AssertionError(f"card forwards launched {nd} fused products, "
                              f"not {want}")
     if int(differ.sum()) or logits_apart or same != td.numel():
-        raise AssertionError("whisper: card and CPU differ (codes, logits "
+        raise AssertionError(f"{what}: card and CPU differ (codes, logits "
                              "or tokens)")
 
 
-def profile_whisper(torch, dev):
-    """Phase 14: where the time goes in one decode step (batch 4, a
-    48-slot self cache, the cross cache padded to 48) and one 8 x 448
-    prefill, at w8a8kv8 and full width: device time by kernel, wall
-    time, idle share, the port's launches and PyTorch's, Q-MAC's share
-    of the busy time."""
-    from repro_torch import kernels
+def whisper_card_vs_cpu(torch, dev):
+    """Phase 14: whisper at full width and ``WHISPER_PARITY_LAYERS`` +
+    ``WHISPER_PARITY_LAYERS`` layers (``_card_vs_cpu``): a 4 x 32 prefill
+    of stub frames and prompts and ``LM_PARITY_STEPS`` greedy steps, 33
+    and 17 fused products a forward on the card, and all 36 tokens."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core.policy import get_policy
-    from repro_torch.core.quantizer import quantize_params
-    from repro_torch.launch.serve import pad_caches
     from repro_torch.models import encdec
 
-    cfg = get_arch(WHISPER_ARCH)
-    pol = get_policy("w8a8kv8")
-    params = quantize_params(encdec.init(
-        torch.Generator().manual_seed(0), cfg, device=dev), pol)
-    g = torch.Generator().manual_seed(1)
+    n = WHISPER_PARITY_LAYERS
+    cfg = get_arch(WHISPER_ARCH).replace(n_layers=n)
+    fp = encdec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = _whisper_inputs(torch, cfg, torch.Generator().manual_seed(1),
+                            (4, 32))
+    _card_vs_cpu(torch, dev, f"{WHISPER_ARCH} at {n} + {n} layers", cfg,
+                 encdec, fp, batch, 32,
+                 [16 * n + 1] + [8 * n + 1] * LM_PARITY_STEPS)
 
-    def inputs(b, s):
-        return {"frames": torch.randn((b, s, cfg.d_model), generator=g).to(
-                    dev),
-                "tokens": torch.randint(0, cfg.vocab, (b, s), generator=g
-                                        ).to(torch.int32).to(dev)}
 
-    small, big = inputs(4, 32), inputs(8, 448)
-    with torch.no_grad():
-        logits, caches = encdec.prefill(params, small, cfg, pol, 8)
-        caches = pad_caches(caches, 16)
-        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+# ---------------------------------------------------------------------------
+# phase 15: serving mamba2-2.7b (ssm) and recurrentgemma-9b (hybrid), and
+# their products in phases 3-4
+# ---------------------------------------------------------------------------
 
-        def decode():
-            encdec.decode_step(params, tok, caches, 32, cfg, pol, 8)
-            torch.cuda.synchronize()
+SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "recurrentgemma-9b"
+# mamba2's products (K, N): in_proj [2560, 10576] (z, xBC, dt: 2 x 5120 +
+# 2 x 128 + 80), out_proj [5120, 2560]; the head [2560, 50304] (vocab
+# 50,280 padded by configs.base.pad_vocab) at M = batch
+MAMBA_KN = ((2560, 10576), (5120, 2560))
+MAMBA_HEAD_KN = (2560, 50304)
+# recurrentgemma's: lin_x, lin_y, w_r, w_i, lin_out, wq and wo [4096,
+# 4096], wk and wv [4096, 256] (MQA, head_dim 256), gate and up [4096,
+# 12288], down [12288, 4096]; the head [4096, 256000]
+RG_KN = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
+RG_HEAD_KN = (4096, 256000)
+SSM_ROWS = (4, 128, 4096)
+SSM_HEAD_ROWS = (4, 8)
 
-        def prefill():
-            encdec.prefill(params, big, cfg, pol, 8)
-            torch.cuda.synchronize()
 
-        out = {}
-        for what, fn, n, per in (
-                ("decode step, batch 4", decode, 5, WHISPER_DECODE),
-                ("prefill 8 x 448", prefill, 3, WHISPER_PREFILL)):
-            kernels.reset_launch_counts()
-            fn()
-            port = sum(kernels.launch_counts().values())
-            if kernels.launch_counts()["qmac_i8_deq"] != per:
-                raise AssertionError(f"{what}: "
-                                     f"{kernels.launch_counts()} launches")
-            wall, rows, launches, why = _profiled(torch, fn, n)
-            _print_profile(f"{WHISPER_ARCH} w8a8kv8 {what}", wall, rows,
-                           launches, why, top=12)
-            qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
-            busy = sum(r[0] for r in rows)
-            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
-                  f"{'not measured' if launches is None else launches - port}"
-                  f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy "
-                  f"({qmac_ms / max(busy, 1e-9):.3f})")
-            out[what] = (wall, busy, launches, port)
-    return out
+def lm_products(cfg) -> int:
+    """Fused products a forward of an ssm or hybrid config launches (a
+    prefill or a decode step alike): mamba 2 a layer (in_proj,
+    out_proj), recurrentgemma 8 an R layer (lin_y, lin_x, w_r, w_i,
+    lin_out, gate, up, down) and 7 an A layer (q, k, v, o, gate, up,
+    down); the head once."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1
+    pat = cfg.block_pattern
+    n_r = sum(pat[i % len(pat)] == "R" for i in range(cfg.n_layers))
+    return 8 * n_r + 7 * (cfg.n_layers - n_r) + 1
+
+
+MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
+RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
+# (policy, batch, prompt, gen): decode at batch 4 (mamba's prompt one SSD
+# chunk, 128; recurrentgemma's 32), an 8 x 512 prefill, and the w4
+# weights drawn from the same fp32 tree
+MAMBA_RUNS = (("w8a8kv8", 4, 128, 16), ("w8a8kv8", 8, 512, 4),
+              ("w4a8", 4, 128, 16))
+RG_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 512, 4),
+           ("w4a8", 4, 32, 16))
+# card against CPU at full width: mamba's first layers, recurrentgemma's
+# first (R, R, A) super-block
+SSM_PARITY_LAYERS = 2
+
+
+def check_ssm_hybrid_kernels(torch, dev, worst):
+    """Phase 3, mamba2's and recurrentgemma's products: ``qmac_i8_deq``
+    at every block product at M = 4 (decode), 128 (a 4 x 32 or one-chunk
+    prefill) and 4096 (an 8 x 512 prefill), and each head at M = 4 and
+    8, with w8 and w4 codes, bitwise equal to the plain version."""
+    for what, kn, head, seed in (("mamba2", MAMBA_KN, MAMBA_HEAD_KN, 27),
+                                 ("recurrentgemma", RG_KN, RG_HEAD_KN, 28)):
+        cases = [(m, k, n) for k, n in kn for m in SSM_ROWS]
+        cases += [(m,) + head for m in SSM_HEAD_ROWS]
+        worst = _check_lm_products(torch, dev, worst, what, cases, seed,
+                                   int32=False)
+    return worst
+
+
+def time_ssm_hybrid_kernels(torch, dev):
+    """Phase 4, the fused products summed over a decode step at batch 4
+    (M = 4) and an 8 x 512 prefill (M = 4096, the head at M = 8): mamba2's
+    64 x 2 and the head, recurrentgemma's 26 R layers x 8 and 12 A layers
+    x 7 and the head."""
+    (m_in, m_out), L = MAMBA_KN, 64
+
+    def mamba(m, hm):
+        return [(m,) + m_in + (L,), (m,) + m_out + (L,),
+                (hm,) + MAMBA_HEAD_KN + (1,)]
+
+    (sq, kv, up, down), n_r, n_a = RG_KN, 26, 12
+
+    def rg(m, hm):
+        return [(m,) + sq + (5 * n_r + 2 * n_a,), (m,) + kv + (2 * n_a,),
+                (m,) + up + (2 * (n_r + n_a),), (m,) + down + (n_r + n_a,),
+                (hm,) + RG_HEAD_KN + (1,)]
+
+    return (_time_lm_forwards(torch, dev, "mamba2", 25, {
+        "a mamba2 decode step (batch 4)": mamba(4, 4),
+        "a mamba2 8 x 512 prefill": mamba(4096, 8)})
+        + _time_lm_forwards(torch, dev, "recurrentgemma", 26, {
+            "a recurrentgemma decode step (batch 4)": rg(4, 4),
+            "a recurrentgemma 8 x 512 prefill": rg(4096, 8)}))
+
+
+def _first_block(torch, cfg, fp):
+    """``cfg`` and its fp32 tree ``fp`` cut to mamba's first
+    ``SSM_PARITY_LAYERS`` layers or recurrentgemma's first super-block
+    (no tail), copied to the CPU."""
+    from repro_torch.tree import tree_map
+
+    if cfg.family == "ssm":
+        n, stacked, layers = SSM_PARITY_LAYERS, "blocks", SSM_PARITY_LAYERS
+    else:
+        n, stacked, layers = 1, "supers", len(cfg.block_pattern)
+    cut = {k: tree_map(lambda t: (t[:n] if k == stacked else t).cpu(), v)
+           for k, v in fp.items() if k != "tail"}
+    return cfg.replace(n_layers=layers), cut
+
+
+def ssm_hybrid_serving(torch, dev, card):
+    """Phase 15: mamba2-2.7b (64 layers, d_model 2560, d_inner 5120, 80
+    SSD heads of 64, state 128, vocab 50,280) and recurrentgemma-9b (12
+    (R, R, A) super-blocks and an R, R tail, d_model 4096, LRU width
+    4096, 16 heads over 1 KV head of 256, window 2048, d_ff 12288, vocab
+    256,000) at their published widths, each fp32 tree drawn once on the
+    card: for each of ``MAMBA_RUNS`` / ``RG_RUNS`` exactly 129 / 293
+    ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a decode step
+    and an 8 x 512 prefill; the host's peak RSS and the card's peak
+    allocation; then card against CPU at full width, mamba at 2 layers
+    (a 4 x 128 prompt) and recurrentgemma's first super-block (4 x 32),
+    and recurrentgemma reduced (window 8, a 4 x 32 prompt: the window's
+    mask on a padded, non-ring cache): 0 codes, 0 logits apart, every
+    token equal.  Returns each arch's launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import recurrent
+    from repro_torch.models.registry import model_for
+
+    launches = {}
+    for arch, runs, per, prompt in ((SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD,
+                                     128),
+                                    (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD,
+                                     32)):
+        if lm_products(get_arch(arch)) != per:
+            raise AssertionError(f"{arch}: {lm_products(get_arch(arch))} "
+                                 f"products a forward, not {per}")
+        torch.cuda.reset_peak_memory_stats()
+        launches[arch], fp = _lm_path(
+            torch, dev, card, arch, runs, lambda gen, per=per: per * gen,
+            lambda cfg, g, prompt=prompt: _token_prompts(
+                torch, cfg, g, (4, prompt), (8, 512)), per, per, n_prefill=1)
+        t0 = time.perf_counter()
+        cfg, cut = _first_block(torch, get_arch(arch), fp)
+        del fp
+        print(f"{arch}: host peak RSS {_host_peak_gib():.1f} GiB, card peak "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+              "GiB")
+        torch.cuda.empty_cache()
+        prompts = torch.randint(0, cfg.vocab, (4, prompt),
+                                generator=torch.Generator().manual_seed(1)
+                                ).to(torch.int32)
+        _card_vs_cpu(torch, dev, f"{arch} at {cfg.n_layers} layers", cfg,
+                     model_for(cfg), cut, prompts, prompt,
+                     [lm_products(cfg)] * (1 + LM_PARITY_STEPS))
+        del cut
+        print(f"{arch}: cut and card vs CPU {time.perf_counter() - t0:.1f} s")
+    cfg = get_arch(HYBRID_ARCH).reduced()
+    fp = recurrent.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(torch.int32)
+    _card_vs_cpu(torch, dev, f"{cfg.name} (window {cfg.local_window})", cfg,
+                 recurrent, fp, prompts, 32,
+                 [lm_products(cfg)] * (1 + LM_PARITY_STEPS))
+    return launches
 
 
 def main() -> int:
@@ -3749,11 +3956,12 @@ def main() -> int:
                   check_ew_and_cell_edges, check_softmax_and_q8_edges,
                   check_training_kernels, check_pixel_kernels,
                   check_value_kernels, check_lm_kernels,
-                  check_whisper_kernels):
+                  check_whisper_kernels, check_ssm_hybrid_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
-    lm_rows = time_lm_kernels(torch, dev) + time_whisper_kernels(torch, dev)
+    lm_rows = (time_lm_kernels(torch, dev) + time_whisper_kernels(torch, dev)
+               + time_ssm_hybrid_kernels(torch, dev))
     for r in lm_rows:
         print_row("qmac_i8_deq", r)
     rows["qmac_i8_deq"] += lm_rows
@@ -3804,12 +4012,12 @@ def main() -> int:
         "checkpoints)")
     lm_launches = lm_serving(torch, dev, card)
     lm_card_vs_cpu(torch, dev)
-    profile_lm(torch, dev)
     lap("phase 13 (serving TinyLlama-1.1B)")
     whisper_launches = whisper_serving(torch, dev, card)
     whisper_card_vs_cpu(torch, dev)
-    profile_whisper(torch, dev)
     lap("phase 14 (serving whisper-large-v3)")
+    ssm_launches = ssm_hybrid_serving(torch, dev, card)
+    lap("phase 15 (serving mamba2-2.7b and recurrentgemma-9b)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -3837,7 +4045,9 @@ def main() -> int:
                    **{run: value_launches[run][name] for run in VALUE_RUNS},
                    "value_serving": vserve_launches[name],
                    "lm_serving": lm_launches[name],
-                   "whisper_serving": whisper_launches[name]}
+                   "whisper_serving": whisper_launches[name],
+                   "mamba_serving": ssm_launches[SSM_ARCH][name],
+                   "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name]}
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,

@@ -16,6 +16,8 @@ for bit.  Each function costs two dtype conversions beside its op.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.fxp import div_scalar
@@ -25,9 +27,13 @@ Tensor = torch.Tensor
 
 def einsum(spec: str, *ops: Tensor, dtype=None) -> Tensor:
     """``torch.einsum`` of the operands widened to fp64, rounded to
-    ``dtype`` (default: the first operand's)."""
+    ``dtype`` (default: the operands' promoted dtype, as ``jnp.einsum``
+    gives it)."""
     out = torch.einsum(spec, *(o.to(torch.float64) for o in ops))
-    return out.to(dtype or ops[0].dtype)
+    if dtype is None:
+        dtype = functools.reduce(torch.promote_types,
+                                 (o.dtype for o in ops))
+    return out.to(dtype)
 
 
 def _unary(fn):
@@ -45,6 +51,28 @@ sin = _unary(torch.sin)
 cos = _unary(torch.cos)
 sigmoid = _unary(torch.sigmoid)
 tanh = _unary(torch.tanh)
+# PyTorch's vectorized fp32 sqrt on the CPU is not correctly rounded (it
+# misses by an ulp in about 0.6% of [0, 1)); the fp64 root rounded to
+# fp32 is, as a CUDA sqrtf is
+sqrt = _unary(torch.sqrt)
+
+
+def silu(x: Tensor) -> Tensor:
+    """``jax.nn.silu``'s ``x * sigmoid(x)``, the sigmoid through fp64."""
+    return x * sigmoid(x)
+
+
+def softplus(x: Tensor) -> Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``, through fp64 (not
+    ``F.softplus``, whose ``threshold`` branch is another function)."""
+    xd = x.to(torch.float64)
+    return torch.logaddexp(xd, xd.new_zeros(())).to(x.dtype)
+
+
+def cumsum(x: Tensor, dim: int = -1) -> Tensor:
+    """``jnp.cumsum`` along ``dim`` through fp64: every prefix sum rounded
+    once (in fp32 neither library fixes an order)."""
+    return torch.cumsum(x.to(torch.float64), dim=dim).to(x.dtype)
 
 
 def pow(x: Tensor, e: float) -> Tensor:  # noqa: A001 (torch.pow's name)

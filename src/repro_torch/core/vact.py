@@ -147,8 +147,7 @@ _NATIVE = {
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "gelu": _gelu,
-    # jax.nn.silu's x * sigmoid(x), its sigmoid through fp64
-    "silu": lambda x: x * exact.sigmoid(x),
+    "silu": exact.silu,
     "identity": lambda x: x,
 }
 

@@ -4,12 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --policy w8a8kv8 --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
 
-The dense decoder LMs and the enc-dec family (whisper).  Weights PTQ'd
-to int8/int4 QTensors, activations int8 at every product (on the card,
-the Q-MAC kernel's fused product), the KV cache int8 under
-``w8a8kv8``, greedy or temperature sampling.  Runs on the card unless
-``device="cpu"`` / ``--device cpu`` is given.
+The dense decoder LMs, the enc-dec family (whisper), the ssm family
+(mamba2) and the hybrid (recurrentgemma).  Weights PTQ'd to int8/int4
+QTensors, activations int8 at every product (on the card, the Q-MAC
+kernel's fused product), the KV cache int8 under ``w8a8kv8``, greedy or
+temperature sampling.  Runs on the card unless ``device="cpu"`` /
+``--device cpu`` is given.  ``serve`` draws the weights, PTQs them and
+calls :func:`generate`, the prefill and decode loop; a caller holding
+one fp32 tree can PTQ it per policy (:func:`ptq`) and call
+:func:`generate` on each.
 
 As in the reference, ``--smoke`` is ``store_true`` with a default of
 True, so the CLI always serves the reduced config; the published widths
@@ -83,38 +89,34 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def ptq(params, policy, verbose: bool = True):
+    """The weights PTQ'd to ``policy``'s QTensors (printing their size
+    against fp32)."""
+    params = quantize_params(params, policy)
+    stored, fp32 = quantized_nbytes(params)
+    if verbose:
+        print(f"PTQ weights: {stored / 2**20:.1f} MiB "
+              f"(fp32 {fp32 / 2**20:.1f} MiB, "
+              f"{fp32 / max(stored, 1):.2f}x smaller)")
+    return params
+
+
 @torch.no_grad()
-def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
-          batch: int = 4, prompt_len: int = 32, gen: int = 16,
-          temperature: float = 0.0, seed: int = 0,
-          weight_ptq: bool = True, verbose: bool = True,
-          device: DeviceLike = None):
-    """Random weights from ``seed``, prompts from ``seed + 1``; returns
-    (tokens [batch, gen] int32, {"t_prefill", "t_decode"} in seconds on
-    the host clock, each ended by a wait for the card).
+def generate(model, params, cfg, policy, batch: int = 4,
+             prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
+             seed: int = 0, verbose: bool = True,
+             device: DeviceLike = None):
+    """Prompts from ``seed + 1``, a prefill, ``pad_caches`` and a decode
+    loop of ``model`` on ``params`` (on ``device``); returns (tokens
+    [batch, gen] int32, {"t_prefill", "t_decode"} in seconds on the host
+    clock, each ended by a wait for the card).
 
     An enc-dec config (whisper) also takes stub frame embeddings
     ``[batch, prompt_len, d_model]``, as the reference does: the encoder
     is as long as the prompt.  The ``seed + 1`` generator draws the
     frames (standard normals) first, then the prompts, then any Gumbel
     draws."""
-    cfg = get_arch(arch)
-    if smoke:
-        cfg = cfg.reduced()
-    policy = get_policy(policy_name)
-    model = model_for(cfg)
     dev = resolve_device(device)
-
-    params = model.init(torch.Generator().manual_seed(seed), cfg,
-                        device=dev)
-    if weight_ptq and policy.quantized_w:
-        params = quantize_params(params, policy)
-        stored, fp32 = quantized_nbytes(params)
-        if verbose:
-            print(f"PTQ weights: {stored / 2**20:.1f} MiB "
-                  f"(fp32 {fp32 / 2**20:.1f} MiB, "
-                  f"{fp32 / max(stored, 1):.2f}x smaller)")
-
     draws = torch.Generator().manual_seed(seed + 1)
     if cfg.is_encdec:
         frames = torch.randn((batch, prompt_len, cfg.d_model),
@@ -156,6 +158,30 @@ def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
               f"({batch * (gen - 1) / max(t_decode, 1e-9):.0f} tok/s)")
         print(f"sample output ids: {toks[0, :10].tolist()}")
     return toks, {"t_prefill": t_prefill, "t_decode": t_decode}
+
+
+@torch.no_grad()
+def serve(arch: str, smoke: bool = True, policy_name: str = "w8a8kv8",
+          batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          temperature: float = 0.0, seed: int = 0,
+          weight_ptq: bool = True, verbose: bool = True,
+          device: DeviceLike = None):
+    """Random weights from ``seed``, PTQ'd to ``policy_name``, then
+    :func:`generate` (prompts from ``seed + 1``); returns its tokens and
+    times."""
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    policy = get_policy(policy_name)
+    model = model_for(cfg)
+    dev = resolve_device(device)
+
+    params = model.init(torch.Generator().manual_seed(seed), cfg,
+                        device=dev)
+    if weight_ptq and policy.quantized_w:
+        params = ptq(params, policy, verbose)
+    return generate(model, params, cfg, policy, batch, prompt_len, gen,
+                    temperature, seed, verbose, dev)
 
 
 def main(argv=None):

@@ -15,7 +15,7 @@ from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar
 from repro_torch.core.qmatmul import q_matmul
 from repro_torch.nn.linear import embedding_attend
-from repro_torch.tree import leaves_with_path, map_with_path
+from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 
 Tensor = torch.Tensor
 
@@ -26,23 +26,24 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} "
         "slice of the PyTorch port (the port serves the dense decoder "
-        "LMs and the enc-dec family)")
+        "LMs, the enc-dec, ssm and hybrid families)")
 
 
 def stack_init(block_init_fn: Callable, gen: torch.Generator, n: int,
                device="cpu"):
     """``n`` blocks drawn one after another from ``gen`` on the CPU, each
-    leaf stacked on a leading layer axis ``[n, ...]`` and placed on
-    ``device``."""
-    blocks = [block_init_fn(gen) for _ in range(n)]
-    by_path = {}
-    for block in blocks:
+    block's leaves placed on ``device`` as it is drawn (the host holds
+    one block at a time), then each leaf stacked on a leading layer axis
+    ``[n, ...]``."""
+    skeleton, by_path = None, {}
+    for _ in range(n):
+        block = block_init_fn(gen)
+        skeleton = skeleton or tree_map(lambda _x: 0, block)
         for path, leaf in leaves_with_path(block):
-            by_path.setdefault(path, []).append(leaf)
-    del blocks[1:]
-    return map_with_path(
-        lambda path, _x: torch.stack(by_path.pop(path)).to(device),
-        blocks[0])
+            by_path.setdefault(path, []).append(leaf.to(device))
+        del block
+    return map_with_path(lambda path, _x: torch.stack(by_path.pop(path)),
+                         skeleton)
 
 
 def cross_entropy(logits: Tensor, labels: Tensor,

@@ -1,5 +1,6 @@
-"""Quantized 2D convolution, the RL agent's vision stem (port of the
-Q-Conv half of ``repro.nn.conv``).
+"""Quantized 2D convolution, the RL agent's vision stem, and the
+depthwise causal 1D convolution of the ssm and hybrid LMs (port of
+``repro.nn.conv``).
 
 At <= 8-bit activations and weights the conv runs as the integer Q-Conv
 program (``repro_torch.kernels.qconv``): per-pixel int8 activations on
@@ -9,6 +10,10 @@ program (``repro_torch.kernels.qconv``): per-pixel int8 activations on
 kernel; fp weights are quantized first, onto the same grid, so serving
 and evaluation agree bit for bit.  Wider policies fall back to
 fake-quantized operands on an fp32 convolution.
+
+The causal conv is a 4-tap fp32 product on the (dequantized) weight,
+as in the reference; its tap sums run through fp64 and round once
+(``core.exact``), so the card and the CPU agree bit for bit.
 
 The integer conv with fp weights differentiates as the reference's
 ``_qconv`` does: the backward is the fp convolution's VJP at the
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import exact
 from repro_torch.core.fxp import QTensor, as_dense, dequantize, \
     fake_quant, fake_quant_rowwise, quantize
 from repro_torch.core.policy import QuantPolicy
@@ -151,3 +157,33 @@ def qconv_block(p, x: torch.Tensor, *, stride: int = 2,
         return activation(out, "identity", policy)
     return activation(conv2d_apply(p, x, stride=stride, policy=policy),
                       "relu", policy)
+
+
+def causal_conv1d_init(gen: torch.Generator, channels: int, width: int = 4,
+                       dtype=torch.float32, device="cpu"):
+    """``{"w": [width, channels], "b": [channels]}`` (depthwise taps)."""
+    return {
+        "w": he_init()(gen, (width, channels), dtype, device),
+        "b": zeros_init()(gen, (channels,), dtype, device),
+    }
+
+
+def causal_conv1d_apply(p, x: torch.Tensor, state=None):
+    """Depthwise causal conv.  x: [B, S, C].
+
+    With ``state`` ([B, width-1, C], the trailing inputs) this performs
+    one decode step (S == 1) and returns (out, new_state).  Each output
+    is the fp32 sum of its ``width`` taps (through fp64, rounded once)
+    plus the bias in fp32."""
+    w, b = as_dense(p["w"]), p["b"]
+    width = w.shape[0]
+    wf = w.to(torch.float32)
+    if state is not None:
+        dt = torch.promote_types(state.dtype, x.dtype)
+        window = torch.cat([state.to(dt), x.to(dt)], dim=1)  # [B, width, C]
+        out = exact.einsum("bwc,wc->bc", window.to(torch.float32), wf) + b
+        return out[:, None, :].to(x.dtype), window[:, 1:]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    taps = pad.to(torch.float32).unfold(1, width, 1)      # [B, S, C, width]
+    out = exact.einsum("bscw,wc->bsc", taps, wf)
+    return (out + b).to(x.dtype)

@@ -54,3 +54,11 @@ def ones_init() -> Callable:
         del gen
         return torch.ones(tuple(shape), dtype=dtype, device=device)
     return f
+
+
+def uniform(gen: torch.Generator, shape, lo: float, hi: float,
+            device="cpu") -> torch.Tensor:
+    """fp32 draws uniform in [lo, hi) from ``gen``, placed on ``device``
+    (the reference draws its SSD decays and RG-LRU rates so)."""
+    x = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+    return (x * (hi - lo) + lo).to(device)

@@ -17,7 +17,10 @@ and rounds otherwise).  Tolerances:
   ``jnp.cos``, the sigmoid of its SiLU, ``jnp.tanh`` (GELU's),
   ``jnp.mean`` and ``jnp.var`` (LayerNorm's), ``jnp.power`` to a Python
   float (LayerNorm's ``** -0.5``), ``jnp.exp`` and ``jnp.log`` (the
-  sinusoidal positions')) are computed by the port's
+  sinusoidal positions'), and for the ssm and hybrid layers
+  ``jax.nn.silu``, ``jax.nn.sigmoid``, ``jax.nn.softplus``,
+  ``jnp.cumsum`` and the depthwise ``jax.lax.conv_general_dilated`` of
+  ``causal_conv1d_apply``) are computed by the port's
   (``repro_torch.core.exact``: through fp64, rounded once), and the
   layer under an int8 policy is then held bitwise: with each library's
   own last bits an activation can land on the other side of a rounding
@@ -83,8 +86,9 @@ def carry(tree):
 
 
 def bits_equal(got, want):
-    got, want = np.asarray(to_numpy(got) if isinstance(got, torch.Tensor)
-                           else got), np.asarray(want)
+    got, want = np.ascontiguousarray(
+        to_numpy(got) if isinstance(got, torch.Tensor) else got), \
+        np.ascontiguousarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     assert got.dtype == want.dtype, (got.dtype, want.dtype)
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
@@ -128,6 +132,13 @@ def _port_softmax(t, axis=-1):
     return tattn._softmax(t)
 
 
+def _port_depthwise(lhs, rhs):
+    """The causal conv's taps ``lhs`` [B, S + W - 1, C] against ``rhs``
+    [W, 1, C], as ``nn.conv.causal_conv1d_apply`` sums them."""
+    taps = lhs.unfold(1, rhs.shape[0], 1)
+    return exact.einsum("bscw,wc->bsc", taps, rhs[:, 0, :])
+
+
 @pytest.fixture
 def one_library(monkeypatch):
     """The reference's library primitives computed by the port's, so both
@@ -161,6 +172,26 @@ def one_library(monkeypatch):
                               lambda t: exact.pow(t, x2))(x1)
         return power(x1, x2)
 
+    conv = jax.lax.conv_general_dilated
+
+    def jconv(lhs, rhs, window_strides, padding, **kw):
+        # the depthwise 1-D conv of causal_conv1d_apply; any other conv
+        # stays the reference's
+        if (padding == "VALID" and tuple(window_strides) == (1,)
+                and kw == {"dimension_numbers": ("NWC", "WIO", "NWC"),
+                           "feature_group_count": lhs.shape[-1]}):
+            return _via_torch(
+                lambda a, b: conv(a, b, window_strides, padding, **kw),
+                _port_depthwise)(lhs, rhs)
+        return conv(lhs, rhs, window_strides, padding, **kw)
+
+    cumsum = jnp.cumsum
+
+    def jcumsum(x, axis=None, **kw):
+        assert isinstance(axis, int) and not kw
+        return _via_torch(lambda a: cumsum(a, axis=axis),
+                          lambda t: exact.cumsum(t, axis))(x)
+
     sigmoid = _via_torch(jax.nn.sigmoid, exact.sigmoid)
     tanh = unary(jnp.tanh, exact.tanh)
     monkeypatch.setattr(jnp, "tanh", tanh)
@@ -179,6 +210,12 @@ def one_library(monkeypatch):
     monkeypatch.setattr(jnp, "sin", _via_torch(jnp.sin, exact.sin))
     monkeypatch.setattr(jnp, "cos", _via_torch(jnp.cos, exact.cos))
     monkeypatch.setitem(jvact._NATIVE, "silu", lambda x: x * sigmoid(x))
+    monkeypatch.setattr(jax.nn, "sigmoid", sigmoid)
+    monkeypatch.setattr(jax.nn, "silu", lambda x: x * sigmoid(x))
+    monkeypatch.setattr(jax.nn, "softplus",
+                        _via_torch(jax.nn.softplus, exact.softplus))
+    monkeypatch.setattr(jnp, "cumsum", jcumsum)
+    monkeypatch.setattr(jax.lax, "conv_general_dilated", jconv)
 
 
 def policies(name):

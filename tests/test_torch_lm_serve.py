@@ -43,6 +43,8 @@ from repro.configs import shapes as jshapes
 from repro.core import quantizer as jquant
 from repro.launch import serve as jserve
 from repro.models import encdec as jed
+from repro.models import mamba as jmamba
+from repro.models import recurrent as jrec
 from repro.models import registry as jmodels
 from repro.models import transformer as jtr
 from repro.nn.module import unbox
@@ -54,6 +56,8 @@ from repro_torch.core import quantizer as tquant
 from repro_torch.core.fxp import QTensor
 from repro_torch.launch import serve as tserve
 from repro_torch.models import encdec as ted
+from repro_torch.models import mamba as tmamba
+from repro_torch.models import recurrent as trec
 from repro_torch.models import registry as tmodels
 from repro_torch.models import transformer as ttr
 from repro_torch.tree import leaves_with_path
@@ -99,15 +103,13 @@ def test_registry_names_and_unknown_arch():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_for(arch):
     cfg = treg.get_arch(arch)
-    later = {"ssm": "ssm and hybrid", "hybrid": "ssm and hybrid"}
-    if cfg.family == "encdec":
-        assert tmodels.model_for(cfg) is ted
-        assert jmodels.model_for(jreg.get_arch(arch)) is jed
-        return
-    if cfg.family in later:
-        with pytest.raises(NotImplementedError, match=later[cfg.family]):
-            tmodels.model_for(cfg)
-        assert jmodels.model_for(jreg.get_arch(arch)) is not jtr
+    ported = {"encdec": (ted, jed), "ssm": (tmamba, jmamba),
+              "hybrid": (trec, jrec)}
+    if cfg.family in ported:
+        port, ref = ported[cfg.family]
+        assert tmodels.model_for(cfg) is port
+        assert jmodels.model_for(jreg.get_arch(arch)) is ref
+        assert port.__name__.split(".")[-1] == ref.__name__.split(".")[-1]
         return
     assert tmodels.model_for(cfg) is ttr
     if cfg.is_moe:
