@@ -42,7 +42,12 @@ non-zero:
    51968) at M = 4 and 8, and at mamba2's (2560, 10576), (5120, 2560)
    and recurrentgemma's (4096, 4096), (4096, 256), (4096, 12288),
    (12288, 4096) at M = 4, 128 and 4096 and their heads (2560, 50304)
-   and (4096, 256000) at M = 4 and 8, with w8 and w4 codes;
+   and (4096, 256000) at M = 4 and 8, with w8 and w4 codes; the fused
+   Q-MAC batched over experts (``qmac_i8_deq_bmm``) at qwen3-moe's
+   expert products, E = 128 and (K, N) = (2048, 768) and (768, 2048)
+   at C = 4, 10 and 320, at ragged C, K and N, over a split K's slice
+   edges and at one expert against ``qmac_i8_deq``, and both Q-MAC
+   products at qwen3-moe's attention and head, with w8 and w4 codes;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -62,6 +67,10 @@ non-zero:
    for whisper's products, summed over a decode step at batch 4 (257) and
    an 8 x 448 prefill (513), and for mamba2's (129) and recurrentgemma's
    (293), summed over a decode step at batch 4 and an 8 x 512 prefill;
+   the batched Q-MAC at qwen3-moe's expert shapes at C = 4 and 320,
+   beside a yardstick of ``torch._int_mm`` and the scale multiplies
+   once an expert (128 calls timed as one host loop, not a single
+   call; rows padded to 32 at C = 4), summed over a forward's 12;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -172,18 +181,35 @@ non-zero:
 15. serving mamba2-2.7b (64 layers, d_model 2560, d_inner 5120, 80 SSD
    heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
    super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
-   window 2048, d_ff 12288, vocab 256,000) at their published widths,
+   window 2048, d_ff 12288, vocab 256,000) at their published widths
+   (recurrentgemma at 8 of its 38 layers: 2 super-blocks and the tail),
    each fp32 tree drawn once on the card (the host's peak RSS and the
    card's peak allocation printed), through ``generate``: w8a8kv8 decode
    at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
    and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
-   129 and 293 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   129 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
    decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
    share of the busy time); card against CPU at full width (mamba2 at 2
    layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
    32) and at the reduced recurrentgemma (window 8, 4 x 32), 8 greedy
    steps: every int8 code, every logit and all 36 tokens equal;
-16. print the kernels' JSON line, then the device line last.
+16. serving qwen3-moe-30b-a3b (d_model 2048, 32 heads over 4 KV heads
+   of 128, 128 experts, top 8, d_ff 768, vocab 151,936) at its
+   published widths and 4 of its 48 layers (the fp32 tree the
+   reference's MoE serving keeps is 122 GB at 48), drawn once on the
+   card and served with ``weight_ptq=False``, as the reference serves
+   MoE: w8a8kv8 decode at batch 4 x 32, an 8 x 512 prefill and w4a8
+   decode, each after a warm-up call: tok/s, exactly 3
+   ``qmac_i8_deq_bmm`` and 4 ``qmac_i8`` launches a layer and 1 for
+   the head each forward; the assignments dropped over capacity by
+   layer at the 8 x 512 prefill; a profile of a decode step and an
+   8 x 512 prefill (Q-MAC's share of the busy time); card against CPU
+   on the first 2 layers cut from the same tree (a 4 x 32 prefill and
+   4 greedy steps) and on reduced mixtral-8x22b (window 8, a ring
+   cache) at w8a8kv8 and w4a8: every int8 code, every logit, every
+   expert each layer chose and every token equal;
+17. print the kernels' JSON line (the batched launches in
+   ``qmac_i8_deq``'s row, by path), then the device line last.
 """
 from __future__ import annotations
 
@@ -1436,7 +1462,8 @@ def main_path(torch, dev, work):
 
 
 # the port's kernels in a trace, by name, and the wrappers that launch them
-PORT_KERNELS = (("qmac_kernel", ("qmac_i8", "qmac_i8_deq")),
+PORT_KERNELS = (("qmac_kernel", ("qmac_i8", "qmac_i8_deq",
+                                 "qmac_i8_deq_bmm")),
                 ("qconv_kernel", ("qconv_i8_taps",)),
                 ("vact_ew_kernel", ("vact_ew",)),
                 ("vact_ew_q8_kernel", ("vact_ew_q8",)),
@@ -1838,18 +1865,27 @@ def _phases(torch, dev, device, g=0, **kw):
     return tr, state, tr.build_iteration(), tr.pack(state), draws
 
 
-def _recorded_codes(torch, fn):
+def _recorded_codes(torch, fn, experts=None):
     """``fn()``'s output and the int8 codes of every activation the int8
     program quantized in it, by row: each product's and conv's
-    row-quantized input, each KV payload the attention quantizes, and
-    each activation's requantized output (on the tensor-wide grid
-    ``activation`` puts it on), [B, n]."""
+    row-quantized input (an MoE layer's expert buffers [E, C, K] among
+    them), each KV payload the attention quantizes, and each
+    activation's requantized output (on the tensor-wide grid
+    ``activation`` puts it on), [B, n].  With a list ``experts``, each
+    MoE layer's chosen experts ([T * k], token by token) are appended to
+    it."""
     from repro_torch.core import fxp, qmatmul, vact
-    from repro_torch.nn import attention, conv
+    from repro_torch.nn import attention, conv, moe
 
     rec = []
     rowwise, fake_quant = qmatmul.quantize_rowwise, vact.fake_quant
     quant_kv = attention._quant_kv
+    dispatch = moe._dispatch_indices
+
+    def record_experts(idx, n_experts, capacity):
+        if experts is not None:
+            experts.append(idx.to(torch.int32))
+        return dispatch(idx, n_experts, capacity)
 
     def record_rowwise(x, bits):
         q, scale = rowwise(x, bits)
@@ -1868,12 +1904,14 @@ def _recorded_codes(torch, fn):
     qmatmul.quantize_rowwise = conv.quantize_rowwise = record_rowwise
     vact.fake_quant = record_requant
     attention._quant_kv = record_kv
+    moe._dispatch_indices = record_experts
     try:
         out = fn()
     finally:
         qmatmul.quantize_rowwise = conv.quantize_rowwise = rowwise
         vact.fake_quant = fake_quant
         attention._quant_kv = quant_kv
+        moe._dispatch_indices = dispatch
     b = (out if isinstance(out, torch.Tensor) else out[0]).shape[0]
     return out, torch.cat([r.reshape(b, -1).to(torch.int32) for r in rec],
                           -1)
@@ -3315,33 +3353,50 @@ def _host_peak_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def _draw_tree(torch, dev, arch):
-    """``arch``'s fp32 weights at its published widths, drawn once from
-    seed 0 as ``serve`` draws them, on ``dev``: (cfg, model, params)."""
+def _draw_tree(torch, dev, arch, n_layers=None):
+    """``arch``'s fp32 weights at its published widths (at ``n_layers``
+    layers where given), drawn once from seed 0 as ``serve`` draws them,
+    on ``dev``: (cfg, model, params)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.registry import model_for
     from repro_torch.tree import tree_leaves
 
     cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = model_for(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), cfg, device=dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
-    print(f"{arch}: {n / 1e9:.2f} B parameters drawn (fp32, seed 0) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"{arch} at {cfg.n_layers} layers: {n / 1e9:.2f} B parameters "
+          f"drawn (fp32, seed 0) in {time.perf_counter() - t0:.1f} s")
     return cfg, model, params
 
 
-def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call):
+# the Q-MAC wrappers whose launches the serving phases hold exactly
+QMAC_WRAPPERS = ("qmac_i8_deq", "qmac_i8", "qmac_i8_deq_bmm")
+
+
+def _want(per):
+    """Q-MAC launches by wrapper: ``per`` itself, or, for an int, that
+    many fused products and no other."""
+    if isinstance(per, dict):
+        return per
+    return {"qmac_i8_deq": per, "qmac_i8": 0, "qmac_i8_deq_bmm": 0}
+
+
+def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call,
+                weight_ptq=True):
     """``repro_torch.launch.serve.generate`` (the prefill and decode loop
     ``serve`` runs) on the fp32 tree ``fp`` of ``cfg`` at its published
     widths, PTQ'd once for each policy of ``runs`` ((policy, batch,
-    prompt, gen), prompts from seed 1), each run after a warm-up call at
-    its batch and prompt: PTQ MiB, prefill and decode tok/s, the first
-    ids; exactly ``per_call(gen)`` ``qmac_i8_deq`` launches a call, no
-    ``qmac_i8``, every id in [0, vocab).  Returns the path's launches,
-    warm-ups included."""
+    prompt, gen), prompts from seed 1; with ``weight_ptq`` False the fp32
+    tree itself, as ``serve(..., weight_ptq=False)`` serves it), each run
+    after a warm-up call at its batch and prompt: PTQ MiB, prefill and
+    decode tok/s, the first ids; exactly ``per_call(gen)`` Q-MAC
+    launches a call (``_want``), every id in [0, vocab).  Returns the
+    path's launches, warm-ups included."""
     from repro_torch import kernels
     from repro_torch.core.policy import get_policy
     from repro_torch.launch.serve import generate, ptq
@@ -3355,7 +3410,8 @@ def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call):
               f"on {card}:")
         if policy != name:
             params = None                   # one PTQ'd tree at a time
-            params, name = ptq(fp, pol), policy
+            params = ptq(fp, pol) if weight_ptq else fp
+            name = policy
         kw = dict(batch=batch, prompt_len=prompt, seed=0, device=dev)
         if (batch, prompt) not in warmed:
             generate(model, params, cfg, pol, gen=2, verbose=False, **kw)
@@ -3363,16 +3419,15 @@ def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call):
         before = kernels.launch_counts()
         toks, t = generate(model, params, cfg, pol, gen=gen, **kw)
         after = kernels.launch_counts()
-        deq = after["qmac_i8_deq"] - before["qmac_i8_deq"]
-        i32 = after["qmac_i8"] - before["qmac_i8"]
+        got = {k: after[k] - before[k] for k in QMAC_WRAPPERS}
+        want = _want(per_call(gen))
         print(f"  prefill {batch * prompt / t['t_prefill']:.1f} tok/s, "
               f"decode {batch * (gen - 1) / t['t_decode']:.1f} tok/s; "
-              f"qmac_i8_deq {deq} (want {per_call(gen)}), qmac_i8 {i32}; "
+              f"Q-MAC launches {got} (want {want}); "
               f"first ids {toks[:, :8].tolist()}")
-        if deq != per_call(gen) or i32:
-            raise AssertionError(f"{cfg.name} {policy}: {deq} fused and "
-                                 f"{i32} int32 products, not "
-                                 f"{per_call(gen)} and 0")
+        if got != want:
+            raise AssertionError(f"{cfg.name} {policy}: Q-MAC launches "
+                                 f"{got}, not {want}")
         if toks.shape != (batch, gen) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab:
             raise AssertionError(f"{cfg.name} {policy}: bad tokens "
@@ -3382,14 +3437,14 @@ def _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call):
 
 
 def _profile_serving(torch, cfg, model, params, small, big, per_decode,
-                     per_prefill, n_prefill=3):
+                     per_prefill):
     """Where the time goes in one decode step (after a prefill of
     ``small``, its caches padded by 16 slots) and in one prefill of
     ``big``, on the w8a8kv8 ``params`` at full width: device time by
     kernel, wall time, idle share, launches split into the port's (the
-    wrappers' counters, ``per_decode`` and ``per_prefill`` fused products
-    asserted) and PyTorch's (the trace's rest), Q-MAC's share of the busy
-    time."""
+    wrappers' counters, ``per_decode`` and ``per_prefill`` Q-MAC launches
+    asserted, ``_want``) and PyTorch's (the trace's rest), Q-MAC's share
+    of the busy time."""
     from repro_torch import kernels
     from repro_torch.core.policy import get_policy
     from repro_torch.launch.serve import pad_caches
@@ -3415,42 +3470,46 @@ def _profile_serving(torch, cfg, model, params, small, big, per_decode,
 
         for what, fn, n, per in (
                 (f"decode step, batch {sb}", decode, 5, per_decode),
-                (f"prefill {bb} x {bp}", prefill, n_prefill, per_prefill)):
+                (f"prefill {bb} x {bp}", prefill, 1, per_prefill)):
             kernels.reset_launch_counts()
             fn()
-            port = sum(kernels.launch_counts().values())
-            if kernels.launch_counts()["qmac_i8_deq"] != per:
-                raise AssertionError(f"{what}: "
-                                     f"{kernels.launch_counts()} launches")
+            counts = kernels.launch_counts()
+            port = sum(counts.values())
+            if {k: counts[k] for k in QMAC_WRAPPERS} != _want(per):
+                raise AssertionError(f"{what}: {counts} launches")
             wall, rows, launches, why = _profiled(torch, fn, n)
             _print_profile(f"{cfg.name} w8a8kv8 {what}", wall, rows,
                            launches, why, top=12)
             qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
             busy = sum(r[0] for r in rows)
-            print(f"  the port's launches {port} (qmac_i8_deq), PyTorch's "
+            names = "+".join(k for k in QMAC_WRAPPERS if counts[k])
+            print(f"  the port's launches {port} ({names}), PyTorch's "
                   f"{'not measured' if launches is None else launches - port}"
                   f"; qmac_kernel {qmac_ms:.4f} ms of {busy:.4f} ms busy "
                   f"({qmac_ms / max(busy, 1e-9):.3f})")
 
 
 def _lm_path(torch, dev, card, arch, runs, per_call, prompts, per_decode,
-             per_prefill, n_prefill=3):
-    """One LM's serving path at full width: its fp32 tree drawn once,
-    ``_serve_runs`` over ``runs``, then ``_profile_serving`` on its w8a8kv8
-    PTQ with the two inputs ``prompts`` makes from a seed-1 generator
-    (``small``, ``big``).  Returns the runs' launches and the fp32 tree."""
+             per_prefill, weight_ptq=True, n_layers=None):
+    """One LM's serving path at full width (at ``n_layers`` layers where
+    given): its fp32 tree drawn once, ``_serve_runs`` over ``runs``, then
+    ``_profile_serving`` on its w8a8kv8 PTQ (or, with ``weight_ptq``
+    False, the fp32 tree) with the two inputs ``prompts`` makes from a
+    seed-1 generator (``small``, ``big``).  Returns the runs' launches and
+    the fp32 tree."""
     from repro_torch.core.policy import get_policy
     from repro_torch.launch.serve import ptq
 
-    cfg, model, fp = _draw_tree(torch, dev, arch)
+    cfg, model, fp = _draw_tree(torch, dev, arch, n_layers)
     t0 = time.perf_counter()
-    launches = _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call)
+    launches = _serve_runs(torch, dev, card, cfg, model, fp, runs, per_call,
+                           weight_ptq)
     t1 = time.perf_counter()
     small, big = prompts(cfg, torch.Generator().manual_seed(1))
     _profile_serving(torch, cfg, model,
-                     ptq(fp, get_policy("w8a8kv8"), verbose=False),
-                     _to(small, dev), _to(big, dev), per_decode, per_prefill,
-                     n_prefill)
+                     ptq(fp, get_policy("w8a8kv8"), verbose=False)
+                     if weight_ptq else fp,
+                     _to(small, dev), _to(big, dev), per_decode, per_prefill)
     print(f"{arch}: runs {t1 - t0:.1f} s, profiles "
           f"{time.perf_counter() - t1:.1f} s")
     return launches, fp
@@ -3660,16 +3719,20 @@ def whisper_serving(torch, dev, card):
 
 
 def _card_vs_cpu(torch, dev, what, cfg, model, fp, batch_in, prompt_len,
-                 want):
-    """``cfg``'s model at w8a8kv8 from the fp32 tree ``fp`` on the CPU:
+                 want, weight_ptq=True, steps=LM_PARITY_STEPS,
+                 policy="w8a8kv8"):
+    """``cfg``'s model at ``policy`` from the fp32 tree ``fp`` on the CPU:
     the same PTQ'd params on the card and on the CPU (the card's PTQ of
-    the same fp32 params bitwise the CPU's) and the same inputs
-    ``batch_in`` (prompts, or whisper's frames and prompts): a prefill and
-    ``LM_PARITY_STEPS`` greedy decode steps on each device, each on its
-    own tokens, ``want`` fused products by forward on the card.  Every
-    int8 activation code (row inputs, KV payloads, the GELU requants),
-    every logit and every greedy token must be equal; what differs is
-    printed before the check fails."""
+    the same fp32 params bitwise the CPU's; with ``weight_ptq`` False the
+    fp32 params themselves, quantized by every product at each call) and
+    the same inputs ``batch_in`` (prompts, or whisper's frames and
+    prompts): a prefill and ``steps`` greedy decode steps on each device,
+    each on its own tokens, ``want`` Q-MAC launches by forward on the
+    card (``_want``).  Every int8 activation code (row inputs, the MoE
+    expert buffers, KV payloads, the activations' requants), every
+    logit, every greedy token and, for an MoE config, every expert each
+    layer chose must be equal; what differs is printed before the check
+    fails."""
     from repro_torch import kernels
     from repro_torch.core.fxp import QTensor
     from repro_torch.core.policy import get_policy
@@ -3677,65 +3740,82 @@ def _card_vs_cpu(torch, dev, what, cfg, model, fp, batch_in, prompt_len,
     from repro_torch.launch.serve import pad_caches, sample
     from repro_torch.tree import leaves_with_path, tree_map
 
-    pol = get_policy("w8a8kv8")
-    cpu_params = quantize_params(fp, pol)
-    card_ptq = quantize_params(tree_map(lambda t: t.to(dev), fp), pol)
+    pol = get_policy(policy)
     is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
-    for (p, a), (_, b) in zip(leaves_with_path(cpu_params, is_q),
-                              leaves_with_path(card_ptq, is_q), strict=True):
-        pairs = ((a.qvalue, b.qvalue), (a.scale, b.scale)) if is_q(a) \
-            else ((a, b),)
-        for x, y in pairs:
-            if not bits_equal(torch, x, y.cpu()):
-                raise AssertionError(f"PTQ on the card != CPU at {p}")
-    del card_ptq
+    cpu_params = fp
+    if weight_ptq:
+        cpu_params = quantize_params(fp, pol)
+        card_ptq = quantize_params(tree_map(lambda t: t.to(dev), fp), pol)
+        for (p, a), (_, b) in zip(leaves_with_path(cpu_params, is_q),
+                                  leaves_with_path(card_ptq, is_q),
+                                  strict=True):
+            pairs = ((a.qvalue, b.qvalue), (a.scale, b.scale)) if is_q(a) \
+                else ((a, b),)
+            for x, y in pairs:
+                if not bits_equal(torch, x, y.cpu()):
+                    raise AssertionError(f"PTQ on the card != CPU at {p}")
+        del card_ptq
     card_params = tree_map(lambda t: t.to(dev), cpu_params, is_leaf=is_q)
+    want = [_want(w) for w in want]
     runs = []
     for where, params in ((dev, card_params), (torch.device("cpu"),
                                                cpu_params)):
-        logits_all, toks, codes, launches = [], [], [], []
+        logits_all, toks, codes, launches, chosen = [], [], [], [], []
+
+        def forward(fn):
+            kernels.reset_launch_counts()
+            experts = []
+            out, c = _recorded_codes(torch, fn, experts)
+            counts = kernels.launch_counts()
+            launches.append({k: counts[k] for k in QMAC_WRAPPERS})
+            codes.append(c.cpu())
+            chosen.append(torch.cat(experts).cpu() if experts
+                          else torch.zeros(0, dtype=torch.int32))
+            return out
+
         inputs = _to(batch_in, where)
         with torch.no_grad():
-            kernels.reset_launch_counts()
-            (logits, caches), c = _recorded_codes(
-                torch, lambda: model.prefill(params, inputs, cfg, pol,
-                                             pol.kv_bits))
-            launches.append(kernels.launch_counts()["qmac_i8_deq"])
-            caches = pad_caches(caches, LM_PARITY_STEPS)
-            codes.append(c.cpu())
+            logits, caches = forward(lambda: model.prefill(
+                params, inputs, cfg, pol, pol.kv_bits))
+            caches = pad_caches(caches, steps)
             logits_all.append(logits.cpu())
-            for i in range(LM_PARITY_STEPS):
+            for i in range(steps):
                 tok = sample(logits, 0.0)
                 toks.append(tok.cpu())
-                kernels.reset_launch_counts()
-                (logits, caches), c = _recorded_codes(
-                    torch, lambda tok=tok, caches=caches, i=i:
+                logits, caches = forward(
+                    lambda tok=tok, caches=caches, i=i:
                     model.decode_step(params, tok, caches, prompt_len + i,
                                       cfg, pol, pol.kv_bits))
-                launches.append(kernels.launch_counts()["qmac_i8_deq"])
-                codes.append(c.cpu())
                 logits_all.append(logits.cpu())
             toks.append(sample(logits, 0.0).cpu())
         runs.append((torch.stack(logits_all), torch.cat(toks, 1), codes,
-                     launches))
-    (ld, td, cd, nd), (lc, tc, cc, _) = runs
+                     launches, chosen))
+    (ld, td, cd, nd, ed), (lc, tc, cc, _, ec) = runs
     differ = torch.stack([(a != b).sum(-1) for a, b in zip(cd, cc,
                                                           strict=True)])
     logits_apart = int((ld.view(torch.int32) != lc.view(torch.int32)).sum())
     err = (ld - lc).abs().max().item()
     same = int((td == tc).sum())
-    print(f"{what}, w8a8kv8, card vs CPU: greedy tokens equal in {same} of "
-          f"{td.numel()}; int8 codes that differ by forward and row "
+    experts_apart = sum(int((a != b).sum()) for a, b in zip(ed, ec,
+                                                           strict=True))
+    moe = (f"; experts chosen apart {experts_apart} of "
+           f"{sum(e.numel() for e in ed)}" if cfg.is_moe else "")
+    counted = (f"each of {len(nd)} forwards {nd[0]}"
+               if all(c == nd[0] for c in nd) else f"by forward {nd}")
+    print(f"{what}, {policy}, card vs CPU: greedy tokens equal in {same} "
+          f"of {td.numel()}; int8 codes that differ by forward and row "
           f"{differ.T.tolist()} (of {cd[0].shape[1]} in the prefill, "
           f"{cd[1].shape[1]} a decode step, a row); logits apart "
-          f"{logits_apart} of {ld.numel()}, largest abs err {err:.3g}; "
-          f"fused products a forward {nd}")
+          f"{logits_apart} of {ld.numel()}, largest abs err {err:.3g}"
+          f"{moe}; Q-MAC launches {counted}")
     if nd != want:
-        raise AssertionError(f"card forwards launched {nd} fused products, "
-                             f"not {want}")
-    if int(differ.sum()) or logits_apart or same != td.numel():
-        raise AssertionError(f"{what}: card and CPU differ (codes, logits "
-                             "or tokens)")
+        raise AssertionError(f"card forwards launched {nd}, not {want}")
+    if cfg.is_moe and not all(e.numel() for e in ed):
+        raise AssertionError(f"{what}: no experts recorded")
+    if int(differ.sum()) or logits_apart or same != td.numel() \
+            or experts_apart:
+        raise AssertionError(f"{what}: card and CPU differ (codes, logits, "
+                             "tokens or experts)")
 
 
 def whisper_card_vs_cpu(torch, dev):
@@ -3792,6 +3872,11 @@ def lm_products(cfg) -> int:
 
 MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
 RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
+# recurrentgemma's served depth in phase 15: 2 (R, R, A) super-blocks and
+# the R, R tail, 8 of its 38 layers, at full width.  Drawing all 38 (10.44
+# B parameters, 79-94 s on the host's generator) leaves the script too
+# close to its 1,200 s limit beside phase 16
+RG_LAYERS = 8
 # (policy, batch, prompt, gen): decode at batch 4 (mamba's prompt one SSD
 # chunk, 128; recurrentgemma's 32), an 8 x 512 prefill, and the w4
 # weights drawn from the same fp32 tree
@@ -3799,8 +3884,8 @@ MAMBA_RUNS = (("w8a8kv8", 4, 128, 16), ("w8a8kv8", 8, 512, 4),
               ("w4a8", 4, 128, 16))
 RG_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 512, 4),
            ("w4a8", 4, 32, 16))
-# card against CPU at full width: mamba's first layers, recurrentgemma's
-# first (R, R, A) super-block
+# card against CPU at full width: mamba's (and qwen3-moe's) first layers,
+# recurrentgemma's first (R, R, A) super-block
 SSM_PARITY_LAYERS = 2
 
 
@@ -3845,15 +3930,15 @@ def time_ssm_hybrid_kernels(torch, dev):
 
 
 def _first_block(torch, cfg, fp):
-    """``cfg`` and its fp32 tree ``fp`` cut to mamba's first
-    ``SSM_PARITY_LAYERS`` layers or recurrentgemma's first super-block
-    (no tail), copied to the CPU."""
+    """``cfg`` and its fp32 tree ``fp`` cut to mamba's (or an MoE
+    model's) first ``SSM_PARITY_LAYERS`` layers or recurrentgemma's first
+    super-block (no tail), copied to the CPU."""
     from repro_torch.tree import tree_map
 
-    if cfg.family == "ssm":
-        n, stacked, layers = SSM_PARITY_LAYERS, "blocks", SSM_PARITY_LAYERS
-    else:
+    if cfg.family == "hybrid":
         n, stacked, layers = 1, "supers", len(cfg.block_pattern)
+    else:
+        n, stacked, layers = SSM_PARITY_LAYERS, "blocks", SSM_PARITY_LAYERS
     cut = {k: tree_map(lambda t: (t[:n] if k == stacked else t).cpu(), v)
            for k, v in fp.items() if k != "tail"}
     return cfg.replace(n_layers=layers), cut
@@ -3864,8 +3949,9 @@ def ssm_hybrid_serving(torch, dev, card):
     SSD heads of 64, state 128, vocab 50,280) and recurrentgemma-9b (12
     (R, R, A) super-blocks and an R, R tail, d_model 4096, LRU width
     4096, 16 heads over 1 KV head of 256, window 2048, d_ff 12288, vocab
-    256,000) at their published widths, each fp32 tree drawn once on the
-    card: for each of ``MAMBA_RUNS`` / ``RG_RUNS`` exactly 129 / 293
+    256,000) at their published widths (recurrentgemma at ``RG_LAYERS``
+    of its 38 layers), each fp32 tree drawn once on the card: for each
+    of ``MAMBA_RUNS`` / ``RG_RUNS`` exactly ``lm_products`` (129 / 63)
     ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a decode step
     and an 8 x 512 prefill; the host's peak RSS and the card's peak
     allocation; then card against CPU at full width, mamba at 2 layers
@@ -3878,18 +3964,20 @@ def ssm_hybrid_serving(torch, dev, card):
     from repro_torch.models.registry import model_for
 
     launches = {}
-    for arch, runs, per, prompt in ((SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD,
-                                     128),
-                                    (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD,
-                                     32)):
-        if lm_products(get_arch(arch)) != per:
+    for arch, runs, full, prompt, depth in (
+            (SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD, 128, None),
+            (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD, 32, RG_LAYERS)):
+        if lm_products(get_arch(arch)) != full:
             raise AssertionError(f"{arch}: {lm_products(get_arch(arch))} "
-                                 f"products a forward, not {per}")
+                                 f"products a forward, not {full}")
+        per = lm_products(get_arch(arch).replace(
+            n_layers=depth or get_arch(arch).n_layers))
         torch.cuda.reset_peak_memory_stats()
         launches[arch], fp = _lm_path(
             torch, dev, card, arch, runs, lambda gen, per=per: per * gen,
             lambda cfg, g, prompt=prompt: _token_prompts(
-                torch, cfg, g, (4, prompt), (8, 512)), per, per, n_prefill=1)
+                torch, cfg, g, (4, prompt), (8, 512)), per, per,
+            n_layers=depth)
         t0 = time.perf_counter()
         cfg, cut = _first_block(torch, get_arch(arch), fp)
         del fp
@@ -3913,6 +4001,264 @@ def ssm_hybrid_serving(torch, dev, card):
     _card_vs_cpu(torch, dev, f"{cfg.name} (window {cfg.local_window})", cfg,
                  recurrent, fp, prompts, 32,
                  [lm_products(cfg)] * (1 + LM_PARITY_STEPS))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: serving qwen3-moe-30b-a3b (the MoE family) and mixtral-8x22b
+# reduced, and Q-MAC's batched product in phases 3-4
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MIXTRAL_ARCH = "mixtral-8x22b"
+# depth cut from 48 to 4 layers: the reference serves MoE with its fp32
+# tree (PTQ'd MoE raises there), 122 GB at 48 layers; at 4 it is 3.11 B
+# parameters, 12.4 GB
+MOE_LAYERS = 4
+MOE_EXPERTS = 128
+# an expert's products (K, N): gate and up [2048, 768], down [768, 2048]
+MOE_KN = ((2048, 768), (768, 2048))
+# expert capacity C = max(ceil(T * 8 / 128 * 1.25), 4) at a decode step of
+# batch 4 (T = 4), a 4 x 32 prefill (128) and an 8 x 512 prefill (4096)
+MOE_ROWS = (4, 10, 320)
+# attention's int32 products (K, N): wq [2048, 4096], wk and wv [2048,
+# 512], wo [4096, 2048]; the untied head [2048, 151936] at M = batch
+MOE_ATTN_KN = ((2048, 4096), (2048, 512), (4096, 2048))
+MOE_HEAD_KN = (2048, 151936)
+MOE_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 512, 4),
+            ("w4a8", 4, 32, 16))
+# card against CPU: a 4 x 32 prefill and 2 greedy steps (the CPU
+# quantizes 1.2 B expert weights a forward at 2 layers, 8-12 s)
+MOE_PARITY_STEPS = 2
+
+
+def moe_per_forward(n_layers):
+    """Q-MAC launches a forward of an MoE model with fp weights under an
+    int8 policy (``weight_ptq=False``): 3 batched products (the experts;
+    the router is an fp64 einsum) and 4 int32 ones (attention) a layer,
+    and the head's."""
+    return {"qmac_i8_deq": 0, "qmac_i8": 4 * n_layers + 1,
+            "qmac_i8_deq_bmm": 3 * n_layers}
+
+
+MOE_PER_FORWARD = moe_per_forward(MOE_LAYERS)
+
+
+def _bmm_case(torch, g, dev, e, c, k, n, qmax=127):
+    qx = _i8(torch, g, dev, (e, c, k))
+    qw = torch.randint(-qmax, qmax + 1, (e, k, n), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    sx = torch.rand((e, c, 1), generator=g, device=dev) * 0.02 + 1e-4
+    sw = torch.rand((e, 1, n), generator=g, device=dev) * 0.02 + 1e-4
+    return qx, sx, qw, sw
+
+
+def check_moe_kernels(torch, dev, worst):
+    """Phase 3, MoE's products: ``qmac_i8_deq_bmm`` at qwen3-moe's expert
+    shapes (E = 128; gate/up and down at C = 4, 10 and 320), at ragged
+    C, K and N, over a split K's slice edges (two experts, K = 4096) and
+    at one expert against ``qmac_i8_deq``, with w8 and w4 codes, bitwise
+    equal to the plain version; then ``qmac_i8`` (and the fused product)
+    at qwen3-moe's attention products and head."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(29)
+    cases = [(MOE_EXPERTS, c, k, n) for k, n in MOE_KN for c in MOE_ROWS]
+    cases += [(3, 37, 2049, 40), (5, 33, 300, 17), (2, 5, 4096, 24),
+              (2, 5, 4100, 33), (1, 7, 2048, 768)]
+    if qmac_ops.split_plan(5, 4096, 24, 2).splits < 2:
+        raise AssertionError("the split edge case does not split K")
+    for e, c, k, n in cases:
+        for qmax in (127, 7):
+            qx, sx, qw, sw = _bmm_case(torch, g, dev, e, c, k, n, qmax)
+            got = qmac_ops.qmac_i8_deq_bmm(qx, sx, qw, sw)
+            want = qmac_ops.qmac_i8_deq_bmm_plain(qx, sx, qw, sw)
+            err = (got - want).abs().max().item()
+            worst["qmac_i8_deq"] = max(worst["qmac_i8_deq"], err)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"qmac_i8_deq_bmm != plain at E,C,K,N="
+                                     f"{e},{c},{k},{n} qmax {qmax} (max abs "
+                                     f"err {err})")
+            if e == 1 and not bits_equal(torch, got[0], qmac_ops.qmac_i8_deq(
+                    qx[0], sx[0], qw[0], sw[0])):
+                raise AssertionError("qmac_i8_deq_bmm at one expert != "
+                                     "qmac_i8_deq")
+    torch.cuda.synchronize()
+    print(f"Q-MAC batched over experts: {len(cases) * 2} cases (w8 and w4 "
+          "codes), fused fp32 bitwise equal to the plain version "
+          f"({time.perf_counter() - t0:.1f} s)")
+    cases = [(m, k, n) for k, n in MOE_ATTN_KN for m in LM_ROWS]
+    cases += [(m,) + MOE_HEAD_KN for m in LM_HEAD_ROWS]
+    return _check_lm_products(torch, dev, worst, "qwen3-moe attention",
+                              cases, 30)
+
+
+def _loop_ms(torch, fn, reps=5):
+    """Median device time of ``fn()`` (a host loop of many launches) in
+    ms, each call between its own CUDA events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def _time_bmm(torch, g, dev, e, c, k, n):
+    """The batched fused product at one expert shape: the kernel, its
+    plain version, its bound, and the yardstick of ``torch._int_mm`` and
+    the two scale multiplies once an expert (``e`` calls, timed as one
+    loop; rows padded with zeros to 32 where C <= 16, which ``_int_mm``
+    refuses)."""
+    from repro_torch.kernels.qmac import ops as qmac_ops
+
+    qx, sx, qw, sw = _bmm_case(torch, g, dev, e, c, k, n)
+    p = qmac_ops.split_plan(c, k, n, e)
+    b_ms, b_by = bound_ms(e * (c * k + k * n + 4 * c + 4 * n + 4 * c * n),
+                          2.0 * e * c * n * k, 2.0 * e * c * n)
+    pad = 32 if c <= 16 else c
+    qx_y = torch.cat([qx, qx.new_zeros((e, pad - c, k))], 1) \
+        if pad > c else qx
+    sx_y = torch.cat([sx, sx.new_zeros((e, pad - c, 1))], 1) \
+        if pad > c else sx
+
+    def per_expert():
+        for i in range(e):
+            (torch._int_mm(qx_y[i], qw[i]).to(torch.float32) * sx_y[i]) \
+                * sw[i]
+
+    try:
+        lib = _loop_ms(torch, per_expert)
+    except RuntimeError as err:
+        print(f"torch._int_mm refused this shape: "
+              f"{str(err).splitlines()[0]}")
+        lib = None
+    return dict(
+        shape=f"E={e} C={c} K={k} N={n} (batched)",
+        plan=f"{p.splits} slices of {p.slice} B, {p.blocks} blocks",
+        ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq_bmm(qx, sx, qw,
+                                                             sw)),
+        plain_ms=device_ms(torch, lambda: qmac_ops.qmac_i8_deq_bmm_plain(
+            qx, sx, qw, sw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        library=(f"{e} x (torch._int_mm + 2 scale multiplies), one host "
+                 "loop, not a single call"
+                 + (f", rows padded {c} -> 32" if pad > c else "")))
+
+
+def time_moe_kernels(torch, dev):
+    """Phase 4, the batched fused product at qwen3-moe's expert shapes at
+    C = 4 (a decode step at batch 4) and C = 320 (an 8 x 512 prefill),
+    summed over a forward's 3 x 4 batched products."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for c, what in ((4, "a decode step (batch 4)"),
+                    (320, "an 8 x 512 prefill")):
+        tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"),
+                            0.0)
+        for (k, n), count in zip(MOE_KN, (2, 1)):
+            r = _time_bmm(torch, g, dev, MOE_EXPERTS, c, k, n)
+            rows.append(r)
+            for key in tot:
+                tot[key] += count * MOE_LAYERS * (r[key] or 0.0)
+        print(f"qmac_i8_deq_bmm over qwen3-moe's {what} at {MOE_LAYERS} "
+              f"layers, {3 * MOE_LAYERS} products: kernel {tot['ms']:.4f} "
+              f"ms, plain {tot['plain_ms']:.4f} ms, per-expert "
+              f"torch._int_mm yardstick {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms")
+    print(f"qwen3-moe's expert products timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _moe_drops(torch, cfg, model, params, prompts):
+    """Assignments each MoE layer dropped over capacity in one w8a8kv8
+    prefill of ``prompts``."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.nn import moe
+
+    drops = []
+    dispatch = moe._dispatch_indices
+
+    def count(idx, n_experts, capacity):
+        pos, keep = dispatch(idx, n_experts, capacity)
+        drops.append((~keep).sum())
+        return pos, keep
+
+    moe._dispatch_indices = count
+    try:
+        with torch.no_grad():
+            model.prefill(params, prompts, cfg, get_policy("w8a8kv8"), 8)
+    finally:
+        moe._dispatch_indices = dispatch
+    b, s = prompts.shape
+    print(f"{cfg.name} prefill {b} x {s}: assignments dropped over "
+          f"capacity by layer {[int(d) for d in drops]} of "
+          f"{b * s * cfg.top_k} each")
+
+
+def moe_serving(torch, dev, card):
+    """Phase 16: qwen3-moe-30b-a3b at its published widths (d_model 2048,
+    32 heads over 4 KV heads of 128, 128 experts, top 8, d_ff 768, vocab
+    151,936) and ``MOE_LAYERS`` of its 48 layers, the fp32 tree drawn
+    once on the card and served as the reference serves MoE, with
+    ``weight_ptq=False``, for each of ``MOE_RUNS``: exactly 3 batched
+    and 4 ``qmac_i8`` launches a layer and the head's each forward; a
+    profile of a decode step and an 8 x 512 prefill; the assignments
+    dropped over capacity at the 8 x 512 prefill; the host's peak RSS and
+    the card's peak allocation; then card against CPU on the first
+    ``SSM_PARITY_LAYERS`` (2) layers cut from the same tree (a 4 x 32
+    prefill, ``MOE_PARITY_STEPS`` greedy steps) and on reduced mixtral-8x22b
+    (window 8, a ring cache; w8a8kv8 and w4a8): 0 codes, 0 logits, every
+    token and every expert chosen equal.  Returns the runs' launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, fp = _lm_path(
+        torch, dev, card, MOE_ARCH, MOE_RUNS,
+        lambda gen: {k: v * gen for k, v in MOE_PER_FORWARD.items()},
+        lambda cfg, g: _token_prompts(torch, cfg, g, (4, 32), (8, 512)),
+        MOE_PER_FORWARD, MOE_PER_FORWARD, weight_ptq=False,
+        n_layers=MOE_LAYERS)
+    cfg = get_arch(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    _, big = _token_prompts(torch, cfg, torch.Generator().manual_seed(1),
+                            (4, 32), (8, 512))
+    _moe_drops(torch, cfg, transformer, fp, big.to(dev))
+    print(f"{MOE_ARCH}: host peak RSS {_host_peak_gib():.1f} GiB, card peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    cfg, cut = _first_block(torch, cfg, fp)
+    del fp
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(torch.int32)
+    _card_vs_cpu(torch, dev, f"{MOE_ARCH} at {cfg.n_layers} layers", cfg,
+                 transformer, cut, prompts, 32,
+                 [moe_per_forward(cfg.n_layers)] * (1 + MOE_PARITY_STEPS),
+                 weight_ptq=False, steps=MOE_PARITY_STEPS)
+    del cut
+    print(f"{MOE_ARCH}: cut and card vs CPU {time.perf_counter() - t0:.1f} s")
+    cfg = get_arch(MIXTRAL_ARCH).reduced()
+    fp = transformer.init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(torch.int32)
+    for policy in ("w8a8kv8", "w4a8"):
+        _card_vs_cpu(torch, dev, f"{cfg.name} (window {cfg.window})", cfg,
+                     transformer, fp, prompts, 32,
+                     [moe_per_forward(cfg.n_layers)] * (1 + LM_PARITY_STEPS),
+                     weight_ptq=False, policy=policy)
     return launches
 
 
@@ -3956,12 +4302,14 @@ def main() -> int:
                   check_ew_and_cell_edges, check_softmax_and_q8_edges,
                   check_training_kernels, check_pixel_kernels,
                   check_value_kernels, check_lm_kernels,
-                  check_whisper_kernels, check_ssm_hybrid_kernels):
+                  check_whisper_kernels, check_ssm_hybrid_kernels,
+                  check_moe_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
     lm_rows = (time_lm_kernels(torch, dev) + time_whisper_kernels(torch, dev)
-               + time_ssm_hybrid_kernels(torch, dev))
+               + time_ssm_hybrid_kernels(torch, dev)
+               + time_moe_kernels(torch, dev))
     for r in lm_rows:
         print_row("qmac_i8_deq", r)
     rows["qmac_i8_deq"] += lm_rows
@@ -4018,6 +4366,8 @@ def main() -> int:
     lap("phase 14 (serving whisper-large-v3)")
     ssm_launches = ssm_hybrid_serving(torch, dev, card)
     lap("phase 15 (serving mamba2-2.7b and recurrentgemma-9b)")
+    moe_launches = moe_serving(torch, dev, card)
+    lap("phase 16 (serving qwen3-moe-30b-a3b, and mixtral-8x22b reduced)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -4047,11 +4397,29 @@ def main() -> int:
                    "lm_serving": lm_launches[name],
                    "whisper_serving": whisper_launches[name],
                    "mamba_serving": ssm_launches[SSM_ARCH][name],
-                   "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name]}
+                   "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name],
+                   "moe_serving": moe_launches[name]}
+        extra = {}
+        if name == "qmac_i8_deq":
+            # the batched product is the same kernel with the experts in
+            # its grid: its launches count in this row, by path
+            paths = {"serving": serve_launches, "hrl": hrl_launches,
+                     "training": train_launches,
+                     **pixel_launches, **value_launches,
+                     "value_serving": vserve_launches,
+                     "lm_serving": lm_launches,
+                     "whisper_serving": whisper_launches,
+                     "mamba_serving": ssm_launches[SSM_ARCH],
+                     "recurrentgemma_serving": ssm_launches[HYBRID_ARCH],
+                     "moe_serving": moe_launches}
+            bmm = {path: c.get("qmac_i8_deq_bmm", 0)
+                   for path, c in paths.items()}
+            by_path = {path: v + bmm[path] for path, v in by_path.items()}
+            extra["qmac_i8_deq_bmm_launches_by_path"] = bmm
         launches = sum(by_path.values())
         out.append({"name": name, "route": "cuda", "source": source[name],
                     "replaces": replaces[name], "launches": launches,
-                    "launches_by_path": by_path,
+                    "launches_by_path": by_path, **extra,
                     "max_abs_err": worst[name], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],

@@ -21,6 +21,13 @@ A quantized product with fp weights differentiates as the reference's
 straight-through estimator ``dx = g @ w^T``, ``dw = x^T @ g`` in the
 compute dtype at the *unquantized* operands (plain PyTorch; the
 reference's backward is an fp ``dot_general``, not a kernel).
+
+``q_batched_matmul`` is MoE's per-expert product, ``x [E, C, K] @ w [E,
+K, N]``.  Its int8 program (per-row activation codes, per-(expert,
+out-channel) weight codes quantized at each call, exact int32
+accumulation, ``(acc * sx) * sw``) runs on a CUDA tensor in Q-MAC's
+batched kernel, one launch a product; the fake-quant and ``QTensor``
+branches are fp products, as in the reference.
 """
 from __future__ import annotations
 
@@ -133,3 +140,71 @@ def q_matmul(x: Tensor, w: Union[Tensor, QTensor],
     if not (policy.quantized_w or policy.quantized_a):
         return _fp_dot(x, w, policy.compute_dtype)
     return _QMM.apply(policy, x, w)
+
+
+# ---------------------------------------------------------------------------
+# batched (per-expert) variant for MoE: x [E, C, K] @ w [E, K, N]
+# ---------------------------------------------------------------------------
+
+def _fwd_bmm(policy: QuantPolicy, x: Tensor, w: Tensor) -> Tensor:
+    """The reference's ``_fwd_bmm``: the int8 program at <= 8 bits under
+    ``xla``/``pallas``, else fake-quantized operands and an fp product."""
+    cdt = policy.compute_dtype
+    if (policy.quantized_a and policy.quantized_w
+            and policy.a_bits <= 8 and policy.w_bits <= 8
+            and policy.backend in ("xla", "pallas")):
+        qmax = fxp_qmax(policy.w_bits)
+        qx, sx = quantize_rowwise(x, policy.a_bits)          # [E, C, 1]
+        # per-(expert, out-channel) weight scales
+        amax = w.abs().amax(dim=1, keepdim=True)              # [E, 1, N]
+        sw = div_scalar(torch.clamp_min(amax, 1e-12), qmax)
+        qw = torch.clamp(torch.round(w / sw), -qmax, qmax).to(
+            fxp_dtype(policy.w_bits))
+        out = qmac_ops.qmac_i8_deq_bmm(qx.contiguous(), sx.contiguous(),
+                                       qw.contiguous(),
+                                       sw.to(torch.float32).contiguous())
+        return out.to(cdt)
+    xq = fake_quant_rowwise(x, policy.a_bits) if policy.quantized_a else x
+    wq = fake_quant(w, policy.w_bits, 2) if policy.quantized_w else w
+    return torch.matmul(xq.to(cdt), wq.to(cdt))
+
+
+class _QBMM(torch.autograd.Function):
+    """The batched quantized forward with the STE backward
+    (``_qbmm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, policy: QuantPolicy, x: Tensor, w: Tensor):
+        ctx.policy = policy
+        ctx.save_for_backward(x, w)
+        return _fwd_bmm(policy, x, w)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x, w = ctx.saved_tensors
+        cdt = ctx.policy.compute_dtype
+        g = g.to(cdt)
+        dx = dw = None
+        if ctx.needs_input_grad[1]:                  # g[E,C,N] w^T -> [E,C,K]
+            dx = torch.matmul(g, w.to(cdt).transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[2]:                  # x^T g -> [E,K,N]
+            dw = torch.matmul(x.to(cdt).transpose(1, 2), g).to(w.dtype)
+        return None, dx, dw
+
+
+def q_batched_matmul(x: Tensor, w: Union[Tensor, QTensor],
+                     policy: Optional[QuantPolicy] = None) -> Tensor:
+    """Per-expert contraction: x [E, C, K] @ w [E, K, N] -> [E, C, N]."""
+    if policy is None:
+        policy = QuantPolicy()
+    cdt = policy.compute_dtype
+    if isinstance(w, QTensor):
+        # serving: the per-expert weights dequantized into the compute
+        # dtype, then an fp product (activations fake-quantized)
+        wf = w.deq(cdt)
+        if policy.quantized_a:
+            return _fwd_bmm(policy.replace(w_bits=32), x, wf)
+        return torch.matmul(x.to(cdt), wf)
+    if not (policy.quantized_w or policy.quantized_a):
+        return torch.matmul(x.to(cdt), w.to(cdt))
+    return _QBMM.apply(policy, x, w)

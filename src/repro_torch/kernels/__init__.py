@@ -9,11 +9,12 @@ or raises.  Kernels are built with ``nvcc`` at first use (see
 """
 from repro_torch.kernels.qconv.ops import qconv2d_i8
 from repro_torch.kernels.qlstm.ops import qlstm_cell
-from repro_torch.kernels.qmac.ops import qmac_i8, qmac_i8_deq
+from repro_torch.kernels.qmac.ops import qmac_i8, qmac_i8_deq, qmac_i8_deq_bmm
 from repro_torch.kernels.vact.ops import vact, vact_ew, vact_q8, vact_softmax
 
 # the wrappers whose launches a run can count, by kernel name
 WRAPPERS = {"qmac_i8": qmac_i8, "qmac_i8_deq": qmac_i8_deq,
+            "qmac_i8_deq_bmm": qmac_i8_deq_bmm,
             "qconv_i8_taps": qconv2d_i8, "vact_ew": vact_ew,
             "vact_ew_q8": vact_q8, "vact_softmax": vact_softmax,
             "qlstm_cell": qlstm_cell}
@@ -29,5 +30,6 @@ def reset_launch_counts():
 
 
 __all__ = ["WRAPPERS", "launch_counts", "qconv2d_i8", "qlstm_cell",
-           "qmac_i8", "qmac_i8_deq", "reset_launch_counts", "vact",
+           "qmac_i8", "qmac_i8_deq", "qmac_i8_deq_bmm",
+           "reset_launch_counts", "vact",
            "vact_ew", "vact_q8", "vact_softmax"]

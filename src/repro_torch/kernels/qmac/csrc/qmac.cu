@@ -37,6 +37,19 @@
 //   is the load and reduction latency, which tensor cores do not touch;
 //   wgmma's 64-row tile would be half empty at M <= 32.
 //
+// The expert axis.  MoE serving runs the same product once for each of
+// E experts, x [E,C,K] x w [E,K,N] (the reference's _fwd_bmm, XLA code
+// there, not a Pallas kernel: no library call computes an int8 product
+// batched over experts, and a launch per expert would be 384 a layer).
+// The batch is folded into grid.y: block row y is expert y / ceil(M/kBM)
+// and row tile y % ceil(M/kBM), each expert's operands, scales and
+// output at their own offsets.  The split plan, its workspace and its
+// counters count E x tiles; a batch of 1 is the plain product.  At
+// qwen3-moe's shapes (E = 128, K x N = 2048 x 768) the batch alone
+// gives 6,144 tiles, so no product splits K; a decode step's C = 4 rows
+// an expert do 8 ops per weight byte, so it is bound by bytes, and the
+// 32-row tile leaves 28 of its rows empty (a later redesign's work).
+//
 // Accumulation is exact int32 (|acc| <= K*127*128, K <= 131072).
 // Rounding: the epilogue uses __int2float_rn and __fmul_rn, and the
 // library is built with --fmad=false, so it rounds exactly like the
@@ -92,7 +105,17 @@ qmac_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
   const int tx = tid % kBN;          // output column in the tile
   const int ty = tid / kBN;          // output rows ty and ty + 16
   const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
+  // grid.y folds the expert (batch) axis over the row tiles
+  const int row_tiles = (M + kBM - 1) / kBM;
+  const int e = blockIdx.y / row_tiles;
+  const int m0 = (blockIdx.y - e * row_tiles) * kBM;
+  qx += (long long)e * M * K;
+  qw += (long long)e * K * N;
+  const long long e_out = (long long)e * M * N;
+  if (kDeq) {
+    sx += (long long)e * M;
+    sw += (long long)e * N * sw_stride;
+  }
   const int S = gridDim.z;
   const int kbeg = blockIdx.z * slice;
   const int kend = min(K, kbeg + slice);
@@ -196,34 +219,41 @@ qmac_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
     const int m = m0 + ty + i * (kBM / 2);
     if (m >= M) continue;
     if (kDeq) {
-      static_cast<float*>(out)[(long long)m * N + n] =
+      static_cast<float*>(out)[e_out + (long long)m * N + n] =
           __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), sx[m]),
                     sw[n * sw_stride]);
     } else {
-      static_cast<int*>(out)[(long long)m * N + n] = acc[i];
+      static_cast<int*>(out)[e_out + (long long)m * N + n] = acc[i];
     }
   }
 }
 
 }  // namespace
 
-// qx [M,K] int8, qw [K,N] int8, both row-major and contiguous.  With
-// deq != 0: sx [M] fp32 and sw fp32 read at n * sw_stride (stride 0 for
-// a per-tensor scale), out [M,N] fp32; else out [M,N] int32 and sx/sw
-// are not read.  K is cut into `splits` slices of `slice` bytes (the
-// last one shorter); with splits > 1, ws holds ws_ints int32 and
-// counters n_counters int32, all 0, at least tiles * splits * kBM * kBN
-// and tiles, where tiles = ceil(N/kBN) * ceil(M/kBM); the kernel leaves
-// the counters at 0.  Launches on `stream`; returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a cut or a workspace that does not fit.
+// qx [batch,M,K] int8, qw [batch,K,N] int8, both row-major and
+// contiguous (batch 1: the plain [M,K] x [K,N] product).  With deq != 0:
+// sx [batch,M] fp32 and sw fp32, expert e's read at (e*N + n) *
+// sw_stride (stride 0 for one per-tensor scale), out [batch,M,N] fp32;
+// else out [batch,M,N] int32 and sx/sw are not read.  K is cut into
+// `splits` slices of `slice` bytes (the last one shorter); with
+// splits > 1, ws holds ws_ints int32 and counters n_counters int32, all
+// 0, at least tiles * splits * kBM * kBN and tiles, where tiles =
+// batch * ceil(M/kBM) * ceil(N/kBN); the kernel leaves the counters at
+// 0.  Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a cut, a batch or a workspace that does not
+// fit.
 extern "C" int qforce_qmac_i8(int device, void* stream, const void* qx,
                               const void* qw, const void* sx,
                               const void* sw, int sw_stride, void* out,
-                              int M, int N, int K, int deq, int splits,
-                              int slice, void* ws, long long ws_ints,
-                              void* counters, int n_counters) {
+                              int M, int N, int K, int batch, int deq,
+                              int splits, int slice, void* ws,
+                              long long ws_ints, void* counters,
+                              int n_counters) {
   cudaSetDevice(device);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  const long long rows = (long long)batch * ((M + kBM - 1) / kBM);
+  if (batch < 1 || rows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + kBN - 1) / kBN, (unsigned)rows, splits);
   const long long tiles = (long long)grid.x * grid.y;
   const bool cut_ok =
       splits == 1

@@ -2,10 +2,14 @@
 plain PyTorch version on a CPU tensor.
 
 ``qmac_i8`` (int32 out) and ``qmac_i8_deq`` (fused dequant epilogue,
-fp32 out) answer to ``repro.kernels.qmac.ops``.  There is no fallback:
-a CUDA tensor launches ``csrc/qmac.cu`` or raises.  Each wrapper counts
-its kernel launches in a plain integer attribute (``qmac_i8.launches``)
-so a run can show that its path went through the kernel.
+fp32 out) answer to ``repro.kernels.qmac.ops``.  ``qmac_i8_deq_bmm`` is
+the fused product batched over an expert axis, MoE's expert FFN (the
+reference's ``core.qmatmul._fwd_bmm``, an XLA product there): the same
+kernel with the experts folded into its grid, one launch a product.
+There is no fallback: a CUDA tensor launches ``csrc/qmac.cu`` or
+raises.  Each wrapper counts its kernel launches in a plain integer
+attribute (``qmac_i8.launches``) so a run can show that its path went
+through the kernel.
 
 The kernel splits K across blocks and reduces the slices inside the
 same launch (see the source's note).  :func:`split_plan` picks the
@@ -47,7 +51,7 @@ MAX_K = 131072          # |acc| <= K * 127 * 128 stays inside int32
 def _lib():
     fn = _build.load("qmac").qforce_qmac_i8
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                   _P, ctypes.c_longlong, _P, _I]
+                   _I, _P, ctypes.c_longlong, _P, _I]
     fn.restype = _I
     return fn
 
@@ -55,7 +59,8 @@ def _lib():
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """How one product is cut: ``splits`` slices of K of ``slice`` bytes
-    (the last one shorter) over ``tiles`` output tiles."""
+    (the last one shorter) over ``tiles`` output tiles (of every expert
+    of a batched product)."""
 
     splits: int
     slice: int
@@ -72,17 +77,19 @@ class SplitPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(m: int, k: int, n: int) -> SplitPlan:
-    """Cut K so that ``ceil(M/32) * ceil(N/16) * splits`` reaches about
-    ``TARGET_BLOCKS``; no split where the tiles alone fill the card or K
-    is shorter than two chunks.  Every slice but the last is a multiple
-    of 16 bytes, so the kernel's 16-byte loads never straddle two."""
-    if min(m, n) < 1 or k < 0:
-        raise ValueError(f"split_plan takes M, N >= 1 and K >= 0, got "
-                         f"{(m, k, n)}")
-    if _cdiv(m, TILE_M) > 65535:
-        raise ValueError(f"M={m} needs more than 65535 row tiles")
-    tiles = _cdiv(m, TILE_M) * _cdiv(n, TILE_N)
+def split_plan(m: int, k: int, n: int, batch: int = 1) -> SplitPlan:
+    """Cut K so that ``batch * ceil(M/32) * ceil(N/16) * splits`` reaches
+    about ``TARGET_BLOCKS``; no split where the tiles alone fill the card
+    or K is shorter than two chunks.  Every slice but the last is a
+    multiple of 16 bytes, so the kernel's 16-byte loads never straddle
+    two.  ``batch`` experts share the grid's row axis, which holds at
+    most 65535 row tiles."""
+    if min(m, n, batch) < 1 or k < 0:
+        raise ValueError(f"split_plan takes M, N, batch >= 1 and K >= 0, "
+                         f"got {(m, k, n, batch)}")
+    if batch * _cdiv(m, TILE_M) > 65535:
+        raise ValueError(f"{batch} x M={m} needs more than 65535 row tiles")
+    tiles = batch * _cdiv(m, TILE_M) * _cdiv(n, TILE_N)
     want = min(_cdiv(TARGET_BLOCKS, tiles), MAX_SPLITS)
     if want <= 1 or k < 2 * MIN_SLICE:
         return SplitPlan(1, k, tiles)
@@ -134,6 +141,17 @@ def qmac_i8_deq_plain(qx: Tensor, sx: Tensor, qw: Tensor,
     return acc * sx.reshape(-1, 1) * sw.reshape(1, -1)
 
 
+def qmac_i8_deq_bmm_plain(qx: Tensor, sx: Tensor, qw: Tensor,
+                          sw: Tensor) -> Tensor:
+    """Expert by expert, int8 [E, C, K] x int8 [E, K, N] -> fp32 [E, C, N]
+    = ``(acc * sx) * sw``, ``_fwd_bmm``'s int8 body (sx [E, C, 1], sw
+    [E, 1, N])."""
+    e, c, n = qx.shape[0], qx.shape[1], qw.shape[2]
+    acc = torch.matmul(qx.to(torch.float64), qw.to(torch.float64)).to(
+        torch.int32).to(torch.float32)
+    return acc * sx.reshape(e, c, 1) * sw.reshape(e, 1, n)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -161,10 +179,10 @@ def _check_cuda(name: str, *ts: Tensor):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _launch(qx, qw, sx, sw, sw_stride, out, m, n, k, deq):
+def _launch(qx, qw, sx, sw, sw_stride, out, m, n, k, deq, batch=1):
     dev = qx.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    plan = split_plan(m, k, n)
+    plan = split_plan(m, k, n, batch)
     ws = cnt = None
     if plan.splits > 1:
         ws, cnt = _workspace(dev, stream, plan)
@@ -172,7 +190,8 @@ def _launch(qx, qw, sx, sw, sw_stride, out, m, n, k, deq):
                   qx.data_ptr(), qw.data_ptr(),
                   sx.data_ptr() if sx is not None else None,
                   sw.data_ptr() if sw is not None else None, sw_stride,
-                  out.data_ptr(), m, n, k, deq, plan.splits, plan.slice,
+                  out.data_ptr(), m, n, k, batch, deq, plan.splits,
+                  plan.slice,
                   ws.data_ptr() if ws is not None else None,
                   ws.numel() if ws is not None else 0,
                   cnt.data_ptr() if cnt is not None else None,
@@ -223,5 +242,48 @@ def qmac_i8_deq(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor) -> Tensor:
     return out
 
 
+def qmac_i8_deq_bmm(qx: Tensor, sx: Tensor, qw: Tensor,
+                    sw: Tensor) -> Tensor:
+    """Fused dequantizing Q-MAC over experts: for each e,
+    ``(qx[e] . qw[e]) * sx[e] * sw[e]`` -> fp32 [E, C, N], one launch.
+
+    Dtype contract: int8 qx [E, C, K] and qw [E, K, N], exact int32
+    accumulation, fp32 epilogue ``(acc * sx) * sw``; sx [E, C, 1] fp32
+    per-row scales, sw [E, 1, N] fp32 per-(expert, out-channel) scales.
+    w4 codes ride in the int8 container.
+    """
+    if qx.dtype != torch.int8 or qw.dtype != torch.int8:
+        raise TypeError(f"Q-MAC takes int8 operands, got {qx.dtype} x "
+                        f"{qw.dtype}")
+    if qx.ndim != 3 or qw.ndim != 3 or qx.shape[0] != qw.shape[0] \
+            or qx.shape[2] != qw.shape[1]:
+        raise ValueError(f"batched Q-MAC takes [E, C, K] x [E, K, N], got "
+                         f"{tuple(qx.shape)} x {tuple(qw.shape)}")
+    e, c, k = qx.shape
+    n = qw.shape[2]
+    if sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise TypeError("Q-MAC scales must be fp32")
+    if sx.numel() != e * c or sw.numel() != e * n:
+        raise ValueError(f"scales sx {tuple(sx.shape)} / sw "
+                         f"{tuple(sw.shape)} do not fit [{e}, {c}, {n}]")
+    if len({qx.device, qw.device, sx.device, sw.device}) != 1:
+        raise ValueError("operands and scales must share one device")
+    if k > MAX_K:
+        raise ValueError(f"K={k} > {MAX_K} can overflow the int32 "
+                         "accumulator")
+    if qx.device.type == "cpu":
+        return qmac_i8_deq_bmm_plain(qx, sx, qw, sw)
+    if qx.device.type != "cuda":
+        raise ValueError(f"Q-MAC runs on cpu or cuda, not {qx.device}")
+    _check_cuda("qmac_i8_deq_bmm", qx, qw, sx, sw)
+    out = torch.empty((e, c, n), dtype=torch.float32, device=qx.device)
+    if out.numel() == 0:
+        return out.zero_()
+    _launch(qx, qw, sx, sw, 1, out, c, n, k, 1, batch=e)
+    qmac_i8_deq_bmm.launches += 1
+    return out
+
+
 qmac_i8.launches = 0
 qmac_i8_deq.launches = 0
+qmac_i8_deq_bmm.launches = 0

@@ -24,3 +24,11 @@ def qmac_i8_deq(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor) -> Tensor:
     sx: [M, 1] per-row scales; sw: [1, N] (or [1, 1]) per-channel scales.
     """
     return qmac_i8(qx, qw).to(torch.float32) * sx * sw
+
+
+def qmac_i8_deq_bmm(qx: Tensor, sx: Tensor, qw: Tensor,
+                    sw: Tensor) -> Tensor:
+    """Batched fused oracle, expert by expert: [E, C, K] x [E, K, N] ->
+    fp32 [E, C, N] (sx [E, C, 1], sw [E, 1, N])."""
+    return torch.stack([qmac_i8_deq(qx[i], sx[i], qw[i], sw[i])
+                        for i in range(qx.shape[0])])

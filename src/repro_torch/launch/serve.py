@@ -7,11 +7,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
 
-The dense decoder LMs, the enc-dec family (whisper), the ssm family
-(mamba2) and the hybrid (recurrentgemma).  Weights PTQ'd to int8/int4
-QTensors, activations int8 at every product (on the card, the Q-MAC
-kernel's fused product), the KV cache int8 under ``w8a8kv8``, greedy or
-temperature sampling.  Runs on the card unless ``device="cpu"`` /
+The dense decoder LMs, the MoE LMs (qwen3-moe, mixtral), the enc-dec
+family (whisper), the ssm family (mamba2) and the hybrid
+(recurrentgemma).  Weights PTQ'd to int8/int4 QTensors, activations int8
+at every product (on the card, the Q-MAC kernel's fused product), the KV
+cache int8 under ``w8a8kv8``, greedy or temperature sampling.
+
+An MoE model is served with ``weight_ptq=False``, as the reference
+serves it: the reference's PTQ gives the 4-D expert stacks ``[L, E, d,
+f]`` one scale per out column shared by every layer and expert
+(``[1, 1, 1, f]``), which its layer scan refuses, and the port's layer
+walk refuses the same tree with the same ``ValueError`` before any
+product.  With fp weights every product quantizes its weight at each
+call: attention and the head through Q-MAC's int32 kernel, the experts
+through its batched fused kernel with per-(expert, out-channel)
+scales.  Runs on the card unless ``device="cpu"`` /
 ``--device cpu`` is given.  ``serve`` draws the weights, PTQs them and
 calls :func:`generate`, the prefill and decode loop; a caller holding
 one fp32 tree can PTQ it per policy (:func:`ptq`) and call

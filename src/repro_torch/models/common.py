@@ -20,15 +20,6 @@ from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 Tensor = torch.Tensor
 
 
-def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
-    """The error an unported model family or option raises, naming the
-    slice of the port that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {slice_name} "
-        "slice of the PyTorch port (the port serves the dense decoder "
-        "LMs, the enc-dec, ssm and hybrid families)")
-
-
 def stack_init(block_init_fn: Callable, gen: torch.Generator, n: int,
                device="cpu"):
     """``n`` blocks drawn one after another from ``gen`` on the CPU, each

@@ -35,7 +35,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
                                        sinusoidal_positions, stack_init)
-from repro_torch.models.transformer import layer, stack_caches
+from repro_torch.models.transformer import layers, stack_caches
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
                                       attention_decode, attention_init,
                                       cache_update, init_cache, project_kv)
@@ -119,8 +119,7 @@ def encode(params, frames: Tensor, cfg: ArchConfig,
     x = frames + _positions(S, cfg.d_model, frames.device)[None].to(
         frames.dtype)
     acfg = _acfg(cfg, causal=False)
-    for i in range(cfg.n_layers):
-        p = layer(params["enc_blocks"], i)
+    for p in layers(params["enc_blocks"], cfg.n_layers):
         x = x + attention_apply(p["attn"], layernorm_apply(p["ln1"], x),
                                 acfg, policy)
         x = x + _mlp(p, x, cfg, policy)
@@ -138,10 +137,10 @@ def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
                  return_hidden: bool = False) -> Tensor:
     """The decoder over whole token sequences [B, S] against ``enc_out``:
     fp32 logits [B, S, V] (or the final hidden state)."""
+    blocks = layers(params["dec_blocks"], cfg.n_layers)
     x = _embed_tokens(params, tokens, enc_out.dtype, cfg)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False, True)
-    for i in range(cfg.n_layers):
-        p = layer(params["dec_blocks"], i)
+    for p in blocks:
         x = x + attention_apply(p["self"], layernorm_apply(p["ln1"], x),
                                 self_cfg, policy)
         x = x + attention_apply(p["cross"], layernorm_apply(p["ln_x"], x),
@@ -188,13 +187,13 @@ def prefill(params, batch, cfg: ArchConfig,
     encoder's output and prime the self caches with the prompt tokens:
     (last-position logits [B, V], {"self": caches, "cross": caches})."""
     frames, tokens = batch["frames"], batch["tokens"]
+    blocks = layers(params["dec_blocks"], cfg.n_layers)
     enc_out = encode(params, frames, cfg, policy)
     B, T = tokens.shape[0], enc_out.shape[1]
     x = _embed_tokens(params, tokens, enc_out.dtype, cfg)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False, True)
     self_caches, cross_caches = [], []
-    for i in range(cfg.n_layers):
-        p = layer(params["dec_blocks"], i)
+    for p in blocks:
         a, self_c = attention_apply(p["self"],
                                     layernorm_apply(p["ln1"], x), self_cfg,
                                     policy, return_cache=True,
@@ -222,6 +221,7 @@ def decode_step(params, token: Tensor, caches, index: int,
     """One decode step: token [B, 1] -> (logits [B, V], caches).  Each
     layer's self cache is a view of the stacked one, updated in place;
     the cross caches are read only."""
+    blocks = layers(params["dec_blocks"], cfg.n_layers)
     x = embedding_apply(params["embed"], token).to(
         policy.compute_dtype if policy else torch.float32)
     s_max = caches["self"]["k"].shape[2]
@@ -230,8 +230,7 @@ def decode_step(params, token: Tensor, caches, index: int,
     table = _positions(s_max, cfg.d_model, x.device)
     x = x + table[row:row + 1][None].to(x.dtype)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False, True)
-    for i in range(cfg.n_layers):
-        p = layer(params["dec_blocks"], i)
+    for i, p in enumerate(blocks):
         a, _ = attention_decode(
             p["self"], layernorm_apply(p["ln1"], x), self_cfg,
             {k: v[i] for k, v in caches["self"].items()}, index, policy,

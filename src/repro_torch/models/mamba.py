@@ -21,7 +21,7 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import chunked_ce, stack_init
-from repro_torch.models.transformer import (_embed, _head, layer,
+from repro_torch.models.transformer import (_embed, _head, layers,
                                             stack_caches)
 from repro_torch.nn.linear import embedding_init, linear_init
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
@@ -67,9 +67,9 @@ def forward(params, tokens: Tensor, cfg: ArchConfig,
             return_hidden: bool = False) -> Tensor:
     """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
     scfg = ssm_config(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
-    for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
+    for p in blocks:
         x = x + ssm_apply(p["ssm"], rmsnorm_apply(p["ln"], x), scfg, policy)
     x = rmsnorm_apply(params["ln_f"], x)
     if return_hidden:
@@ -103,10 +103,10 @@ def prefill(params, tokens: Tensor, cfg: ArchConfig,
     each layer's final state, stacked)."""
     del kv_bits
     scfg = ssm_config(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
     states = []
-    for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
+    for p in blocks:
         out, state = ssm_apply(p["ssm"], rmsnorm_apply(p["ln"], x), scfg,
                                policy, return_state=True)
         x = x + out
@@ -122,9 +122,9 @@ def decode_step(params, token: Tensor, caches, index: int,
     layer's state written into the stacked caches in place."""
     del index, kv_bits
     scfg = ssm_config(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, token, policy)
-    for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
+    for i, p in enumerate(blocks):
         state = {k: v[i] for k, v in caches.items()}
         out, new = ssm_apply(p["ssm"], rmsnorm_apply(p["ln"], x), scfg,
                              policy, state=state)

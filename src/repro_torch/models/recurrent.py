@@ -26,7 +26,7 @@ from repro_torch.core.vact import activation
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import chunked_ce, stack_init
 from repro_torch.models.transformer import (_embed, _head, _positions,
-                                            layer, stack_caches)
+                                            layers, stack_caches)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
                                       attention_decode, attention_init,
                                       init_cache)
@@ -126,14 +126,14 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 
 
 def _layers(params, cfg):
-    """(kind, params) of every layer in order: each super-block's
-    pattern, then the tail."""
+    """[(kind, params)] of every layer in order: each super-block's
+    pattern, then the tail (the stacked super-blocks checked by
+    ``transformer.layers`` before any layer runs)."""
     pat, n_super, tail = _layout(cfg)
-    for s in range(n_super):
-        sp = layer(params["supers"], s)
-        for i, kind in enumerate(pat):
-            yield kind, sp[f"b{i}_{kind}"]
-    yield from zip(tail, params.get("tail", []), strict=True)
+    walk = [(kind, sp[f"b{i}_{kind}"])
+            for sp in layers(params["supers"], n_super)
+            for i, kind in enumerate(pat)]
+    return walk + list(zip(tail, params.get("tail", []), strict=True))
 
 
 def forward(params, tokens: Tensor, cfg: ArchConfig,

@@ -1,8 +1,7 @@
 """Family registry: resolve an ArchConfig to its model module (port of
 ``repro.models.registry``).
 
-Dense and MoE configs resolve to the transformer, which serves the dense
-ones (an MoE config raises there), the enc-dec config to
+Dense and MoE configs resolve to the transformer, the enc-dec config to
 ``models.encdec``, the hybrid config to ``models.recurrent`` and the ssm
 config to ``models.mamba``.  ``sharding_rules`` and ``input_specs``
 arrive with the sharded paths and the dry-run tools.

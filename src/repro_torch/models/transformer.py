@@ -1,13 +1,16 @@
-"""Decoder-only LM family, dense (qwen2/stablelm/phi3/tinyllama/
-chameleon) — port of ``repro.models.transformer``.  Every product routes
-through q_matmul (on a CUDA tensor, Q-MAC).
+"""Decoder-only LM family: dense (qwen2/stablelm/phi3/tinyllama/
+chameleon) and MoE (mixtral, qwen3-moe) — port of
+``repro.models.transformer``.  Every product routes through q_matmul
+(on a CUDA tensor, Q-MAC), the experts' through q_batched_matmul
+(Q-MAC's batched kernel).
 
 Block params are stacked ``[L, ...]`` as in the reference, and the
 layers are walked in a Python loop over the stacked leaves in place of
-its ``lax.scan``: a layer's weights are views ``w[i]`` (a QTensor's
-``qvalue[i]``, ``scale[i]``).  ``cfg.remat`` and ``cfg.scan_layers`` are
-compile knobs and change nothing here.  The MoE blocks (``nn/moe``)
-arrive with a later slice: an MoE config raises.  The reference's
+its ``lax.scan`` (:func:`layers`): a layer's weights are views ``w[i]``
+(a QTensor's ``qvalue[i]``, ``scale[i]``).  Like the scan, the walk
+refuses a tree whose stacked leaves do not all lead with the layer
+count.  ``cfg.remat`` and ``cfg.scan_layers`` are compile knobs and
+change nothing here.  The reference's
 ``distributed.sharding.constrain`` layout hints are dropped (with no
 mesh they return their input).
 """
@@ -22,15 +25,16 @@ from repro_torch.core.fxp import QTensor, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
-                                       not_in_slice, stack_init)
+                                       stack_init)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
                                       attention_decode, attention_init,
                                       init_cache)
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    linear_init)
 from repro_torch.nn.mlp import swiglu_apply, swiglu_init
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
-from repro_torch.tree import map_with_path
+from repro_torch.tree import leaves_with_path, map_with_path, path_str
 
 Tensor = torch.Tensor
 
@@ -44,20 +48,26 @@ def attn_config(cfg: ArchConfig) -> AttnConfig:
         q_chunk=cfg.q_chunk)
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        raise not_in_slice(f"{cfg.name} (MoE blocks, nn/moe)",
-                           "MoE serving")
-
-
 def _block_init(gen, cfg: ArchConfig, dtype):
-    _dense_only(cfg)
-    return {
+    p = {
         "ln1": rmsnorm_init(gen, cfg.d_model, dtype),
         "attn": attention_init(gen, attn_config(cfg), dtype),
         "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
-        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            dtype)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _ffn(p, h, cfg: ArchConfig, policy):
+    """The block's FFN: the experts (MoE) or the SwiGLU MLP."""
+    if cfg.is_moe:
+        return moe_apply(p["moe"], h, top_k=cfg.top_k, policy=policy,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act)
+    return swiglu_apply(p["mlp"], h, policy, act=cfg.act)
 
 
 def _block_apply(p, x, cfg: ArchConfig, policy, positions):
@@ -65,7 +75,7 @@ def _block_apply(p, x, cfg: ArchConfig, policy, positions):
     x = x + attention_apply(p["attn"], h, attn_config(cfg), policy,
                             positions=positions)
     h = rmsnorm_apply(p["ln2"], x)
-    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act)
+    return x + _ffn(p, h, cfg, policy)
 
 
 def _block_prefill(p, x, cfg, policy, positions, kv_bits):
@@ -75,7 +85,7 @@ def _block_prefill(p, x, cfg, policy, positions, kv_bits):
                                kv_bits=kv_bits)
     x = x + a
     h = rmsnorm_apply(p["ln2"], x)
-    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act), cache
+    return x + _ffn(p, h, cfg, policy), cache
 
 
 def _block_decode(p, x, cfg, policy, cache, index, kv_bits):
@@ -84,14 +94,36 @@ def _block_decode(p, x, cfg, policy, cache, index, kv_bits):
                                 index, policy, kv_bits=kv_bits)
     x = x + a
     h = rmsnorm_apply(p["ln2"], x)
-    return x + swiglu_apply(p["mlp"], h, policy, act=cfg.act), cache
+    return x + _ffn(p, h, cfg, policy), cache
 
 
-def layer(blocks, i: int):
+def _layer(blocks, i: int):
     """Layer ``i``'s params: a view of every stacked leaf."""
     return map_with_path(
         lambda _p, l: QTensor(l.qvalue[i], l.scale[i], l.bits)
         if isinstance(l, QTensor) else l[i], blocks, is_leaf=is_qtensor)
+
+
+def layers(blocks, n: int):
+    """The ``n`` layers' params in order, each a view of every stacked
+    leaf (``blocks[...][i]``).
+
+    Checks first, before any layer runs, that every stacked tensor leads
+    with ``n``: arrays, QTensor payloads and scales alike.  The
+    reference's ``lax.scan`` over the stack refuses a leaf that does not
+    (a per-tensor or ``[1, 1, 1, N]`` scale, say), and so does this walk,
+    with a ``ValueError`` naming the leaf, where indexing would hand
+    layer 0 a broadcast view and fail at layer 1."""
+    for path, leaf in leaves_with_path(blocks, is_leaf=is_qtensor):
+        parts = ((".qvalue", leaf.qvalue), (".scale", leaf.scale)) \
+            if isinstance(leaf, QTensor) else (("", leaf),)
+        for part, t in parts:
+            if t.ndim == 0 or t.shape[0] != n:
+                raise ValueError(
+                    f"stacked leaf {path_str(path)}{part} of shape "
+                    f"{tuple(t.shape)} does not lead with the {n} layers "
+                    "the walk scans")
+    return [_layer(blocks, i) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +134,6 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
          device: DeviceLike = None):
     """Random weights drawn from the CPU generator ``gen``, placed on
     ``device`` (default: the card)."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     v_pad = pad_vocab(cfg.vocab)
     params = {
@@ -138,12 +169,11 @@ def forward(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None,
             return_hidden: bool = False) -> Tensor:
     """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
-    _dense_only(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
     positions = _positions(tokens)
-    for i in range(cfg.n_layers):
-        x = _block_apply(layer(params["blocks"], i), x, cfg, policy,
-                         positions)
+    for p in blocks:
+        x = _block_apply(p, x, cfg, policy, positions)
     x = rmsnorm_apply(params["ln_f"], x)
     if return_hidden:
         return x
@@ -180,13 +210,12 @@ def stack_caches(caches):
 def prefill(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None, kv_bits: int = 32):
     """Prefill: (last-position logits [B, V], stacked caches)."""
-    _dense_only(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
     positions = _positions(tokens)
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = _block_prefill(layer(params["blocks"], i), x, cfg,
-                                  policy, positions, kv_bits)
+    for p in blocks:
+        x, cache = _block_prefill(p, x, cfg, policy, positions, kv_bits)
         caches.append(cache)
     x = rmsnorm_apply(params["ln_f"], x[:, -1:])
     return _head(params, x, cfg, policy)[:, 0], stack_caches(caches)
@@ -197,10 +226,10 @@ def decode_step(params, token: Tensor, caches, index: int,
                 kv_bits: int = 32):
     """One decode step: token [B, 1] -> (logits [B, V], caches).  Each
     layer's cache is a view of the stacked one, updated in place."""
-    _dense_only(cfg)
+    blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, token, policy)
-    for i in range(cfg.n_layers):
-        x, _ = _block_decode(layer(params["blocks"], i), x, cfg, policy,
+    for i, p in enumerate(blocks):
+        x, _ = _block_decode(p, x, cfg, policy,
                              {k: v[i] for k, v in caches.items()}, index,
                              kv_bits)
     x = rmsnorm_apply(params["ln_f"], x)

@@ -691,3 +691,45 @@ def test_value_training_on_the_card_is_reproducible(dev, flags):
     for a, b in zip(tree_leaves(tuple(runs[0])), tree_leaves(tuple(runs[1])),
                     strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("e,c,k,n", [(128, 4, 2048, 768),
+                                     (128, 10, 768, 2048),
+                                     (3, 37, 2049, 40), (2, 5, 4096, 24),
+                                     (1, 7, 2048, 128)])
+def test_qmac_batched_equals_plain(dev, e, c, k, n, qmax):
+    """The fused product over experts at qwen3-moe's decode and prefill
+    shapes, a ragged C and K, a split K over two experts, and one expert
+    (the unbatched product), with w8 and w4 codes: bitwise, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(e * c + k + n)
+    qx = _i8(gen, dev, (e, c, k))
+    qw = torch.randint(-qmax, qmax + 1, (e, k, n), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int8)
+    sx = torch.rand((e, c, 1), generator=gen, device=dev) + 1e-3
+    sw = torch.rand((e, 1, n), generator=gen, device=dev) + 1e-3
+    before = qmac_ops.qmac_i8_deq_bmm.launches
+    got = qmac_ops.qmac_i8_deq_bmm(qx, sx, qw, sw)
+    assert qmac_ops.qmac_i8_deq_bmm.launches == before + 1
+    want = qmac_ops.qmac_i8_deq_bmm_plain(qx, sx, qw, sw)
+    assert torch.equal(_bits(got), _bits(want))
+    if e == 1:
+        one = qmac_ops.qmac_i8_deq(qx[0], sx[0], qw[0], sw[0])
+        assert torch.equal(_bits(got[0]), _bits(one))
+    torch.cuda.synchronize()
+
+
+def test_q_batched_matmul_on_the_card_equals_the_cpu(dev):
+    """The int8 branch quantizes on the card as on the CPU and launches
+    the batched kernel once."""
+    from repro_torch.core.qmatmul import q_batched_matmul
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((16, 6, 256), generator=gen)
+    x[:, 2] = 0.0                                   # empty capacity rows
+    w = torch.randn((16, 256, 96), generator=gen) * 0.05
+    for name in ("w8a8", "w4a8"):
+        pol = tpolicy.get_policy(name)
+        before = qmac_ops.qmac_i8_deq_bmm.launches
+        got = q_batched_matmul(x.to(dev), w.to(dev), pol).cpu()
+        assert qmac_ops.qmac_i8_deq_bmm.launches == before + 1
+        assert torch.equal(_bits(got), _bits(q_batched_matmul(x, w, pol)))

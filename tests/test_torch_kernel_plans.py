@@ -457,3 +457,36 @@ def test_q8_plan_runs_small_tensors_in_one_block_and_large_ones_in_items():
     assert huge.blocks == vact_ops.Q8_MAX_BLOCKS == 16 * 6 * 132
     with pytest.raises(ValueError):
         vact_ops.q8_plan(0)
+
+
+@pytest.mark.parametrize("batch,m,k,n", [(128, 4, 2048, 768),
+                                         (128, 4, 768, 2048),
+                                         (128, 320, 2048, 768),
+                                         (8, 10, 6144, 16384),
+                                         (2, 5, 2048, 40),
+                                         (1, 7, 2048, 128)])
+def test_split_plan_counts_every_experts_tiles(batch, m, k, n):
+    """A batched product's plan counts the tiles of all its experts (the
+    workspace and counters are sized from it); qwen3-moe's expert
+    products fill the card without a split; one expert is the plain
+    product's plan."""
+    plan = qmac_ops.split_plan(m, k, n, batch)
+    assert plan.tiles == batch * -(-m // 32) * -(-n // 16)
+    if batch == 128:
+        assert plan.splits == 1 and plan.workspace == 0
+    if batch == 1:
+        assert plan == qmac_ops.split_plan(m, k, n)
+    if (batch, m, n) == (2, 5, 40):
+        assert plan.splits > 1
+        assert plan.workspace == plan.tiles * plan.splits * 32 * 16
+
+
+def test_split_plan_refuses_more_than_65535_row_tiles_over_experts():
+    """The experts share the grid's row axis with the row tiles."""
+    assert qmac_ops.split_plan(32, 64, 16, 65535).tiles == 65535
+    with pytest.raises(ValueError, match="65535 row tiles"):
+        qmac_ops.split_plan(32, 64, 16, 65536)
+    with pytest.raises(ValueError, match="65535 row tiles"):
+        qmac_ops.split_plan(33, 64, 16, 32768)
+    with pytest.raises(ValueError, match="batch >= 1"):
+        qmac_ops.split_plan(4, 64, 16, 0)

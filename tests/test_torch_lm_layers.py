@@ -20,7 +20,10 @@ and rounds otherwise).  Tolerances:
   sinusoidal positions'), and for the ssm and hybrid layers
   ``jax.nn.silu``, ``jax.nn.sigmoid``, ``jax.nn.softplus``,
   ``jnp.cumsum`` and the depthwise ``jax.lax.conv_general_dilated`` of
-  ``causal_conv1d_apply``) are computed by the port's
+  ``causal_conv1d_apply``, and for the MoE layer its router's fp32
+  product, ``jnp.sum`` over the last axis (the gates' renormalisation)
+  and the array method's ``sum(axis=1)`` of a 3-D array (the combine's
+  sum over k)) are computed by the port's
   (``repro_torch.core.exact``: through fp64, rounded once), and the
   layer under an int8 policy is then held bitwise: with each library's
   own last bits an activation can land on the other side of a rounding
@@ -35,6 +38,7 @@ import pytest
 import torch
 
 import jax._src.numpy as jnp_src
+import jax._src.numpy.reductions as jreductions
 import jax._src.numpy.ufuncs as jufuncs
 import repro.core.vact as jvact
 from repro.core import policy as jpolicy
@@ -44,6 +48,7 @@ from repro.models import common as jcommon
 from repro.nn import attention as jattn
 from repro.nn import linear as jlinear
 from repro.nn import mlp as jmlp
+from repro.nn import moe as jmoe
 from repro.nn import norm as jnorm
 from repro.nn import rotary as jrotary
 from repro.nn.module import unbox
@@ -188,10 +193,53 @@ def one_library(monkeypatch):
     cumsum = jnp.cumsum
 
     def jcumsum(x, axis=None, **kw):
+        if jnp.issubdtype(jnp.result_type(x), jnp.integer):
+            return cumsum(x, axis=axis, **kw)   # exact in any order (MoE's
+            #                                     dispatch offsets)
         assert isinstance(axis, int) and not kw
         return _via_torch(lambda a: cumsum(a, axis=axis),
                           lambda t: exact.cumsum(t, axis))(x)
 
+    jsum = jnp.sum
+
+    def last_axis_sum(x, axis=None, *args, keepdims=False, **kw):
+        # the MoE gates' renormalisation; any other sum stays the
+        # reference's
+        if axis == -1 and keepdims and not args and not kw:
+            return _via_torch(lambda a: jsum(a, axis=-1, keepdims=True),
+                              exact.total)(x)
+        return jsum(x, axis, *args, keepdims=keepdims, **kw)
+
+    method_sum = jreductions.sum
+
+    def k_sum(x, axis=None, dtype=None, out=None, keepdims=False,
+              initial=None, where=None, **kw):
+        # the array method's sum(axis=1) of a 3-D array: the MoE
+        # combine's sum over k
+        if (axis == 1 and jnp.ndim(x) == 3 and not keepdims
+                and dtype is out is initial is where is None):
+            return _via_torch(lambda a: method_sum(a, axis=1),
+                              lambda t: exact.total(t, 1)[:, 0])(x)
+        return method_sum(x, axis=axis, dtype=dtype, out=out,
+                          keepdims=keepdims, initial=initial, where=where,
+                          **kw)
+
+    router_qmm = jmoe.q_matmul
+
+    def router(x, w, policy=None):
+        # the MoE router's fp32 product (no policy); any other product
+        # stays the reference's
+        if policy is not None:
+            return router_qmm(x, w, policy)
+        wf = w.deq(jnp.float32) if isinstance(w, JQTensor) else w
+        return _via_torch(
+            lambda a, b: router_qmm(a, b, None),
+            lambda a, b: exact.einsum("td,de->te", a, b,
+                                      dtype=torch.float32))(x, wf)
+
+    monkeypatch.setattr(jnp, "sum", last_axis_sum)
+    monkeypatch.setattr(jreductions, "sum", k_sum)
+    monkeypatch.setattr(jmoe, "q_matmul", router)
     sigmoid = _via_torch(jax.nn.sigmoid, exact.sigmoid)
     tanh = unary(jnp.tanh, exact.tanh)
     monkeypatch.setattr(jnp, "tanh", tanh)

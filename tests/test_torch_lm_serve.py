@@ -112,12 +112,16 @@ def test_model_for(arch):
         assert port.__name__.split(".")[-1] == ref.__name__.split(".")[-1]
         return
     assert tmodels.model_for(cfg) is ttr
+    assert jmodels.model_for(jreg.get_arch(arch)) is jtr
     if cfg.is_moe:
+        # the transformer's MoE blocks (test_torch_lm_moe.py holds them
+        # against the reference)
         small = cfg.reduced()
-        with pytest.raises(NotImplementedError, match="MoE serving"):
-            ttr.init(torch.Generator().manual_seed(0), small, device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE serving"):
-            ttr.prefill({}, torch.zeros((1, 4), dtype=torch.int32), small)
+        params = ttr.init(torch.Generator().manual_seed(0), small,
+                          device="cpu")
+        assert params["blocks"]["moe"]["w_gate"].shape == (
+            small.n_layers, small.n_experts, small.d_model, small.d_ff)
+        assert "mlp" not in params["blocks"]
 
 
 # ---------------------------------------------------------------------------
