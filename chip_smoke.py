@@ -165,13 +165,14 @@ non-zero:
    their largest magnitude in the other rows; and a profile of a decode
    step and an 8 x 512 prefill (device time by kernel, idle share, the
    port's launches and PyTorch's);
-14. serving whisper-large-v3 at its published widths (32 + 32 layers,
-   d_model 1280, 20 heads, d_ff 5120, vocab 51,866; random weights from
-   seed 0, drawn once; stub frame embeddings as long as the prompt)
+14. serving whisper-large-v3 at its published widths (d_model 1280, 20
+   heads, d_ff 5120, vocab 51,866) and 16 + 16 of its 32 + 32 layers
+   (random weights from seed 0, drawn once; stub frame embeddings as
+   long as the prompt)
    through ``generate``: w8a8kv8 at batch 4, prompt 32, gen 16 and
    at batch 8, prompt 448, gen 16, and w4a8 at batch 4, prompt 32, gen
    16, each after a warm-up call at its batch and prompt: PTQ MiB,
-   prefill and decode tok/s, the first ids; exactly 513 + 257 x (gen -
+   prefill and decode tok/s, the first ids; exactly 257 + 129 x (gen -
    1) ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866);
    then the model at 2 + 2 layers on the card and on the CPU from the
    same PTQ'd params, frames and prompts: a 4 x 32 prefill and 8 greedy
@@ -182,12 +183,13 @@ non-zero:
    heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
    super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
    window 2048, d_ff 12288, vocab 256,000) at their published widths
-   (recurrentgemma at 8 of its 38 layers: 2 super-blocks and the tail),
+   (mamba2 at 32 of its 64 layers; recurrentgemma at 8 of its 38: 2
+   super-blocks and the tail),
    each fp32 tree drawn once on the card (the host's peak RSS and the
    card's peak allocation printed), through ``generate``: w8a8kv8 decode
    at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
    and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
-   129 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   65 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
    decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
    share of the busy time); card against CPU at full width (mamba2 at 2
    layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
@@ -208,7 +210,23 @@ non-zero:
    4 greedy steps) and on reduced mixtral-8x22b (window 8, a ring
    cache) at w8a8kv8 and w4a8: every int8 code, every logit, every
    expert each layer chose and every token equal;
-17. print the kernels' JSON line (the batched launches in
+17. training TinyLlama-1.1B at its published widths, all 22 layers,
+   through ``repro_torch.launch.train.train(..., smoke=False)`` at the
+   reference CLI's defaults (8 x 128 tokens a step, w8a8, AdamW,
+   warmup-cosine; random weights from seed 0), 6 steps: exactly 155
+   ``qmac_i8`` and no fused launch a step, every loss finite and the
+   last at most the first + 1, the step-0 loss beside ln 32000, tok/s
+   after the warm-up step, the card's peak allocation; a profile of one
+   step, its forward, forward and backward, and AdamW; then one
+   training step card against CPU at full width and 2 layers (batch
+   2 x 128) and at every config of the registry reduced (batch 2 x 32,
+   the MoE experts on the batched kernel): every int8 code of the
+   forward equal, the loss at rtol 1e-6, each gradient leaf within 1e-5
+   of its largest magnitude, AdamW given the CPU's gradient within
+   atol 1e-5 + rtol 1e-4; phases 3-4 hold ``qmac_i8`` at the five
+   training products at M = 1,024 and time them beside
+   ``torch._int_mm``;
+18. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 """
 from __future__ import annotations
@@ -1865,15 +1883,16 @@ def _phases(torch, dev, device, g=0, **kw):
     return tr, state, tr.build_iteration(), tr.pack(state), draws
 
 
-def _recorded_codes(torch, fn, experts=None):
+def _recorded_codes(torch, fn, experts=None, flat=False):
     """``fn()``'s output and the int8 codes of every activation the int8
     program quantized in it, by row: each product's and conv's
     row-quantized input (an MoE layer's expert buffers [E, C, K] among
     them), each KV payload the attention quantizes, and each
     activation's requantized output (on the tensor-wide grid
-    ``activation`` puts it on), [B, n].  With a list ``experts``, each
-    MoE layer's chosen experts ([T * k], token by token) are appended to
-    it."""
+    ``activation`` puts it on), [B, n] (with ``flat``, one row of them
+    all, for an output with no batch axis).  With a list ``experts``,
+    each MoE layer's chosen experts ([T * k], token by token) are
+    appended to it."""
     from repro_torch.core import fxp, qmatmul, vact
     from repro_torch.nn import attention, conv, moe
 
@@ -1912,7 +1931,8 @@ def _recorded_codes(torch, fn, experts=None):
         vact.fake_quant = fake_quant
         attention._quant_kv = quant_kv
         moe._dispatch_indices = dispatch
-    b = (out if isinstance(out, torch.Tensor) else out[0]).shape[0]
+    b = 1 if flat else (out if isinstance(out, torch.Tensor)
+                        else out[0]).shape[0]
     return out, torch.cat([r.reshape(b, -1).to(torch.int32) for r in rec],
                           -1)
 
@@ -3653,12 +3673,14 @@ WHISPER_KN = ((1280, 1280), (1280, 5120), (5120, 1280))
 WHISPER_HEAD_KN = (1280, 51968)
 WHISPER_ROWS = (4, 128, 3584)
 WHISPER_HEAD_ROWS = (4, 8)
-# fused products a prefill launches: the encoder 6 a layer (q, k, v, o,
-# w_in, w_out), the decoder 10 (self q, k, v, o; cross q, k, v, o; w_in,
-# w_out), the head once; a decode step: 8 a decoder layer (self 4, cross
-# q and o, w_in, w_out) and the head
-WHISPER_PREFILL = 16 * WHISPER_LAYERS + 1
-WHISPER_DECODE = 8 * WHISPER_LAYERS + 1
+# whisper's served depth in phase 14: 16 + 16 of its 32 + 32 layers at
+# full width, since phase 17 (training) needs the time within the
+# script's 1,200 s limit; phase 4 still sums the full depth's products.
+# A prefill launches 16 fused products a layer pair (the encoder's q, k,
+# v, o, w_in, w_out; the decoder's self q, k, v, o, cross q, k, v, o,
+# w_in, w_out) and the head's, 257; a decode step 8 a decoder layer
+# (self 4, cross q and o, w_in, w_out) and the head's, 129
+WHISPER_SERVED = 16
 # (policy, batch, prompt = frames, gen): the reference CLI's defaults,
 # whisper's whole 448-token decoder context, and the w4 weights
 WHISPER_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 448, 16),
@@ -3702,19 +3724,21 @@ def _whisper_inputs(torch, cfg, g, shape):
 
 
 def whisper_serving(torch, dev, card):
-    """Phase 14: whisper-large-v3 at its published widths (32 + 32
-    layers, d_model 1280, 20 heads, d_ff 5120, vocab 51,866), drawn once,
-    for each of ``WHISPER_RUNS``: exactly 513 + 257 x (gen - 1)
+    """Phase 14: whisper-large-v3 at its published widths (d_model 1280,
+    20 heads, d_ff 5120, vocab 51,866) and ``WHISPER_SERVED`` of each of its
+    32 + 32 layers, drawn once, for each of ``WHISPER_RUNS``: exactly 257
+    + 129 x (gen - 1)
     ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866); then
     a profile of a decode step (batch 4, a 48-slot self cache, the cross
     cache padded to 48) and an 8 x 448 prefill.  Returns the path's
     launches."""
+    prefill, decode = 16 * WHISPER_SERVED + 1, 8 * WHISPER_SERVED + 1
     launches, _ = _lm_path(
         torch, dev, card, WHISPER_ARCH, WHISPER_RUNS,
-        lambda gen: WHISPER_PREFILL + WHISPER_DECODE * (gen - 1),
+        lambda gen: prefill + decode * (gen - 1),
         lambda cfg, g: (_whisper_inputs(torch, cfg, g, (4, 32)),
                         _whisper_inputs(torch, cfg, g, (8, 448))),
-        WHISPER_DECODE, WHISPER_PREFILL)
+        decode, prefill, n_layers=WHISPER_SERVED)
     return launches
 
 
@@ -3871,6 +3895,9 @@ def lm_products(cfg) -> int:
 
 
 MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
+# mamba2's served depth in phase 15: 32 of its 64 layers at full width,
+# since phase 17 (training) needs the time within the script's limit
+MAMBA_LAYERS = 32
 RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
 # recurrentgemma's served depth in phase 15: 2 (R, R, A) super-blocks and
 # the R, R tail, 8 of its 38 layers, at full width.  Drawing all 38 (10.44
@@ -3949,9 +3976,10 @@ def ssm_hybrid_serving(torch, dev, card):
     SSD heads of 64, state 128, vocab 50,280) and recurrentgemma-9b (12
     (R, R, A) super-blocks and an R, R tail, d_model 4096, LRU width
     4096, 16 heads over 1 KV head of 256, window 2048, d_ff 12288, vocab
-    256,000) at their published widths (recurrentgemma at ``RG_LAYERS``
-    of its 38 layers), each fp32 tree drawn once on the card: for each
-    of ``MAMBA_RUNS`` / ``RG_RUNS`` exactly ``lm_products`` (129 / 63)
+    256,000) at their published widths (mamba2 at ``MAMBA_LAYERS`` of its
+    64 layers, recurrentgemma at ``RG_LAYERS`` of its 38), each fp32
+    tree drawn once on the card: for each of ``MAMBA_RUNS`` /
+    ``RG_RUNS`` exactly ``lm_products`` (65 / 63)
     ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a decode step
     and an 8 x 512 prefill; the host's peak RSS and the card's peak
     allocation; then card against CPU at full width, mamba at 2 layers
@@ -3965,7 +3993,7 @@ def ssm_hybrid_serving(torch, dev, card):
 
     launches = {}
     for arch, runs, full, prompt, depth in (
-            (SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD, 128, None),
+            (SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD, 128, MAMBA_LAYERS),
             (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD, 32, RG_LAYERS)):
         if lm_products(get_arch(arch)) != full:
             raise AssertionError(f"{arch}: {lm_products(get_arch(arch))} "
@@ -4262,6 +4290,365 @@ def moe_serving(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training TinyLlama-1.1B at its published widths through
+# repro_torch.launch.train (and its products in phases 3-4), and one
+# training step of every family card against CPU
+# ---------------------------------------------------------------------------
+
+# the reference CLI's defaults: 8 x 128 tokens a step, w8a8, AdamW with no
+# weight decay, warmup-cosine over the run's steps
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS = 6
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+# a training forward's products at M = 1,024: the blocks' and the head's
+# (the backward's straight-through products are fp32 matmuls, as in the
+# reference, where XLA lowers them outside any Pallas kernel)
+TRAIN_KN = LM_KN + (LM_HEAD_KN,)
+# card against CPU: full width at 2 layers and batch 2 x 128, then every
+# family's reduced config at batch 2 x 32
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_BATCH = (2, 128)
+TRAIN_REDUCED_BATCH = (2, 32)
+
+
+def train_products(cfg):
+    """Q-MAC launches of one training step (its forward) of ``cfg`` under
+    w8a8 with fp weights: every product ``qmac_i8`` (7 a dense layer, 16
+    an enc-dec layer pair, the ssm and hybrid counts of ``lm_products``,
+    the head once) but the MoE experts', which take the batched kernel
+    (``moe_per_forward``)."""
+    if cfg.is_moe:
+        return moe_per_forward(cfg.n_layers)
+    if cfg.is_encdec:
+        n = 16 * cfg.n_layers + 1
+    elif cfg.family in ("ssm", "hybrid"):
+        n = lm_products(cfg)
+    else:
+        n = 7 * cfg.n_layers + 1
+    return {"qmac_i8_deq": 0, "qmac_i8": n, "qmac_i8_deq_bmm": 0}
+
+
+def check_lm_train_kernels(torch, dev, worst):
+    """Phase 3, TinyLlama's training products: ``qmac_i8`` (and the
+    fused product) at every (K, N) of ``TRAIN_KN`` at M = 1,024, with w8
+    and w4 codes, bitwise equal to the plain version."""
+    cases = [(TRAIN_M, k, n) for k, n in TRAIN_KN]
+    return _check_lm_products(torch, dev, worst, "TinyLlama training",
+                              cases, 24)
+
+
+def time_lm_train_kernels(torch, dev):
+    """Phase 4: ``qmac_i8`` at each of TinyLlama's training products at
+    M = 1,024 beside its bound, its plain version and ``torch._int_mm``,
+    and summed over a step's 155 products.  Returns the rows, [1024,
+    2048] x [2048, 5632] first."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(25)
+    per_step = {(2048, 5632): 44, (2048, 2048): 44, (2048, 256): 44,
+                (5632, 2048): 22, LM_HEAD_KN: 1}
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for (k, n), count in per_step.items():
+        r = _time_qmac(torch, g, dev, TRAIN_M, k, n)[0]
+        rows.append(r)
+        for key in tot:
+            tot[key] += count * (r[key] or 0.0)
+    print(f"qmac_i8 over a TinyLlama training step, "
+          f"{sum(per_step.values())} products at M = {TRAIN_M}: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+          f"torch._int_mm {tot['library_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms; timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _profile_lm_step(torch, dev, params):
+    """Where one full-width training step's time and memory go, on
+    ``params`` with a fresh AdamW state and the run's first batch: the
+    whole step, then its forward (the graph built), its forward and
+    backward, and AdamW alone, each's peak allocation on the card beside
+    what was held before it, then each under ``torch.profiler``
+    (``_profiled``): wall, busy, idle, the port's launches and
+    PyTorch's, Q-MAC's ms of busy; the backward's busy ms is the forward
+    and backward's less the forward's."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   warmup_cosine)
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8")
+    ocfg = AdamWConfig(weight_decay=0.0)
+    sched = warmup_cosine(3e-4, 1, TRAIN_STEPS)
+    step = make_train_step(cfg, None, pol, ocfg, sched)
+    opt = adamw_init(params)
+    batch = {k: v.to(dev) for k, v in batch_at(
+        DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, 0), 0).items()}
+
+    def leaves():
+        return [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+
+    def loss_of(xs):
+        return transformer.loss_fn(tree_unflatten(params, xs), batch, cfg,
+                                   pol)
+
+    def forward():
+        with torch.enable_grad():
+            loss_of(leaves())
+        torch.cuda.synchronize()
+
+    def forward_backward():
+        with torch.enable_grad():
+            xs = leaves()
+            torch.autograd.grad(loss_of(xs), xs)
+        torch.cuda.synchronize()
+
+    with torch.enable_grad():
+        xs = leaves()
+        grads = tree_unflatten(params, list(torch.autograd.grad(loss_of(xs),
+                                                                xs)))
+    del xs
+
+    def adamw():
+        with torch.no_grad():
+            adamw_update(grads, opt, params, sched, ocfg)
+        torch.cuda.synchronize()
+
+    def whole():
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+
+    busy = {}
+    for what, fn in (("step", whole), ("forward", forward),
+                     ("forward and backward", forward_backward),
+                     ("AdamW", adamw)):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        fn()
+        counts = kernels.launch_counts()
+        print(f"{LM_ARCH} training {what}: card peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{held / 2**30:.2f} GiB held before it")
+        want = train_products(cfg) if what != "AdamW" else _want(0)
+        if {k: counts[k] for k in QMAC_WRAPPERS} != want:
+            raise AssertionError(f"training {what}: {counts} launches")
+        wall, rows, launches, why = _profiled(torch, fn, 1)
+        _print_profile(f"{LM_ARCH} w8a8 training {what}, {TRAIN_BATCH} x "
+                       f"{TRAIN_SEQ}", wall, rows, launches, why,
+                       top=12 if what == "step" else 6, per="call")
+        port = sum(counts.values())
+        qmac_ms = sum(r[0] for r in rows if "qmac" in r[2])
+        busy[what] = sum(r[0] for r in rows)
+        print(f"  the port's launches {port}, PyTorch's "
+              f"{'not measured' if launches is None else launches - port}"
+              f"; qmac_kernel {qmac_ms:.4f} ms of {busy[what]:.4f} ms busy "
+              f"({qmac_ms / max(busy[what], 1e-9):.3f})")
+    print(f"{LM_ARCH} training step, device busy by part: forward "
+          f"{busy['forward']:.4f} ms, backward "
+          f"{busy['forward and backward'] - busy['forward']:.4f} ms, AdamW "
+          f"{busy['AdamW']:.4f} ms (the whole step {busy['step']:.4f} ms)")
+
+
+def lm_training(torch, dev, card):
+    """Phase 17: ``repro_torch.launch.train.train("tinyllama-1.1b",
+    smoke=False)`` on the card, all 22 layers at the published widths
+    (random weights from seed 0), ``TRAIN_STEPS`` steps at the reference
+    CLI's defaults (8 x 128 tokens, w8a8, AdamW, warmup-cosine), each
+    step timed on the host clock between two waits for the card and its
+    Q-MAC launches counted: exactly 155 ``qmac_i8`` and no fused launch a
+    step, every loss finite and the last at most the first + 1 (the
+    reference's bar of not diverging, ``tests/test_arch_smoke.py``);
+    tok/s after the warm-up step, the card's peak allocation, then a
+    profile of one step (``_profile_lm_step``).  Returns the path's
+    launches."""
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as ltrain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    make = ltrain.make_train_step
+
+    def counted(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(params, opt_state, batch):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            steps.append(({k: after[k] - before[k] for k in QMAC_WRAPPERS},
+                          t0, dt))
+            return out
+
+        return run
+
+    ltrain.make_train_step = counted
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        params, losses = ltrain.train(
+            LM_ARCH, steps=TRAIN_STEPS, smoke=False, policy_name="w8a8",
+            seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, log_every=1, device=dev)
+    finally:
+        ltrain.make_train_step = make
+    launches = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    from repro_torch.configs.registry import get_arch
+    want = train_products(get_arch(LM_ARCH))
+    dts = [dt for _, _, dt in steps]
+    tok_s = (len(dts) - 1) * TRAIN_M / sum(dts[1:])
+    print(f"{LM_ARCH} trained at full width, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} at w8a8 on {card}: losses "
+          f"{losses}; step 0 loss {losses[0]:.4f} beside ln 32000 = "
+          f"{math.log(32000):.4f}; {tok_s:.1f} tok/s after the warm-up "
+          f"step (step seconds {[round(d, 4) for d in dts]}); draw and "
+          f"optimizer init {steps[0][1] - t0:.1f} s, the run {wall:.1f} s; "
+          f"card peak allocated {peak:.1f} GiB, host peak RSS "
+          f"{_host_peak_gib():.1f} GiB; Q-MAC launches a step "
+          f"{[c for c, _, _ in steps]} (want {want})")
+    if len(steps) != TRAIN_STEPS or any(c != want for c, _, _ in steps):
+        raise AssertionError(f"training steps launched "
+                             f"{[c for c, _, _ in steps]}, not {want} each")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses {losses}")
+    if losses[-1] > losses[0] + 1.0:
+        raise AssertionError(f"training diverged: {losses}")
+    t1 = time.perf_counter()
+    _profile_lm_step(torch, dev, params)
+    print(f"{LM_ARCH} training profiles {time.perf_counter() - t1:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_step_card_vs_cpu(torch, dev, what, cfg, fp, batch):
+    """One ``make_train_step`` step at w8a8 on the card and on the CPU,
+    from the fp32 tree ``fp`` (on the CPU), a fresh AdamW state and
+    ``batch``, held to PERF.md's training contract: every int8 activation
+    code of the forward equal (``_recorded_codes``), the loss at rtol
+    1e-6, each gradient leaf (``adamw_update``'s input) within 1e-5 of
+    its largest magnitude on the CPU, and AdamW on the card given the
+    CPU's gradient within atol 1e-5 + rtol 1e-4 of the CPU's step;
+    exactly ``train_products(cfg)`` Q-MAC launches on the card."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   warmup_cosine)
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    pol = get_policy("w8a8")
+    ocfg = AdamWConfig(weight_decay=0.0)
+    sched = warmup_cosine(3e-4, 1, TRAIN_STEPS)
+    orig = lsteps.adamw_update
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(where), fp)
+        opt = adamw_init(params)
+        on = {k: v.to(where) for k, v in batch.items()}
+        grads = []
+
+        def record(g, *a, **kw):
+            grads.append(g)
+            return orig(g, *a, **kw)
+
+        step = lsteps.make_train_step(cfg, None, pol, ocfg, sched)
+        lsteps.adamw_update = record
+        kernels.reset_launch_counts()
+        try:
+            (new_p, new_o, stats), codes = _recorded_codes(
+                torch, lambda: step(params, opt, on), flat=True)
+        finally:
+            lsteps.adamw_update = orig
+        counts = kernels.launch_counts()
+        runs.append(dict(
+            params=params, opt=opt, new_p=new_p, new_o=new_o,
+            loss=float(stats["loss"]), grads=grads[0], codes=codes.cpu(),
+            launches={k: counts[k] for k in QMAC_WRAPPERS}))
+    card, cpu = runs
+    same_shape = card["codes"].shape == cpu["codes"].shape
+    n_diff = int((card["codes"] != cpu["codes"]).sum()) if same_shape \
+        else -1
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_worst = 0.0
+    for (_, a), (_, b) in zip(leaves_with_path(card["grads"]),
+                              leaves_with_path(cpu["grads"]), strict=True):
+        top = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        grad_worst = max(grad_worst, err / top if top else err)
+    with torch.no_grad():
+        new_p, new_o, _ = adamw_update(
+            tree_map(lambda t: t.to(dev), cpu["grads"]), card["opt"],
+            card["params"], sched, ocfg)
+    adam_worst = 0.0
+    for got, want in ((new_p, cpu["new_p"]), (new_o, cpu["new_o"])):
+        for (_, a), (_, b) in zip(leaves_with_path(got),
+                                  leaves_with_path(want), strict=True):
+            ratio = (a.cpu().double() - b.double()).abs() / (
+                1e-5 + 1e-4 * b.double().abs())
+            adam_worst = max(adam_worst, float(ratio.max()))
+    want = train_products(cfg)
+    print(f"{what}, w8a8 training step, card vs CPU: {n_diff} of "
+          f"{cpu['codes'].numel()} int8 codes differ; loss {card['loss']:.7f}"
+          f" / {cpu['loss']:.7f} (rel {loss_rel:.2e}); gradient leaves at "
+          f"most {grad_worst:.2e} of their largest magnitude apart; AdamW "
+          f"given the CPU's gradient at {adam_worst:.3f} of atol 1e-5 + "
+          f"rtol 1e-4; Q-MAC launches {card['launches']} (want {want})")
+    if card["launches"] != want:
+        raise AssertionError(f"{what}: Q-MAC launches {card['launches']}, "
+                             f"not {want}")
+    if n_diff != 0:
+        raise AssertionError(f"{what}: {n_diff} int8 codes differ")
+    if loss_rel > 1e-6 or grad_worst > 1e-5 or adam_worst > 1.0:
+        raise AssertionError(f"{what}: card and CPU training steps apart")
+
+
+def lm_train_card_vs_cpu(torch, dev):
+    """Phase 17: ``_train_step_card_vs_cpu`` on TinyLlama at full width
+    and ``TRAIN_PARITY_LAYERS`` layers (batch 2 x 128), then on every
+    config of ``configs.registry`` reduced (batch 2 x 32; whisper's stub
+    frames drawn too): the dense, MoE (``qmac_i8_deq_bmm`` on the
+    experts), enc-dec, ssm and hybrid families."""
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.models.registry import model_for
+
+    def case(what, cfg, shape):
+        g = torch.Generator().manual_seed(1)
+        b, s = shape
+        base = torch.randint(0, cfg.vocab, (b, s + 1), generator=g).to(
+            torch.int32)
+        batch = {"tokens": base[:, :-1], "labels": base[:, 1:]}
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn((b, s, cfg.d_model), generator=g)
+        fp = model_for(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        _train_step_card_vs_cpu(torch, dev, what, cfg, fp, batch)
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH).replace(n_layers=TRAIN_PARITY_LAYERS)
+    case(f"{LM_ARCH} at {TRAIN_PARITY_LAYERS} layers", cfg,
+         TRAIN_PARITY_BATCH)
+    t1 = time.perf_counter()
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch).reduced()
+        case(cfg.name, cfg, TRAIN_REDUCED_BATCH)
+    print(f"training card vs CPU: full width {t1 - t0:.1f} s, the reduced "
+          f"configs {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4303,7 +4690,7 @@ def main() -> int:
                   check_training_kernels, check_pixel_kernels,
                   check_value_kernels, check_lm_kernels,
                   check_whisper_kernels, check_ssm_hybrid_kernels,
-                  check_moe_kernels):
+                  check_moe_kernels, check_lm_train_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
@@ -4313,6 +4700,10 @@ def main() -> int:
     for r in lm_rows:
         print_row("qmac_i8_deq", r)
     rows["qmac_i8_deq"] += lm_rows
+    train_rows = time_lm_train_kernels(torch, dev)
+    for r in train_rows:
+        print_row("qmac_i8", r)
+    rows["qmac_i8"] += train_rows
     lap("phase 4 (kernel timing)")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -4368,6 +4759,9 @@ def main() -> int:
     lap("phase 15 (serving mamba2-2.7b and recurrentgemma-9b)")
     moe_launches = moe_serving(torch, dev, card)
     lap("phase 16 (serving qwen3-moe-30b-a3b, and mixtral-8x22b reduced)")
+    lm_train_launches = lm_training(torch, dev, card)
+    lm_train_card_vs_cpu(torch, dev)
+    lap("phase 17 (training TinyLlama-1.1B, every family card vs CPU)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -4398,7 +4792,8 @@ def main() -> int:
                    "whisper_serving": whisper_launches[name],
                    "mamba_serving": ssm_launches[SSM_ARCH][name],
                    "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name],
-                   "moe_serving": moe_launches[name]}
+                   "moe_serving": moe_launches[name],
+                   "lm_training": lm_train_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -4411,7 +4806,8 @@ def main() -> int:
                      "whisper_serving": whisper_launches,
                      "mamba_serving": ssm_launches[SSM_ARCH],
                      "recurrentgemma_serving": ssm_launches[HYBRID_ARCH],
-                     "moe_serving": moe_launches}
+                     "moe_serving": moe_launches,
+                     "lm_training": lm_train_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

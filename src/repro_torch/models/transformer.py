@@ -7,12 +7,12 @@ chameleon) and MoE (mixtral, qwen3-moe) — port of
 Block params are stacked ``[L, ...]`` as in the reference, and the
 layers are walked in a Python loop over the stacked leaves in place of
 its ``lax.scan`` (:func:`layers`): a layer's weights are views ``w[i]``
-(a QTensor's ``qvalue[i]``, ``scale[i]``).  Like the scan, the walk
-refuses a tree whose stacked leaves do not all lead with the layer
-count.  ``cfg.remat`` and ``cfg.scan_layers`` are compile knobs and
-change nothing here.  The reference's
-``distributed.sharding.constrain`` layout hints are dropped (with no
-mesh they return their input).
+(a QTensor's ``qvalue[i]``, ``scale[i]``), taken by one ``unbind`` a
+leaf.  Like the scan, the walk refuses a tree whose stacked leaves do
+not all lead with the layer count.  ``cfg.remat`` and
+``cfg.scan_layers`` are compile knobs and change nothing here.  The
+reference's ``distributed.sharding.constrain`` layout hints are
+dropped (with no mesh they return their input).
 """
 from __future__ import annotations
 
@@ -97,16 +97,20 @@ def _block_decode(p, x, cfg, policy, cache, index, kv_bits):
     return x + _ffn(p, h, cfg, policy), cache
 
 
-def _layer(blocks, i: int):
-    """Layer ``i``'s params: a view of every stacked leaf."""
-    return map_with_path(
-        lambda _p, l: QTensor(l.qvalue[i], l.scale[i], l.bits)
-        if isinstance(l, QTensor) else l[i], blocks, is_leaf=is_qtensor)
+def _unbind(leaf):
+    """A stacked leaf's ``n`` layer views, from one ``unbind``."""
+    if isinstance(leaf, QTensor):
+        return [QTensor(q, s, leaf.bits) for q, s in
+                zip(leaf.qvalue.unbind(0), leaf.scale.unbind(0))]
+    return leaf.unbind(0)
 
 
 def layers(blocks, n: int):
     """The ``n`` layers' params in order, each a view of every stacked
-    leaf (``blocks[...][i]``).
+    leaf (``blocks[...][i]``).  Each leaf is split by one ``unbind``,
+    whose backward stacks the layers' gradients once; indexing it a
+    layer at a time would give each layer's gradient as a zero-filled
+    copy of the whole stack, summed over the layers.
 
     Checks first, before any layer runs, that every stacked tensor leads
     with ``n``: arrays, QTensor payloads and scales alike.  The
@@ -123,7 +127,10 @@ def layers(blocks, n: int):
                     f"stacked leaf {path_str(path)}{part} of shape "
                     f"{tuple(t.shape)} does not lead with the {n} layers "
                     "the walk scans")
-    return [_layer(blocks, i) for i in range(n)]
+    views = {path: _unbind(leaf)
+             for path, leaf in leaves_with_path(blocks, is_leaf=is_qtensor)}
+    return [map_with_path(lambda path, _l, i=i: views[path][i], blocks,
+                          is_leaf=is_qtensor) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,8 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
         "agent, the E2HRL agent with --two-stage, --net conv on the "
         "pixel envs — and dqn/qrdqn/ddpg with uniform or prioritized "
         "replay on one device, over every env, with telemetry and "
-        "profiler windows, and serves every value checkpoint)")
+        "profiler windows, serves every value checkpoint, and trains "
+        "and serves the LM families on one device)")
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,

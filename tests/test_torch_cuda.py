@@ -733,3 +733,22 @@ def test_q_batched_matmul_on_the_card_equals_the_cpu(dev):
         got = q_batched_matmul(x.to(dev), w.to(dev), pol).cpu()
         assert qmac_ops.qmac_i8_deq_bmm.launches == before + 1
         assert torch.equal(_bits(got), _bits(q_batched_matmul(x, w, pol)))
+
+
+def test_lm_training_on_the_card_launches_qmac(dev):
+    """Two steps of reduced TinyLlama on the card: every forward product
+    through ``qmac_i8`` (7 a layer and the head, a step), none through
+    the fused kernels, finite losses, and the first step's loss the
+    CPU's (the forwards quantize to the same codes)."""
+    from repro_torch.launch.train import train
+
+    kernels.reset_launch_counts()
+    _, losses = train("tinyllama-1.1b", steps=2, seq_len=32, batch=4,
+                      log_every=1, device=dev)
+    counts = kernels.launch_counts()
+    assert counts["qmac_i8"] == 2 * (7 * 4 + 1)
+    assert counts["qmac_i8_deq"] == counts["qmac_i8_deq_bmm"] == 0
+    assert len(losses) == 2 and all(torch.isfinite(torch.tensor(losses)))
+    _, cpu_losses = train("tinyllama-1.1b", steps=2, seq_len=32, batch=4,
+                          log_every=1, device="cpu")
+    torch.testing.assert_close(losses[0], cpu_losses[0], rtol=1e-6, atol=0)

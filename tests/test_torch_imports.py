@@ -31,7 +31,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     # every layer of the port is walked, the new families' included
     assert {"repro_torch.models.mamba", "repro_torch.models.recurrent",
             "repro_torch.nn.ssm", "repro_torch.nn.rglru",
-            "repro_torch.nn.moe", "repro_torch.launch.serve"} \
+            "repro_torch.nn.moe", "repro_torch.launch.serve",
+            "repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} \
         <= set(got["modules"])
     banned = [m for m in got["loaded"]
               if m.startswith("jax") or m.split(".")[0] == "repro"]

@@ -114,14 +114,26 @@ def close(got, want, rtol=1e-6, scale=1e-6):
 def _via_torch(orig, fn):
     """``orig`` computed by the torch function ``fn`` (also inside the
     reference's traced regions: ``jax.checkpoint`` traces even with jit
-    disabled)."""
+    disabled).  Under ``jax.grad`` its derivative is ``orig``'s own, at
+    the same inputs (the training parity tests hold the reference's
+    gradients so)."""
     def f(*args, **kw):
         def call(*a):
             return to_numpy(fn(*[to_torch(x) for x in a], **kw))
+
+        def value(*a):
+            if not any(isinstance(x, jax.core.Tracer) for x in a):
+                return jnp.asarray(call(*a))
+            shape = jax.eval_shape(lambda *b: orig(*b, **kw), *a)
+            return jax.pure_callback(call, shape, *a)
+
         if not any(isinstance(a, jax.core.Tracer) for a in args):
-            return jnp.asarray(call(*args))
-        shape = jax.eval_shape(lambda *a: orig(*a, **kw), *args)
-        return jax.pure_callback(call, shape, *args)
+            return value(*args)
+        with_vjp = jax.custom_vjp(value)
+        with_vjp.defvjp(
+            lambda *a: (value(*a), a),
+            lambda a, g: jax.vjp(lambda *b: orig(*b, **kw), *a)[1](g))
+        return with_vjp(*args)
     return f
 
 

@@ -1,0 +1,51 @@
+#!/usr/bin/env python3
+"""Phase 17 of ``chip_smoke.py`` alone, with phases 3-4's training rows:
+build the kernels, hold ``qmac_i8`` at TinyLlama's training products
+(M = 1,024) against its plain version and time them, train TinyLlama-1.1B
+at full width through ``repro_torch.launch.train`` and profile a step,
+then one training step card against CPU at 2 full-width layers and at
+every reduced config.  Needs one CUDA card; run from the repo root:
+
+    python3 tools/lm_train_probe.py
+"""
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("lm_train_probe: no CUDA card", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    card = cs.card_line()
+    print(card)
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    worst = {"qmac_i8": 0.0, "qmac_i8_deq": 0.0}
+    print(cs.check_lm_train_kernels(torch, dev, worst), flush=True)
+    for r in cs.time_lm_train_kernels(torch, dev):
+        cs.print_row("qmac_i8", r)
+    t0 = time.perf_counter()
+    print(cs.lm_training(torch, dev, card), flush=True)
+    print(f"lm_training {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cs.lm_train_card_vs_cpu(torch, dev)
+    print(f"card vs CPU {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"probe wall {time.perf_counter() - t_all:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
