@@ -93,7 +93,8 @@ non-zero:
    else "not measured");
 9. the training path: ``rl_train``'s default run (ppo on cartpole, the
    mlp agent at hidden 64, fxp8 actors on Q-MAC, an fp32 learner, an
-   8-bit weight sync, 40 iterations of 32 envs x 128 steps) at seeds 0,
+   8-bit weight sync, 40 iterations of 32 envs x 128 steps, the fleet
+   sharded over ``--mesh host``'s one rank, as phase 18 sets out) at seeds 0,
    1 and 2: greedy return (the median must reach half the JAX
    reference's median at seeds 0-4), env steps/s, the wall split between
    weight sync, rollout and learner, and Q-MAC's launches, exactly
@@ -121,7 +122,8 @@ non-zero:
 11. the value family: ``rl_train``'s value runs at their defaults (32
    envs x 8 steps, 300 iterations, replay capacity 50,000, n-step 3, 4
    updates an iteration, fxp8 behaviour actors on Q-MAC and Q-Conv, an
-   fp32 learner): ``--algo dqn`` on cartpole, ``--algo qrdqn --env
+   fp32 learner), each through ``--mesh host --sync lockstep`` at one
+   rank: ``--algo dqn`` on cartpole, ``--algo qrdqn --env
    catch --net conv --frame-stack 4`` and ``--algo ddpg --env
    pendulum``, at seeds 0, 1 and 2, in processes of their own after
    phase 10's: greedy return (the median must reach half the way from
@@ -166,13 +168,13 @@ non-zero:
    step and an 8 x 512 prefill (device time by kernel, idle share, the
    port's launches and PyTorch's);
 14. serving whisper-large-v3 at its published widths (d_model 1280, 20
-   heads, d_ff 5120, vocab 51,866) and 16 + 16 of its 32 + 32 layers
+   heads, d_ff 5120, vocab 51,866) and 8 + 8 of its 32 + 32 layers
    (random weights from seed 0, drawn once; stub frame embeddings as
    long as the prompt)
    through ``generate``: w8a8kv8 at batch 4, prompt 32, gen 16 and
    at batch 8, prompt 448, gen 16, and w4a8 at batch 4, prompt 32, gen
    16, each after a warm-up call at its batch and prompt: PTQ MiB,
-   prefill and decode tok/s, the first ids; exactly 257 + 129 x (gen -
+   prefill and decode tok/s, the first ids; exactly 129 + 65 x (gen -
    1) ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866);
    then the model at 2 + 2 layers on the card and on the CPU from the
    same PTQ'd params, frames and prompts: a 4 x 32 prefill and 8 greedy
@@ -183,13 +185,13 @@ non-zero:
    heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
    super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
    window 2048, d_ff 12288, vocab 256,000) at their published widths
-   (mamba2 at 32 of its 64 layers; recurrentgemma at 8 of its 38: 2
-   super-blocks and the tail),
+   (mamba2 at 16 of its 64 layers; recurrentgemma at 5 of its 38: a
+   super-block and the R, R tail),
    each fp32 tree drawn once on the card (the host's peak RSS and the
    card's peak allocation printed), through ``generate``: w8a8kv8 decode
    at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
    and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
-   65 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   33 and 40 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
    decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
    share of the busy time); card against CPU at full width (mamba2 at 2
    layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
@@ -197,7 +199,7 @@ non-zero:
    steps: every int8 code, every logit and all 36 tokens equal;
 16. serving qwen3-moe-30b-a3b (d_model 2048, 32 heads over 4 KV heads
    of 128, 128 experts, top 8, d_ff 768, vocab 151,936) at its
-   published widths and 4 of its 48 layers (the fp32 tree the
+   published widths and 2 of its 48 layers (the fp32 tree the
    reference's MoE serving keeps is 122 GB at 48), drawn once on the
    card and served with ``weight_ptq=False``, as the reference serves
    MoE: w8a8kv8 decode at batch 4 x 32, an 8 x 512 prefill and w4a8
@@ -226,12 +228,26 @@ non-zero:
    atol 1e-5 + rtol 1e-4; phases 3-4 hold ``qmac_i8`` at the five
    training products at M = 1,024 and time them beside
    ``torch._int_mm``;
-18. print the kernels' JSON line (the batched launches in
+18. the sharded actor-learner fleet (``repro_torch.launch.mesh``,
+   ``rl/actor_learner.collect_sharded``, the sharded value iteration,
+   ``optim/compression``) on a NCCL group of one rank, the world the
+   one card allows (NCCL takes one rank a device): the mesh's banner;
+   PPO on cartpole at phase 9's widths, 4 iterations, through the mesh
+   and through the plain collect in turns (plain, mesh, mesh, plain),
+   params and history bitwise, exactly 4 x 129 ``qmac_i8`` each
+   iteration; DQN ``--sync lockstep`` and the unsharded run in turns, 6
+   iterations, params, target, optimizer, replay, envs and history
+   bitwise; QR-DQN with PER ``--sync doublebuf`` twice, bitwise and
+   finite; ``compressed_psum_mean`` on 4 M fp32 elements over NCCL at 8
+   and 32 bits, both strategies, bitwise the same call over gloo on the
+   CPU, timed; the path's launches;
+19. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2516,23 +2532,27 @@ def pixel_training(card, results):
 # with the flags, and with ``--iters 0``, on a CPU with jax 0.9.0;
 # ``value_eval`` at 16 envs with fxp8 actors), and each behaviour
 # forward's launches of the port's kernels
+# the value runs go through the mesh at one rank, in lockstep (bitwise
+# the unsharded runs, phase 18 holds)
+FLEET = dict(mesh_kind="host", sync="lockstep")
 VALUE_RUNS = {
     "value_dqn": dict(
-        flags="--algo dqn",
-        kw=dict(algo="dqn", env_name="cartpole"),
+        flags="--algo dqn --mesh host --sync lockstep",
+        kw=dict(algo="dqn", env_name="cartpole", **FLEET),
         ref=(145.1290283203125, 259.625, 203.23529052734375),
         untrained=(13.48971176147461, 9.439696311950684,
                    10.620726585388184),
         per_forward={"qmac_i8": 3}),
     "value_qrdqn": dict(
-        flags="--algo qrdqn --env catch --net conv --frame-stack 4",
+        flags="--algo qrdqn --env catch --net conv --frame-stack 4 "
+              "--mesh host --sync lockstep",
         kw=dict(algo="qrdqn", env_name="catch", net="conv",
-                frame_stack_k=4),
+                frame_stack_k=4, **FLEET),
         ref=(1.0, 1.0, 1.0), untrained=(-0.375, -0.375, -0.375),
         per_forward={"qconv_i8_taps": 2, "qmac_i8": 2}),
     "value_ddpg": dict(
-        flags="--algo ddpg --env pendulum",
-        kw=dict(algo="ddpg", env_name="pendulum"),
+        flags="--algo ddpg --env pendulum --mesh host --sync lockstep",
+        kw=dict(algo="ddpg", env_name="pendulum", **FLEET),
         ref=(-1114.2596435546875, -1098.4505615234375, -1182.080322265625),
         untrained=(-1447.8057861328125, -1811.0133056640625,
                    -1514.0872802734375),
@@ -2546,10 +2566,12 @@ VALUE_STEPS = VALUE_ITERS * 32 * 8
 # replay and ddpg with TQC's truncated quantile critics
 VALUE_PARITY = {
     "value_dqn": VALUE_RUNS["value_dqn"]["kw"],
-    "value_dqn_per": dict(algo="dqn", env_name="cartpole", replay="per"),
+    "value_dqn_per": dict(algo="dqn", env_name="cartpole", replay="per",
+                          **FLEET),
     "value_qrdqn": VALUE_RUNS["value_qrdqn"]["kw"],
     "value_ddpg": VALUE_RUNS["value_ddpg"]["kw"],
-    "value_ddpg_tqc": dict(algo="ddpg", env_name="pendulum", tqc_drop=2),
+    "value_ddpg_tqc": dict(algo="ddpg", env_name="pendulum", tqc_drop=2,
+                           **FLEET),
 }
 # Q-MAC's products of the value runs not among phase 3's other shapes:
 # the ddpg actor's first layer and the QR-DQN quantile head
@@ -2661,7 +2683,7 @@ def _counting_value_trainer(torch, kernels):
             with self.clock("learn"):
                 p, t, o, b = iteration.learn_phase(
                     state.params, state.target, state.opt, state.replay,
-                    traj, draws, g)
+                    traj, draws, g, alive)
                 torch.cuda.synchronize()
             _, _, R, D, Tr, _ = traj
             ret, n_ep = episode_returns_from(R, D | Tr)
@@ -3673,14 +3695,15 @@ WHISPER_KN = ((1280, 1280), (1280, 5120), (5120, 1280))
 WHISPER_HEAD_KN = (1280, 51968)
 WHISPER_ROWS = (4, 128, 3584)
 WHISPER_HEAD_ROWS = (4, 8)
-# whisper's served depth in phase 14: 16 + 16 of its 32 + 32 layers at
-# full width, since phase 17 (training) needs the time within the
-# script's 1,200 s limit; phase 4 still sums the full depth's products.
+# whisper's served depth in phase 14: 8 + 8 of its 32 + 32 layers at
+# full width (16 + 16 until phase 18 came), since phases 17-18 need the
+# time within the script's 1,200 s limit; phase 4 still sums the full
+# depth's products.
 # A prefill launches 16 fused products a layer pair (the encoder's q, k,
 # v, o, w_in, w_out; the decoder's self q, k, v, o, cross q, k, v, o,
-# w_in, w_out) and the head's, 257; a decode step 8 a decoder layer
-# (self 4, cross q and o, w_in, w_out) and the head's, 129
-WHISPER_SERVED = 16
+# w_in, w_out) and the head's, 129 at 8 + 8; a decode step 8 a decoder
+# layer (self 4, cross q and o, w_in, w_out) and the head's, 65
+WHISPER_SERVED = 8
 # (policy, batch, prompt = frames, gen): the reference CLI's defaults,
 # whisper's whole 448-token decoder context, and the w4 weights
 WHISPER_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 448, 16),
@@ -3895,15 +3918,16 @@ def lm_products(cfg) -> int:
 
 
 MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
-# mamba2's served depth in phase 15: 32 of its 64 layers at full width,
-# since phase 17 (training) needs the time within the script's limit
-MAMBA_LAYERS = 32
+# mamba2's served depth in phase 15: 16 of its 64 layers at full width
+# (32 until phase 18 came), since phases 17-18 need the time within the
+# script's limit
+MAMBA_LAYERS = 16
 RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
-# recurrentgemma's served depth in phase 15: 2 (R, R, A) super-blocks and
-# the R, R tail, 8 of its 38 layers, at full width.  Drawing all 38 (10.44
-# B parameters, 79-94 s on the host's generator) leaves the script too
-# close to its 1,200 s limit beside phase 16
-RG_LAYERS = 8
+# recurrentgemma's served depth in phase 15: an (R, R, A) super-block and
+# the R, R tail, 5 of its 38 layers, at full width (8 until phase 18
+# came).  Drawing all 38 (10.44 B parameters, 79-94 s on the host's
+# generator) leaves the script too close to its 1,200 s limit
+RG_LAYERS = 5
 # (policy, batch, prompt, gen): decode at batch 4 (mamba's prompt one SSD
 # chunk, 128; recurrentgemma's 32), an 8 x 512 prefill, and the w4
 # weights drawn from the same fp32 tree
@@ -4039,10 +4063,11 @@ def ssm_hybrid_serving(torch, dev, card):
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MIXTRAL_ARCH = "mixtral-8x22b"
-# depth cut from 48 to 4 layers: the reference serves MoE with its fp32
-# tree (PTQ'd MoE raises there), 122 GB at 48 layers; at 4 it is 3.11 B
-# parameters, 12.4 GB
-MOE_LAYERS = 4
+# depth cut from 48 to 2 layers (4 until phase 18 came, for the
+# script's time limit): the reference serves MoE with its fp32 tree
+# (PTQ'd MoE raises there), 122 GB at 48 layers; at 2 it is about 1.87 B
+# parameters
+MOE_LAYERS = 2
 MOE_EXPERTS = 128
 # an expert's products (K, N): gate and up [2048, 768], down [768, 2048]
 MOE_KN = ((2048, 768), (768, 2048))
@@ -4649,6 +4674,173 @@ def lm_train_card_vs_cpu(torch, dev):
           f"configs {time.perf_counter() - t1:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the sharded actor-learner fleet on the card
+# ---------------------------------------------------------------------------
+
+# phase 9's widths (32 envs x 128 steps, hidden 64, fxp8) for a few
+# iterations; the value runs at phase 11's defaults; the compressed mean
+# on a 4 M-element fp32 gradient
+FLEET_PPO_ITERS = 4
+FLEET_VALUE_ITERS = 6
+FLEET_COMP_NUMEL = 4 * 2 ** 20
+
+
+def _trees_bitwise(torch, a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        bits_equal(torch, x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _plain_collect_trainer(torch, kernels, base):
+    """``base`` (phase 9's counting trainer) whose rollout is the
+    one-device ``collect``, not the mesh's sharded one."""
+    from repro_torch.rl.actor_learner import collect
+    from repro_torch.rl.rollout import episode_returns
+    from repro_torch.rl.trainer.state import onpolicy_state
+
+    class Plain(base):
+        def step(self, iteration, state, packed, gen, g, stage_ctx, alive):
+            before = kernels.launch_counts()
+            draws = self.draws(gen)
+            with self.clock("rollout"):
+                res = collect(packed, self.env, self.apply_fn,
+                              self.a_policy, draws.noise, state.est,
+                              state.obs, self.rollout_len, self.dist)
+                torch.cuda.synchronize()
+            with self.clock("learn"):
+                params, opt = iteration.learn_phase(
+                    state.params, state.opt, res, draws, stage_ctx, alive)
+                torch.cuda.synchronize()
+            ret, n_ep = episode_returns(res.traj)
+            after = kernels.launch_counts()
+            self.per_iter.append({k: after[k] - before[k] for k in after})
+            return (onpolicy_state(params, opt, res.final_env,
+                                   res.final_obs), ret, n_ep)
+
+    return Plain
+
+
+def sharded_fleet(torch, dev, card):
+    """Phase 18: the sharded fleet through ``repro_torch.launch.mesh`` on
+    a NCCL group of one rank on the card (one card: NCCL takes one rank
+    a device, so two ranks cannot share it).  PPO on cartpole at phase
+    9's widths through the mesh, params and history bitwise the plain
+    collect's run and 4 x 129 ``qmac_i8`` launches an iteration; DQN
+    ``--sync lockstep`` bitwise the unsharded run (params, target,
+    optimizer, replay, envs, history); QR-DQN with PER ``--sync
+    doublebuf`` twice, bitwise and finite; ``compressed_psum_mean`` on
+    4 M fp32 elements over NCCL bitwise the same call on a gloo group on
+    the CPU, at 8 and 32 bits, both strategies, and timed.  Returns the
+    path's launches by wrapper (the main path's: the counts are zeroed
+    just before and read just after)."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.optim.compression import compressed_psum_mean
+    from repro_torch.rl.trainer import ValueTrainer
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device=dev)
+    backend = dist.get_backend(mesh.get_group("data"))
+    print(f"sharded fleet: {describe(mesh)} on {card}, backend {backend}, "
+          f"world size {dist.get_world_size()}")
+    if backend != "nccl":
+        raise AssertionError(f"the card's mesh runs on {backend}, not nccl")
+    counted = _counting_trainer(torch, kernels)
+    plain = _plain_collect_trainer(torch, kernels, counted)
+    kernels.reset_launch_counts()
+    want = 4 * (128 + 1)
+    runs = []
+    # in turns, plain, mesh, mesh, plain: the first run of a kind pays
+    # for first launches (and the mesh's first for NCCL's communicator)
+    for name, cls in (("plain", plain), ("mesh", counted),
+                      ("mesh", counted), ("plain", plain)):
+        tr = cls(iters=FLEET_PPO_ITERS, seed=0, device=dev, verbose=False)
+        t1 = time.perf_counter()
+        state, hist = tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        qmac = [c["qmac_i8"] for c in tr.per_iter]
+        print(f"  ppo cartpole ({name} collect), {FLEET_PPO_ITERS} "
+              f"iterations of 32 envs x 128 steps in {wall:.3f} s "
+              f"(rollout {tr.clock.drain().get('rollout', 0.0):.3f} s): "
+              f"history {hist}, qmac_i8 launches an iteration {qmac}")
+        if qmac != [want] * FLEET_PPO_ITERS:
+            raise AssertionError(f"ppo ({name}): qmac_i8 launches {qmac}, "
+                                 f"not {want} in each iteration")
+        runs.append((state.params, hist))
+    same = all(h == runs[0][1] and _trees_bitwise(torch, p, runs[0][0])
+               for p, h in runs[1:])
+    print(f"  ppo through the mesh vs the plain collect: params and history "
+          f"bitwise {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("ppo through the mesh differs from the plain "
+                             "collect's run")
+
+    def value(**kw):
+        tr = ValueTrainer(iters=FLEET_VALUE_ITERS, seed=0, device=dev,
+                          verbose=False, **kw)
+        t1 = time.perf_counter()
+        state, hist = tr.train()
+        torch.cuda.synchronize()
+        return state, hist, time.perf_counter() - t1
+
+    dqn = [(name, value(algo="dqn", **kw)) for name, kw in (
+        ("unsharded", {}), ("mesh", FLEET), ("mesh", FLEET),
+        ("unsharded", {}))]
+    s0, h0, _ = dqn[0][1]
+    same = all(h == h0 and _trees_bitwise(torch, tuple(s), tuple(s0))
+               for _, (s, h, _) in dqn[1:])
+    walls = ", ".join(f"{name} {w:.3f} s" for name, (_, _, w) in dqn)
+    print(f"  dqn --mesh host --sync lockstep vs unsharded, "
+          f"{FLEET_VALUE_ITERS} iterations ({walls}): params, target, "
+          f"optimizer, replay, envs and history bitwise "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("dqn lockstep through the mesh differs from "
+                             "the unsharded run")
+    qr = [value(algo="qrdqn", replay="per", mesh_kind="host",
+                sync="doublebuf") for _ in range(2)]
+    same = qr[0][1] == qr[1][1] and _trees_bitwise(
+        torch, tuple(qr[0][0]), tuple(qr[1][0]))
+    finite = all(torch.isfinite(x).all() for x in _leaves(qr[0][0].params))
+    print(f"  qrdqn --replay per --mesh host --sync doublebuf, twice "
+          f"({qr[0][2]:.3f} s, {qr[1][2]:.3f} s): bitwise "
+          f"{'equal' if same else 'DIFFERENT'}, params "
+          f"{'finite' if finite else 'NOT FINITE'}, history {qr[0][1]}")
+    if not (same and finite and all(map(math.isfinite, qr[0][1]))):
+        raise AssertionError("qrdqn doublebuf: two runs differ, or a value "
+                             "is not finite")
+    launches = kernels.launch_counts()
+    if not launches["qmac_i8"]:
+        raise AssertionError("the sharded fleet launched no qmac_i8")
+
+    cpu_mesh = make_host_mesh(device="cpu")
+    g = torch.Generator().manual_seed(18)
+    grads = torch.randn(FLEET_COMP_NUMEL, generator=g)
+    for bits in (8, 32):
+        for strategy in ("gather", "psum"):
+            want = compressed_psum_mean(grads, cpu_mesh, bits, None, strategy)
+            x = grads.to(dev)
+            got = compressed_psum_mean(x, mesh, bits, None, strategy)
+            ms = device_ms(torch, lambda: compressed_psum_mean(
+                x, mesh, bits, None, strategy))
+            ok = all(bits_equal(torch, a.cpu(), b)
+                     for a, b in zip(got, want, strict=True))
+            print(f"  compressed_psum_mean bits {bits} {strategy} on "
+                  f"{FLEET_COMP_NUMEL} fp32 elements: NCCL on the card "
+                  f"{'bitwise' if ok else 'DIFFERENT from'} gloo on the CPU "
+                  f"(mean and error), {ms:.4f} ms a call on {card}")
+            if not ok:
+                raise AssertionError(f"compressed_psum_mean bits {bits} "
+                                     f"{strategy}: card differs from CPU")
+    print(f"phase 18 launches: {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4762,6 +4954,8 @@ def main() -> int:
     lm_train_launches = lm_training(torch, dev, card)
     lm_train_card_vs_cpu(torch, dev)
     lap("phase 17 (training TinyLlama-1.1B, every family card vs CPU)")
+    fleet_launches = sharded_fleet(torch, dev, card)
+    lap("phase 18 (the sharded actor-learner fleet)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -4793,7 +4987,8 @@ def main() -> int:
                    "mamba_serving": ssm_launches[SSM_ARCH][name],
                    "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name],
                    "moe_serving": moe_launches[name],
-                   "lm_training": lm_train_launches[name]}
+                   "lm_training": lm_train_launches[name],
+                   "sharded_fleet": fleet_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -4807,7 +5002,8 @@ def main() -> int:
                      "mamba_serving": ssm_launches[SSM_ARCH],
                      "recurrentgemma_serving": ssm_launches[HYBRID_ARCH],
                      "moe_serving": moe_launches,
-                     "lm_training": lm_train_launches}
+                     "lm_training": lm_train_launches,
+                     "sharded_fleet": fleet_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

@@ -18,6 +18,10 @@ quantized actors, a full-precision learner and an int8 weight sync
         --env catch --net conv --frame-stack 4
     PYTHONPATH=src python -m repro_torch.launch.rl_train --algo ddpg \\
         --env pendulum [--tqc-drop 2]
+    # the sharded fleet over 8 gloo ranks on the CPU (one a slot)
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 8 -m repro_torch.launch.rl_train --device cpu \\
+        --algo qrdqn --mesh host --n-envs 16 --replay per
 
 The defaults are the reference's.  On-policy (``--algo ppo|a2c``): the
 mlp agent (hidden 64), fxp8 actors, an 8-bit sync, lr 3e-3, 40
@@ -29,19 +33,22 @@ algo's config (256), a checkpoint every 50.  ``--metrics-dir`` writes
 ``obs/v1`` telemetry (``train.jsonl``; ``tools/obs_summary.py`` renders
 it) and ``--profile-dir`` a ``torch.profiler`` trace of
 ``--profile-steps`` iterations from ``--profile-start``; the run's params
-stay bitwise those of a run without them.  Several devices (``--mesh``,
-``--mesh-devices``, ``--sync``) raise ``NotImplementedError`` naming the
-sharded slice.
+stay bitwise those of a run without them.
+
+``--mesh host`` runs the actor fleet over the host mesh, one slot a
+rank: the on-policy family always does (its default), the value family
+with ``--mesh`` (then ``--sync doublebuf`` by default, or ``lockstep``).
+The ranks come from ``torchrun``'s environment; without a launcher the
+world is one rank.  Rank 0 alone prints and writes.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.rl.envs import registered
-from repro_torch.rl.inference import (NETS, ON_POLICY_ALGOS, VALUE_ALGOS,
-                                      not_in_slice)
+from repro_torch.rl.inference import NETS, ON_POLICY_ALGOS, VALUE_ALGOS
 from repro_torch.rl.replay import KINDS as REPLAY_KINDS
-from repro_torch.rl.trainer import rl_train, value_train
+from repro_torch.rl.trainer import SYNC_MODES, rl_train, value_train
 
 
 def main(argv=None):
@@ -68,10 +75,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=None)
     ap.add_argument("--mesh", default=None, choices=["host", "production"],
-                    help="one device only in this port (host)")
-    ap.add_argument("--mesh-devices", type=int, default=None)
-    ap.add_argument("--sync", default=None, choices=["lockstep", "doublebuf"],
-                    help="the sharded weight sync (with --mesh)")
+                    help="device mesh for the actor fleet (default: "
+                         "host for on-policy; unset = single-device "
+                         "for value-based)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="restrict the host mesh to the first N ranks")
+    ap.add_argument("--sync", default=None, choices=list(SYNC_MODES),
+                    help="sharded value weight sync: lockstep fences "
+                         "every iteration; doublebuf overlaps the next "
+                         "collect with the learner update (default "
+                         "with a mesh)")
     # value-based knobs (--algo dqn|qrdqn|ddpg)
     ap.add_argument("--replay-capacity", type=int, default=50_000)
     ap.add_argument("--replay", default="uniform",
@@ -128,9 +141,8 @@ def main(argv=None):
         if args.sync is not None and args.mesh is None:
             raise ValueError("--sync configures the sharded weight "
                              "sync — add --mesh host")
-        if args.mesh is not None or args.mesh_devices is not None:
-            raise not_in_slice(f"--algo {args.algo} --mesh/--mesh-devices",
-                               "sharded paths")
+        sync = args.sync or ("doublebuf" if args.mesh is not None
+                             else "lockstep")
         value_train(args.algo, args.env,
                     iters=args.iters if args.iters is not None else 300,
                     n_envs=args.n_envs,
@@ -148,7 +160,9 @@ def main(argv=None):
                     frame_stack_k=args.frame_stack, replay=args.replay,
                     per_alpha=args.per_alpha, per_beta0=args.per_beta0,
                     per_beta_iters=args.per_beta_iters,
-                    tqc_drop=args.tqc_drop, max_lag=args.max_lag,
+                    tqc_drop=args.tqc_drop, mesh_kind=args.mesh,
+                    mesh_devices=args.mesh_devices, sync=sync,
+                    max_lag=args.max_lag,
                     metrics_dir=args.metrics_dir,
                     profile_dir=args.profile_dir,
                     profile_start=args.profile_start,

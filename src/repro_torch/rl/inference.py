@@ -46,9 +46,10 @@ def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
         "slice of the PyTorch port (the port trains ppo/a2c — the mlp "
         "agent, the E2HRL agent with --two-stage, --net conv on the "
         "pixel envs — and dqn/qrdqn/ddpg with uniform or prioritized "
-        "replay on one device, over every env, with telemetry and "
-        "profiler windows, serves every value checkpoint, and trains "
-        "and serves the LM families on one device)")
+        "replay, on one device or sharded over a mesh of ranks, over "
+        "every env, with telemetry and profiler windows, serves every "
+        "value checkpoint, and trains and serves the LM families on one "
+        "device)")
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,

@@ -21,7 +21,7 @@ makes them from a generator).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -41,6 +41,8 @@ class ReplayBuffer:
     add: Callable[..., Any]        # (state, obs, act, rew, nxt, disc)
     sample: Callable[..., dict]    # (state, draws, min_size=, beta=, ...)
     update: Callable[..., Any]     # (state, indices, td_abs) -> state
+    n_slots: int = 1               # >1: leading per-slot state axis
+    local: Optional["ReplayBuffer"] = None  # per-slot backend (sharded)
 
     @property
     def prioritized(self) -> bool:
@@ -49,8 +51,8 @@ class ReplayBuffer:
     def draw(self, gen: torch.Generator, shape, size: int,
              device) -> torch.Tensor:
         """Sampling draws of ``shape`` from ``gen`` (on ``device``) for a
-        buffer holding ``size`` transitions: slots (uniform) or
-        stratification uniforms (PER)."""
+        buffer holding ``size`` transitions (a sharded buffer: each
+        slot's): slots (uniform) or stratification uniforms (PER)."""
         if self.prioritized:
             return torch.rand(shape, generator=gen, device=device)
         return torch.randint(0, max(int(size), 1), shape, generator=gen,
@@ -58,10 +60,11 @@ class ReplayBuffer:
 
 
 def replay_size(state) -> torch.Tensor:
-    """Valid-entry count of either backend's state (0-dim int32)."""
-    if isinstance(state, _per.PERState):
-        return state.store.size
-    return state.size
+    """Valid-entry count of either backend's state (0-dim int32); for a
+    slot-major state ([n_slots] leading axis) the sum over the slots."""
+    size = state.store.size if isinstance(state, _per.PERState) \
+        else state.size
+    return size if size.dim() == 0 else size.sum(dtype=torch.int32)
 
 
 def make_replay(kind: str, capacity: int, obs_shape,

@@ -14,6 +14,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard_map
 from repro_torch.rl.dists import ActionDist, distribution_for
 from repro_torch.rl.envs.base import Environment
 
@@ -56,11 +57,17 @@ def env_keys(seed: Union[int, torch.Generator], n_envs: int,
 
 
 def init_envs(env: Environment, seed: Union[int, torch.Generator],
-              n_envs: int, device: DeviceLike = None):
+              n_envs: int, device: DeviceLike = None, mesh=None):
     """Reset ``n_envs`` environments on ``device`` (default: the card).
-    Returns the batched (state, obs)."""
+    Returns the batched (state, obs).  With ``mesh``, each slot resets
+    its rows of the global env keys and the slots' states are gathered
+    in slot order, so every rank holds the global state the unsharded
+    reset gives."""
     dev = resolve_device(device)
-    return env.reset(env_keys(seed, n_envs, dev))
+    keys = env_keys(seed, n_envs, dev)
+    if mesh is None:
+        return env.reset(keys)
+    return shard_map(env.reset, mesh, in_specs=(0,), out_specs=0)(keys)
 
 
 def rollout(params, env: Environment, apply_fn: Callable, noise: Tensor,

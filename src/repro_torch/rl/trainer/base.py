@@ -1,5 +1,5 @@
-"""The Trainer layer (port of ``repro.rl.trainer.base``, one device):
-one loop, one checkpoint flow, one RNG convention.
+"""The Trainer layer (port of ``repro.rl.trainer.base``): one loop, one
+checkpoint flow, one RNG convention.
 
 ``Trainer.train`` owns the loop: the family's stages in turn (one
 unnamed stage, or two-stage HRL's "action" then "subgoal"), ``iters``
@@ -14,6 +14,15 @@ step g and store the ``TrainState`` under the reference's index keys
 with the family's metadata (the stage and the iteration within it) and
 the ``schema`` tag; the metadata is validated before the tree is
 restored, and a resume lands inside the recorded stage.
+
+On a mesh (``--mesh host``) every rank of the mesh runs this loop in
+lockstep over the same global steps and draws; rank 0 alone prints,
+writes telemetry and profiles, and writes checkpoints (the family
+gathers what is sharded first, every rank taking part).  A rank the
+mesh leaves out (the default host mesh auto-fits its size to
+``n_envs``) takes no part and returns at once.  ``barrier`` (the value
+family's ``--sync lockstep`` on a mesh) fences the card and the mesh
+after every step.
 
 Telemetry (``metrics_dir``): after each step the iteration's ``record``
 (``train_steps``) writes the step's metrics into the family's buffer on
@@ -34,27 +43,51 @@ from typing import Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import data_axis_size, fence
+from repro_torch.launch.mesh import (describe, in_mesh, make_host_mesh,
+                                     make_production_mesh, rank, world_size)
 from repro_torch.obs import (Console, MetricSpec, ProfileWindow,
                              RunTelemetry, SpanClock, flush)
 from repro_torch.rl.actor_learner import FleetSync, sync_bytes
-from repro_torch.rl.inference import not_in_slice
 from repro_torch.rl.train_steps import iteration_generator
 from repro_torch.rl.trainer.state import (STATE_SCHEMA, TrainState,
                                           as_checkpoint_tree)
 
 
+def build_mesh(mesh_kind: str = "host", mesh_devices: Optional[int] = None,
+               device: DeviceLike = None):
+    if mesh_kind == "production":
+        if mesh_devices is not None:
+            raise ValueError("--mesh-devices restricts the host mesh "
+                             "only; the production mesh shape is fixed")
+        return make_production_mesh(device=device)
+    if mesh_kind == "host":
+        return make_host_mesh(mesh_devices, device=device)
+    raise ValueError(f"unknown mesh kind {mesh_kind!r} "
+                     "(expected 'host' or 'production')")
+
+
 def resolve_mesh(mesh_kind: str, mesh_devices: Optional[int], n_envs: int,
-                 verbose: bool = False) -> int:
-    """The number of actor slots: one device, so one slot.  The sharded
-    fleet over several cards arrives with the sharded slice."""
-    if mesh_kind not in ("host", "production"):
-        raise ValueError(f"unknown mesh kind {mesh_kind!r} "
-                         "(expected 'host' or 'production')")
-    if mesh_kind == "production" or (mesh_devices or 1) > 1:
-        raise not_in_slice(f"--mesh {mesh_kind} --mesh-devices "
-                           f"{mesh_devices}", "sharded")
-    Console(verbose).info(f"one device: 1 actor slot(s) x {n_envs} envs")
-    return 1
+                 verbose: bool = False, device: DeviceLike = None):
+    """The mesh and its slot count, with the env-divisibility contract
+    of both families: the default host mesh fits its size to the largest
+    rank count dividing ``n_envs`` (the ranks past it take no part); an
+    explicit ``--mesh-devices`` that does not divide is an error.  The
+    banner prints on rank 0."""
+    if mesh_kind == "host" and mesh_devices is None:
+        mesh_devices = world_size(device)
+        while mesh_devices > 1 and n_envs % mesh_devices != 0:
+            mesh_devices -= 1
+    mesh = build_mesh(mesh_kind, mesh_devices, device)
+    n_slots = data_axis_size(mesh)
+    if n_envs % n_slots != 0:
+        raise ValueError(f"--n-envs {n_envs} must be divisible by the "
+                         f"mesh's {n_slots} data slot(s)")
+    Console(verbose and rank() == 0).info(
+        f"{describe(mesh)}: {n_slots} actor slot(s) x {n_envs // n_slots} "
+        "envs")
+    return mesh, n_slots
 
 
 def flag_mismatch(ckpt_dir, flag: str, saved, have, reason: str = "",
@@ -76,8 +109,9 @@ class Trainer:
 
     def __init__(self, *, iters: int, seed: int, ckpt_dir: Optional[str],
                  save_every: int, log_every: int, verbose: bool,
-                 device: torch.device, n_slots: int = 1, max_lag: int = 1,
-                 fetch_lag: int = 0, metrics_dir: Optional[str] = None,
+                 device: torch.device, mesh=None, n_slots: int = 1,
+                 max_lag: int = 1, fetch_lag: int = 0, barrier: bool = False,
+                 metrics_dir: Optional[str] = None,
                  profile_dir: Optional[str] = None, profile_start: int = 0,
                  profile_steps: int = 1):
         self.iters = iters
@@ -85,12 +119,16 @@ class Trainer:
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.log_every = log_every
+        # rank 0 alone prints, writes telemetry and checkpoints
+        self.lead = rank() == 0
         self.verbose = verbose
-        self.console = Console(verbose)
+        self.console = Console(verbose and self.lead)
         self.device = device
+        self.mesh = mesh
         self.n_slots = n_slots
         self.max_lag = max_lag
         self.fetch_lag = fetch_lag
+        self.barrier = barrier
         self.metrics_dir = metrics_dir
         self.profile_dir = profile_dir
         self.profile_start = profile_start
@@ -155,6 +193,16 @@ class Trainer:
     def export_state(self, state, state_out: Optional[dict]) -> None:
         pass
 
+    def checkpoint_tree(self, state: TrainState) -> tuple:
+        """The tree a checkpoint stores (every rank calls it: a family
+        whose state is sharded gathers it here)."""
+        return as_checkpoint_tree(state)
+
+    def state_from_checkpoint(self, tree) -> TrainState:
+        """The state from a restored checkpoint tree (a sharded family
+        takes its slot)."""
+        return TrainState(*tree)
+
     # ---- the one driver --------------------------------------------------
     def restore(self, mgr: CheckpointManager, state: TrainState):
         """Flags are validated against the sidecar first; the tree then
@@ -167,9 +215,13 @@ class Trainer:
                 f"{schema!r}, but this launcher reads {STATE_SCHEMA!r}")
         self.validate_metadata(md)
         tree, md = mgr.restore(as_checkpoint_tree(state))
-        return TrainState(*tree), md
+        return self.state_from_checkpoint(tree), md
 
     def train(self, state_out: Optional[dict] = None):
+        """Run every stage: (final state, history of returns).  A rank
+        outside the mesh returns (None, [])."""
+        if self.mesh is not None and not in_mesh(self.mesh):
+            return None, []
         con = self.console
         state = self.init_state()
         start, mgr = 0, None
@@ -183,13 +235,15 @@ class Trainer:
         tel = spec = None
         if self.metrics_dir:
             # telemetry opens after the restore, so the first window
-            # starts at the resume step; the sink appends
+            # starts at the resume step; the sink appends.  Every rank
+            # keeps the buffer (its writes may gather over the mesh)
             spec = self.metric_spec()
-            tel = RunTelemetry(self.metrics_dir, run=self.run_meta(),
-                               start=start)
+            if self.lead:
+                tel = RunTelemetry(self.metrics_dir, run=self.run_meta(),
+                                   start=start)
         prof = (ProfileWindow(self.profile_dir, self.profile_start,
                               self.profile_steps, self.device)
-                if self.profile_dir else None)
+                if self.profile_dir and self.lead else None)
         clock = tel.clock if tel else SpanClock()
         iteration = self.build_iteration()
         mbuf = spec.init(self.device) if spec else None
@@ -224,6 +278,10 @@ class Trainer:
                     if mbuf is not None:
                         mbuf = self.record(iteration, mbuf, state, ret,
                                            n_ep, g, alive)
+                    if self.barrier:
+                        # lockstep: fence the card and the mesh, so the
+                        # next collect cannot overlap this update
+                        fence(self.mesh, self.device)
                     # the loop's one host read an iteration, which ends
                     # the step's work on the card
                     ret_f = float(ret)
@@ -250,9 +308,15 @@ class Trainer:
                     t_win = time.perf_counter()
                 if mgr and mgr.should_save(g):
                     with clock("checkpoint"):
-                        mgr.save(g, as_checkpoint_tree(state),
-                                 metadata={**self.metadata(it, stage),
-                                           "schema": STATE_SCHEMA})
+                        tree = self.checkpoint_tree(state)
+                        if self.lead:
+                            mgr.save(g, tree,
+                                     metadata={**self.metadata(it, stage),
+                                               "schema": STATE_SCHEMA})
+                        if self.mesh is not None:
+                            # no rank reads the directory before the
+                            # write is whole
+                            fence(self.mesh, self.device)
         if prof:
             self._profile_closed(prof, prof.stop(), tel)
         if tel:

@@ -1,5 +1,5 @@
 """The on-policy trainer (port of ``repro.rl.trainer.onpolicy``: ppo and
-a2c with the mlp, conv and hrl agents, on one device).
+a2c with the mlp, conv and hrl agents).
 
 The paper's Fig. 2 system: quantized (fxp8) actors roll the envs from
 an int8 weight sync, and the fp32 learner runs PPO (or A2C) on their
@@ -22,8 +22,13 @@ then ``--frame-stack``).
 ``episodes``, ``return_mean``, ``alive_frac`` from the iteration, the
 loop's host metrics and spans), ``profile_dir`` a ``torch.profiler``
 trace of ``profile_steps`` steps from ``profile_start``; neither changes
-the run.  Several devices raise ``NotImplementedError`` naming the
-sharded slice.
+the run.
+
+The actor fleet runs over a device mesh, ``--mesh host`` by default as
+in the reference (``mesh_kind``/``mesh_devices``): each rank of the
+mesh rolls its slot's envs and the learner runs replicated on every
+rank over the gathered trajectory (``train_steps``).  One rank is one
+slot; under ``torchrun`` every rank is a slot of the host mesh.
 """
 from __future__ import annotations
 
@@ -118,12 +123,14 @@ class OnPolicyTrainer(Trainer):
             raise ValueError("--two-stage trains the HRL sub-goal "
                              "curriculum and requires --agent hrl")
         dev = resolve_device(device)
-        n_slots = resolve_mesh(mesh_kind, mesh_devices, n_envs, verbose)
+        mesh, n_slots = resolve_mesh(mesh_kind, mesh_devices, n_envs,
+                                     verbose, dev)
         # actors run (max_lag - 1) versions behind the freshest push:
         # lock-step at the default lag 1
         super().__init__(iters=iters, seed=seed, ckpt_dir=ckpt_dir,
                          save_every=save_every, log_every=log_every,
-                         verbose=verbose, device=dev, n_slots=n_slots,
+                         verbose=verbose, device=dev, mesh=mesh,
+                         n_slots=n_slots,
                          max_lag=max_lag, fetch_lag=max_lag - 1,
                          metrics_dir=metrics_dir, profile_dir=profile_dir,
                          profile_start=profile_start,
@@ -158,7 +165,7 @@ class OnPolicyTrainer(Trainer):
     # ---- trainer seams ---------------------------------------------------
     def init_state(self) -> TrainState:
         est, obs = init_envs(self.env, self.seed + 1, self.n_envs,
-                             self.device)
+                             self.device, mesh=self.mesh)
         return onpolicy_state(self._init_params,
                               adamw_init(self._init_params), est, obs)
 
@@ -167,7 +174,7 @@ class OnPolicyTrainer(Trainer):
             self.env, self.apply_fn, self.a_policy, self.dist, self.pcfg,
             self.loss_fn, self.sched, self.ocfg,
             rollout_len=self.rollout_len, n_envs=self.n_envs,
-            n_slots=self.n_slots)
+            n_slots=self.n_slots, mesh=self.mesh)
 
     def metric_spec(self) -> MetricSpec:
         return MetricSpec(counters=("env_steps", "episodes"),
@@ -276,7 +283,8 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
     (default: the card) — see :class:`OnPolicyTrainer`.  Returns
     (params, history); ``state_out`` receives the final env state and
     observations (``env_state``, ``obs``), from which an evaluation can
-    freeze the pixel pipeline's normalizer."""
+    freeze the pixel pipeline's normalizer.  A rank the mesh leaves out
+    returns (None, [])."""
     trainer = OnPolicyTrainer(
         env_name, agent, iters=iters, n_envs=n_envs,
         rollout_len=rollout_len, actor_policy=actor_policy, lr=lr,
@@ -288,4 +296,4 @@ def rl_train(env_name: str = "cartpole", agent: str = "mlp",
         profile_dir=profile_dir, profile_start=profile_start,
         profile_steps=profile_steps, device=device)
     state, history = trainer.train(state_out=state_out)
-    return state.params, history
+    return (None if state is None else state.params), history

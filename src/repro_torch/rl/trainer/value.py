@@ -1,5 +1,5 @@
 """The off-policy value-based trainer (port of
-``repro.rl.trainer.value``: dqn / qrdqn / ddpg on one device).
+``repro.rl.trainer.value``: dqn / qrdqn / ddpg).
 
 The paper's Fig. 2 split with replay: quantized (fxp8) behaviour actors
 roll the envs from an int8 weight sync — ε-greedy over the Q net, or
@@ -21,8 +21,21 @@ flags are validated before its tree is read.
 PER, ``replay_max_priority`` from the iteration, the loop's host metrics
 and spans), ``profile_dir`` a ``torch.profiler`` trace of
 ``profile_steps`` steps from ``profile_start``; neither changes the run.
-Several devices (``--mesh``/``--sync``) raise ``NotImplementedError``
-naming the sharded slice.
+
+One device (``mesh_kind=None``, the default) runs the unsharded
+iteration.  With a mesh (``--mesh host``) collection and learning shard
+over its data slots, one a rank: each rank rolls its envs into its own
+replay slot (:func:`repro_torch.rl.replay.make_sharded_replay`'s
+per-slot backend: stratified global sampling, globally normalized PER
+weights), and the learner's gradient is the mean over the live slots.
+The int8 weight sync runs through ``FleetSync`` in ``lockstep`` (fetch
+lag 0 and, on a mesh, a fence of the card and the mesh after every
+step) or ``doublebuf`` (fetch lag 1: the collect for step k+1 runs
+against version k).  At one rank the sharded run is the unsharded one
+bit for bit.  A checkpoint keeps the reference's slot-major replay
+([n_slots, ...] leaves): gathered to rank 0 on save, each rank taking
+its slot on restore, so the two packages' checkpoints cross at any slot
+count.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 
 from repro_torch.core.policy import get_policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import gather_slots, psum, slot_index
 from repro_torch.obs import MetricSpec
 from repro_torch.optim import AdamWConfig, adamw_init, constant
 from repro_torch.rl.actor_learner import pack_weights
@@ -39,16 +53,21 @@ from repro_torch.rl.envs import make
 from repro_torch.rl.envs.wrappers import (NormStats, init_norm_stats,
                                           merge_norm_stats)
 from repro_torch.rl.inference import (ON_POLICY_ALGOS, VALUE_ALGOS,
-                                      build_env, make_value_agent,
-                                      not_in_slice)
-from repro_torch.rl.replay import make_replay, replay_size
+                                      build_env, make_value_agent)
+from repro_torch.rl.replay import (make_replay, make_sharded_replay,
+                                   replay_size)
 from repro_torch.rl.rollout import init_envs
 from repro_torch.rl.train_steps import (draw_value_iteration,
+                                        make_sharded_value_iteration,
                                         make_value_iteration)
-from repro_torch.rl.trainer.base import Trainer, flag_mismatch
+from repro_torch.rl.trainer.base import Trainer, flag_mismatch, resolve_mesh
 from repro_torch.rl.trainer.evaluation import greedy_eval
-from repro_torch.rl.trainer.state import TrainState, value_state
-from repro_torch.tree import tree_map
+from repro_torch.rl.trainer.state import (TrainState, as_checkpoint_tree,
+                                          value_state)
+from repro_torch.tree import tree_leaves, tree_map
+
+SYNC_MODES = ("lockstep", "doublebuf")
+
 
 def value_eval(algo: str, env_name: str, params, n_envs: int = 16,
                n_steps: Optional[int] = None,
@@ -96,24 +115,32 @@ class ValueTrainer(Trainer):
                  per_beta_iters: Optional[int] = None, tqc_drop: int = 0,
                  mesh_kind: Optional[str] = None,
                  mesh_devices: Optional[int] = None,
-                 max_lag: int = 1, metrics_dir: Optional[str] = None,
+                 sync: str = "lockstep", max_lag: int = 1,
+                 metrics_dir: Optional[str] = None,
                  profile_dir: Optional[str] = None, profile_start: int = 0,
                  profile_steps: int = 1, device: DeviceLike = None):
         if algo not in VALUE_ALGOS:
             raise ValueError(f"value_train drives {VALUE_ALGOS}, got "
                              f"{algo!r}; use rl_train for "
                              f"{ON_POLICY_ALGOS}")
+        if sync not in SYNC_MODES:
+            raise ValueError(f"unknown sync mode {sync!r} "
+                             f"(expected one of {SYNC_MODES})")
         if mesh_kind is None and mesh_devices is not None:
             raise ValueError("--mesh-devices restricts a device mesh; "
                              "the value loop is single-device without "
                              "--mesh host")
-        if mesh_kind is not None:
-            raise not_in_slice(f"--algo {algo} --mesh {mesh_kind}",
-                               "sharded paths")
         dev = resolve_device(device)
+        mesh, n_slots = None, 1
+        if mesh_kind is not None:
+            mesh, n_slots = resolve_mesh(mesh_kind, mesh_devices, n_envs,
+                                         verbose, dev)
         super().__init__(iters=iters, seed=seed, ckpt_dir=ckpt_dir,
                          save_every=save_every, log_every=log_every,
-                         verbose=verbose, device=dev, max_lag=max_lag,
+                         verbose=verbose, device=dev, mesh=mesh,
+                         n_slots=n_slots, max_lag=max_lag,
+                         fetch_lag=1 if sync == "doublebuf" else 0,
+                         barrier=sync == "lockstep" and mesh is not None,
                          metrics_dir=metrics_dir, profile_dir=profile_dir,
                          profile_start=profile_start,
                          profile_steps=profile_steps)
@@ -122,6 +149,7 @@ class ValueTrainer(Trainer):
         self.frame_stack_k = frame_stack_k
         self.replay, self.per_alpha = replay, per_alpha
         self.per_beta0, self.tqc_drop = per_beta0, tqc_drop
+        self.sync_mode = sync
         self.actor_policy_name = actor_policy
         self.env = build_env(env_name, net, frame_stack_k)
         spec = self.env.spec
@@ -135,8 +163,14 @@ class ValueTrainer(Trainer):
             tqc_drop=tqc_drop, device=dev)
         act = ((spec.action_space.shape, torch.float32)
                if algo == "ddpg" else ((), torch.int32))
-        self.rb = make_replay(replay, replay_capacity, spec.obs_shape,
-                              act[0], act[1], alpha=per_alpha, device=dev)
+        if mesh is not None:
+            self.rb = make_sharded_replay(replay, n_slots, replay_capacity,
+                                          spec.obs_shape, act[0], act[1],
+                                          alpha=per_alpha, device=dev)
+        else:
+            self.rb = make_replay(replay, replay_capacity, spec.obs_shape,
+                                  act[0], act[1], alpha=per_alpha,
+                                  device=dev)
         self.capacity = replay_capacity
         self.beta_iters = max(per_beta_iters if per_beta_iters is not None
                               else iters, 1)
@@ -155,10 +189,19 @@ class ValueTrainer(Trainer):
         else:
             opt = adamw_init(params)
         est, obs = init_envs(self.env, self.seed + 1, self.n_envs,
-                             self.device)
-        return value_state(params, target, opt, self.rb.init(), est, obs)
+                             self.device, mesh=self.mesh)
+        # on a mesh each rank holds its slot of the replay
+        local = self.rb.local or self.rb
+        return value_state(params, target, opt, local.init(), est, obs)
 
     def build_iteration(self):
+        if self.mesh is not None:
+            return make_sharded_value_iteration(
+                self.env, self.agent, self.rb, self.a_policy, self.sched,
+                self.ocfg, self.mesh, algo=self.algo,
+                rollout_len=self.rollout_len,
+                updates_per_iter=self.updates_per_iter,
+                per_beta0=self.per_beta0, beta_iters=self.beta_iters)
         return make_value_iteration(
             self.env, self.agent, self.rb, self.a_policy, self.sched,
             self.ocfg, algo=self.algo, rollout_len=self.rollout_len,
@@ -169,6 +212,8 @@ class ValueTrainer(Trainer):
         gauges = ["return_mean", "epsilon", "replay_size"]
         if self.rb.prioritized:
             gauges.append("replay_max_priority")
+        if self.mesh is not None:
+            gauges.append("alive_frac")
         return MetricSpec(counters=("env_steps", "episodes"),
                           gauges=tuple(gauges))
 
@@ -176,13 +221,15 @@ class ValueTrainer(Trainer):
         meta = super().run_meta()
         meta.update(algo=self.algo, env=self.env_name, net=self.net,
                     n_envs=self.n_envs, rollout_len=self.rollout_len,
-                    replay=self.replay, sync="lockstep")
+                    replay=self.replay, sync=self.sync_mode)
         return meta
 
     def size_after(self, g: int) -> int:
-        """The replay size after step ``g``'s add: every iteration adds
-        ``rollout_len * n_envs`` transitions (known on the host)."""
-        return min((g + 1) * self.rollout_len * self.n_envs, self.capacity)
+        """A replay slot's size after step ``g``'s add (the whole buffer
+        off a mesh): every iteration adds ``rollout_len * n_envs /
+        n_slots`` transitions to each slot (known on the host)."""
+        return min((g + 1) * self.rollout_len * (self.n_envs // self.n_slots),
+                   self.capacity // self.n_slots)
 
     def draws(self, gen: torch.Generator, g: int):
         """Step ``g``'s exploration, replay and smoothing draws."""
@@ -199,14 +246,16 @@ class ValueTrainer(Trainer):
                             self.comm)
 
     def step(self, iteration, state, packed, gen, g, stage_ctx, alive):
+        live = () if self.mesh is None else (alive,)
         p, t, o, b, est, obs, ret, n_ep = iteration(
             state.params, state.target, state.opt, state.replay, packed,
-            state.est, state.obs, self.draws(gen, g), g)
+            state.est, state.obs, self.draws(gen, g), g, *live)
         return value_state(p, t, o, b, est, obs), ret, n_ep
 
     def record(self, iteration, mbuf, state, ret, n_ep, g, alive):
+        live = () if self.mesh is None else (alive,)
         return iteration.record(mbuf, g, state.replay, ret, n_ep,
-                                self.n_envs)
+                                self.n_envs, *live)
 
     def eval_policy(self, params, n_envs: int = 16,
                     n_steps: Optional[int] = None,
@@ -250,10 +299,10 @@ class ValueTrainer(Trainer):
                 f"slot(s), but this run's mesh shards {self.n_slots} — "
                 "the sharded buffer layout differs; relaunch with the "
                 "original --mesh/--mesh-devices flags")
-        # one device fetches in lockstep; the sharded slice adds doublebuf
-        md_sync = str(md.get("sync", "lockstep"))
-        if md_sync != "lockstep":
-            raise flag_mismatch(d, "sync", repr(md_sync), repr("lockstep"),
+        md_sync = str(md.get("sync", self.sync_mode))
+        if md_sync != self.sync_mode:
+            raise flag_mismatch(d, "sync", repr(md_sync),
+                                repr(self.sync_mode),
                                 "the weight-sync fetch stream differs",
                                 verb="saved with")
         if self.replay == "per":
@@ -273,7 +322,7 @@ class ValueTrainer(Trainer):
               "net": self.net, "frame_stack": self.frame_stack_k,
               "n_envs": self.n_envs, "n_step": self.n_step,
               "actor_policy": self.actor_policy_name or "fp32",
-              "replay_slots": self.n_slots, "sync": "lockstep"}
+              "replay_slots": self.n_slots, "sync": self.sync_mode}
         if self.rb.prioritized:
             md.update(per_alpha=self.per_alpha, per_beta0=self.per_beta0,
                       per_beta_iters=self.beta_iters)
@@ -283,15 +332,43 @@ class ValueTrainer(Trainer):
         return int(md.get("it", md.get("step", 0))) + 1
 
     def resume_message(self, md, state, start: int) -> str:
-        return (f"resumed at iter {start} "
-                f"(replay size {int(replay_size(state.replay))})")
+        size = replay_size(state.replay)
+        if self.mesh is not None:
+            size = psum(size, self.mesh)
+        return f"resumed at iter {start} (replay size {int(size)})"
+
+    def checkpoint_tree(self, state: TrainState) -> tuple:
+        """On a mesh the replay is stored slot-major, [n_slots, ...]
+        leaves gathered in slot order, as the reference stores it."""
+        if self.mesh is None:
+            return as_checkpoint_tree(state)
+        replay = tree_map(lambda x: torch.stack(gather_slots(x, self.mesh)),
+                          state.replay)
+        return as_checkpoint_tree(state._replace(replay=replay))
+
+    def state_from_checkpoint(self, tree) -> TrainState:
+        state = TrainState(*tree)
+        if self.mesh is None:
+            return state
+        # a slot-major replay has a [n_slots] pointer; an unsharded
+        # run's is 0-dim and cannot be split into slots
+        sizes = [x.shape[0] if x.dim() else None
+                 for x in tree_leaves(state.replay)]
+        if any(n != self.n_slots for n in sizes):
+            raise ValueError(
+                f"checkpoint in {self.ckpt_dir} holds an unsharded replay, "
+                f"not one of {self.n_slots} slot(s) — relaunch with the "
+                "original --mesh flags")
+        d = slot_index(self.mesh)
+        return state._replace(replay=tree_map(lambda x: x[d].clone(),
+                                              state.replay))
 
     def host_metrics(self, metrics: dict, g: int) -> dict:
         # without the buffer the window record still carries the replay
         # fill, which the host knows
         if "replay_size" in metrics:
             return {}
-        return {"replay_size": self.size_after(g)}
+        return {"replay_size": self.n_slots * self.size_after(g)}
 
     def log_line(self, it, ret, n_ep, metrics: dict, stage) -> str:
         return (f"iter {it:4d}  return {float(ret):8.2f}  "
@@ -318,13 +395,15 @@ def value_train(algo: str = "dqn", env_name: str = "cartpole",
                 per_beta_iters: Optional[int] = None, tqc_drop: int = 0,
                 state_out: Optional[dict] = None,
                 mesh_kind: Optional[str] = None,
-                mesh_devices: Optional[int] = None,
+                mesh_devices: Optional[int] = None, sync: str = "lockstep",
                 max_lag: int = 1, metrics_dir: Optional[str] = None,
                 profile_dir: Optional[str] = None, profile_start: int = 0,
                 profile_steps: int = 1, device: DeviceLike = None):
     """Off-policy value-based training on ``device`` (default: the
     card) — see :class:`ValueTrainer`.  Returns (params, history);
-    ``state_out`` receives the final ``env_state``/``obs``/``replay``."""
+    ``state_out`` receives the final ``env_state``/``obs``/``replay``
+    (on a mesh, this rank's replay slot).  A rank the mesh leaves out
+    returns (None, [])."""
     trainer = ValueTrainer(
         algo, env_name, iters=iters, n_envs=n_envs,
         rollout_len=rollout_len, actor_policy=actor_policy, lr=lr,
@@ -335,9 +414,9 @@ def value_train(algo: str = "dqn", env_name: str = "cartpole",
         net=net, frame_stack_k=frame_stack_k, replay=replay,
         per_alpha=per_alpha, per_beta0=per_beta0,
         per_beta_iters=per_beta_iters, tqc_drop=tqc_drop,
-        mesh_kind=mesh_kind, mesh_devices=mesh_devices, max_lag=max_lag,
-        metrics_dir=metrics_dir, profile_dir=profile_dir,
+        mesh_kind=mesh_kind, mesh_devices=mesh_devices, sync=sync,
+        max_lag=max_lag, metrics_dir=metrics_dir, profile_dir=profile_dir,
         profile_start=profile_start, profile_steps=profile_steps,
         device=device)
     state, history = trainer.train(state_out=state_out)
-    return state.params, history
+    return (None if state is None else state.params), history

@@ -33,7 +33,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.nn.ssm", "repro_torch.nn.rglru",
             "repro_torch.nn.moe", "repro_torch.launch.serve",
             "repro_torch.data", "repro_torch.data.synthetic",
-            "repro_torch.launch.steps", "repro_torch.launch.train"} \
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.ranks",
+            "repro_torch.distributed.checks",
+            "repro_torch.optim.compression",
+            "repro_torch.rl.replay.sharded"} \
         <= set(got["modules"])
     banned = [m for m in got["loaded"]
               if m.startswith("jax") or m.split(".")[0] == "repro"]

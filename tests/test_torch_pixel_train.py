@@ -392,7 +392,8 @@ def test_cli_trains_pixels(capsys):
                "--frame-stack", "2", "--iters", "2", "--n-envs", "4",
                "--rollout-len", "4"])
     out = capsys.readouterr().out
-    assert "one device: 1 actor slot(s) x 4 envs" in out
+    assert "mesh {'data': 1, 'model': 1} (1 devices): 1 actor slot(s) x " \
+        "4 envs" in out
     assert "iter    1  return" in out and "done in" in out
     tcli.main(["--device", "cpu", "--env", "catch", "--agent", "hrl",
                "--two-stage", "--iters", "1", "--n-envs", "4",

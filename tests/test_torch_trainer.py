@@ -257,14 +257,25 @@ def test_cli_prints_iteration_lines(capsys):
     assert "done in" in out
 
 
-@pytest.mark.parametrize("argv,slice_name", [
-    (["--agent", "hrl", "--two-stage", "--mesh-devices", "2"], "sharded"),
-    (["--mesh-devices", "2"], "sharded"),
-    (["--mesh", "production"], "sharded"),
-    (["--algo", "dqn", "--mesh", "host"], "sharded paths")])
-def test_unported_flags_name_their_slice(argv, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tcli.main(["--device", "cpu", "--iters", "1"] + argv)
+@pytest.mark.parametrize("argv,match", [
+    (["--agent", "hrl", "--two-stage", "--mesh-devices", "2"],
+     "exposes 1 device"),
+    (["--mesh-devices", "2"], "exposes 1 device"),
+    (["--mesh", "production"], "needs 256 ranks"),
+    (["--algo", "dqn", "--mesh", "host"], None)])
+def test_unported_flags_name_their_slice(argv, match, capsys):
+    """The mesh flags, which named the sharded slice until it came, now
+    do what the reference's do on one rank: more devices than the world
+    holds and the production mesh are refused, and ``--mesh host`` runs
+    the value family over a one-slot mesh."""
+    args = ["--device", "cpu", "--iters", "1", "--n-envs", "4",
+            "--rollout-len", "8"] + argv
+    if match is None:
+        tcli.main(args)
+        assert "1 actor slot(s) x 4 envs" in capsys.readouterr().out
+        return
+    with pytest.raises(ValueError, match=match):
+        tcli.main(args)
 
 
 @pytest.mark.parametrize("argv", [

@@ -361,8 +361,8 @@ def test_cli_runs_every_algo_and_env_on_cpu(argv, capsys):
     (["--algo", "dqn", "--tqc-drop", "2"], ValueError, "twin critics"),
     (["--algo", "dqn", "--net", "conv"], ValueError, "image"),
     (["--algo", "dqn", "--frame-stack", "4"], ValueError, "frame-stack"),
-    (["--algo", "dqn", "--mesh", "host"], NotImplementedError,
-     "sharded paths")])
+    (["--algo", "dqn", "--mesh", "host", "--mesh-devices", "2"], ValueError,
+     "exposes 1 device")])
 def test_cli_refuses_what_the_reference_refuses(argv, err, match):
     with pytest.raises(err, match=match):
         tcli.main(["--device", "cpu", "--iters", "1"] + argv)
