@@ -130,8 +130,9 @@ non-zero:
    the untrained reference's median to the trained reference's at
    seeds 0-2), env steps/s, the wall split, Q-MAC and Q-Conv launches
    exactly 3, 2 + 2 and 3 per behaviour forward in every iteration;
-   one iteration of each run, of dqn ``--replay per`` and of ddpg
-   ``--tqc-drop 2`` on the card against the CPU (actions equal, and
+   one iteration of each run, and of dqn ``--replay per`` and ddpg
+   ``--tqc-drop 2`` without the mesh, on the card against the CPU
+   (actions equal, and
    observations within rtol 1e-5, in every env up to its first row
    whose int8 codes differ, such rows counted; the learners from the
    CPU's rollout, each update held from the CPU's state as phase 10
@@ -168,13 +169,13 @@ non-zero:
    step and an 8 x 512 prefill (device time by kernel, idle share, the
    port's launches and PyTorch's);
 14. serving whisper-large-v3 at its published widths (d_model 1280, 20
-   heads, d_ff 5120, vocab 51,866) and 8 + 8 of its 32 + 32 layers
+   heads, d_ff 5120, vocab 51,866) and 16 + 16 of its 32 + 32 layers
    (random weights from seed 0, drawn once; stub frame embeddings as
    long as the prompt)
    through ``generate``: w8a8kv8 at batch 4, prompt 32, gen 16 and
    at batch 8, prompt 448, gen 16, and w4a8 at batch 4, prompt 32, gen
    16, each after a warm-up call at its batch and prompt: PTQ MiB,
-   prefill and decode tok/s, the first ids; exactly 129 + 65 x (gen -
+   prefill and decode tok/s, the first ids; exactly 257 + 129 x (gen -
    1) ``qmac_i8_deq`` a call, no ``qmac_i8``, every id in [0, 51866);
    then the model at 2 + 2 layers on the card and on the CPU from the
    same PTQ'd params, frames and prompts: a 4 x 32 prefill and 8 greedy
@@ -185,13 +186,13 @@ non-zero:
    heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
    super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
    window 2048, d_ff 12288, vocab 256,000) at their published widths
-   (mamba2 at 16 of its 64 layers; recurrentgemma at 5 of its 38: a
-   super-block and the R, R tail),
+   (mamba2 at 32 of its 64 layers; recurrentgemma at 8 of its 38: 2
+   super-blocks and the tail),
    each fp32 tree drawn once on the card (the host's peak RSS and the
    card's peak allocation printed), through ``generate``: w8a8kv8 decode
    at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
    and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
-   33 and 40 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   65 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
    decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
    share of the busy time); card against CPU at full width (mamba2 at 2
    layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
@@ -199,7 +200,7 @@ non-zero:
    steps: every int8 code, every logit and all 36 tokens equal;
 16. serving qwen3-moe-30b-a3b (d_model 2048, 32 heads over 4 KV heads
    of 128, 128 experts, top 8, d_ff 768, vocab 151,936) at its
-   published widths and 2 of its 48 layers (the fp32 tree the
+   published widths and 4 of its 48 layers (the fp32 tree the
    reference's MoE serving keeps is 122 GB at 48), drawn once on the
    card and served with ``weight_ptq=False``, as the reference serves
    MoE: w8a8kv8 decode at batch 4 x 32, an 8 x 512 prefill and w4a8
@@ -235,12 +236,15 @@ non-zero:
    PPO on cartpole at phase 9's widths, 4 iterations, through the mesh
    and through the plain collect in turns (plain, mesh, mesh, plain),
    params and history bitwise, exactly 4 x 129 ``qmac_i8`` each
-   iteration; DQN ``--sync lockstep`` and the unsharded run in turns, 6
-   iterations, params, target, optimizer, replay, envs and history
-   bitwise; QR-DQN with PER ``--sync doublebuf`` twice, bitwise and
-   finite; ``compressed_psum_mean`` on 4 M fp32 elements over NCCL at 8
-   and 32 bits, both strategies, bitwise the same call over gloo on the
-   CPU, timed; the path's launches;
+   iteration; each value algorithm ``--sync lockstep`` against its
+   unsharded run, 6 iterations (DQN in turns; QR-DQN on catch with the
+   conv torso, 4 stacked frames and PER; DDPG on pendulum), params,
+   target, optimizer, replay, envs and history bitwise; QR-DQN with PER
+   ``--sync doublebuf`` twice, bitwise and finite;
+   ``compressed_psum_mean`` on 4 M fp32 elements over NCCL at 8 and 32
+   bits, both strategies, bitwise the same call over gloo on the CPU,
+   timed; the path's launches, summed over the runs through the mesh
+   alone, each counted from 0;
 19. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 """
@@ -2533,7 +2537,7 @@ def pixel_training(card, results):
 # ``value_eval`` at 16 envs with fxp8 actors), and each behaviour
 # forward's launches of the port's kernels
 # the value runs go through the mesh at one rank, in lockstep (bitwise
-# the unsharded runs, phase 18 holds)
+# the unsharded runs for each algorithm, phase 18 holds)
 FLEET = dict(mesh_kind="host", sync="lockstep")
 VALUE_RUNS = {
     "value_dqn": dict(
@@ -2562,16 +2566,15 @@ VALUE_RUNS = {
 # 8 steps an iteration)
 VALUE_ITERS = 300
 VALUE_STEPS = VALUE_ITERS * 32 * 8
-# the card-vs-CPU iterations: each run's, and dqn with prioritized
+# the card-vs-CPU iterations: each run's (through the mesh), and, on the
+# unsharded path (``rl_train``'s value default), dqn with prioritized
 # replay and ddpg with TQC's truncated quantile critics
 VALUE_PARITY = {
     "value_dqn": VALUE_RUNS["value_dqn"]["kw"],
-    "value_dqn_per": dict(algo="dqn", env_name="cartpole", replay="per",
-                          **FLEET),
+    "value_dqn_per": dict(algo="dqn", env_name="cartpole", replay="per"),
     "value_qrdqn": VALUE_RUNS["value_qrdqn"]["kw"],
     "value_ddpg": VALUE_RUNS["value_ddpg"]["kw"],
-    "value_ddpg_tqc": dict(algo="ddpg", env_name="pendulum", tqc_drop=2,
-                           **FLEET),
+    "value_ddpg_tqc": dict(algo="ddpg", env_name="pendulum", tqc_drop=2),
 }
 # Q-MAC's products of the value runs not among phase 3's other shapes:
 # the ddpg actor's first layer and the QR-DQN quantile head
@@ -2870,9 +2873,11 @@ def _value_learner_card_vs_cpu(torch, dev, tr, it_fn, state, traj, draws,
     params, target, opt = state.params, state.target, state.opt
     buf = it_fn.add_rollout(tree_map(torch.clone, state.replay), traj)
     beta = it_fn.beta(it)
+    view = it_fn.slot_view(buf, None) if tr.mesh is not None else None
     for u in range(tr.updates_per_iter):
         params, target, opt, buf = it_fn.update(params, target, opt, buf,
-                                                draws, u, beta, step=held)
+                                                draws, u, beta, step=held,
+                                                view=view)
     for a, b in zip(_leaves((params, target, opt, buf)), _leaves(cpu_out),
                     strict=True):
         if not torch.equal(a, b):
@@ -3695,15 +3700,14 @@ WHISPER_KN = ((1280, 1280), (1280, 5120), (5120, 1280))
 WHISPER_HEAD_KN = (1280, 51968)
 WHISPER_ROWS = (4, 128, 3584)
 WHISPER_HEAD_ROWS = (4, 8)
-# whisper's served depth in phase 14: 8 + 8 of its 32 + 32 layers at
-# full width (16 + 16 until phase 18 came), since phases 17-18 need the
-# time within the script's 1,200 s limit; phase 4 still sums the full
-# depth's products.
+# whisper's served depth in phase 14: 16 + 16 of its 32 + 32 layers at
+# full width, since phase 17 (training) needs the time within the
+# script's 1,200 s limit; phase 4 still sums the full depth's products.
 # A prefill launches 16 fused products a layer pair (the encoder's q, k,
 # v, o, w_in, w_out; the decoder's self q, k, v, o, cross q, k, v, o,
-# w_in, w_out) and the head's, 129 at 8 + 8; a decode step 8 a decoder
-# layer (self 4, cross q and o, w_in, w_out) and the head's, 65
-WHISPER_SERVED = 8
+# w_in, w_out) and the head's, 257; a decode step 8 a decoder layer
+# (self 4, cross q and o, w_in, w_out) and the head's, 129
+WHISPER_SERVED = 16
 # (policy, batch, prompt = frames, gen): the reference CLI's defaults,
 # whisper's whole 448-token decoder context, and the w4 weights
 WHISPER_RUNS = (("w8a8kv8", 4, 32, 16), ("w8a8kv8", 8, 448, 16),
@@ -3918,16 +3922,15 @@ def lm_products(cfg) -> int:
 
 
 MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
-# mamba2's served depth in phase 15: 16 of its 64 layers at full width
-# (32 until phase 18 came), since phases 17-18 need the time within the
-# script's limit
-MAMBA_LAYERS = 16
+# mamba2's served depth in phase 15: 32 of its 64 layers at full width,
+# since phase 17 (training) needs the time within the script's limit
+MAMBA_LAYERS = 32
 RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
-# recurrentgemma's served depth in phase 15: an (R, R, A) super-block and
-# the R, R tail, 5 of its 38 layers, at full width (8 until phase 18
-# came).  Drawing all 38 (10.44 B parameters, 79-94 s on the host's
-# generator) leaves the script too close to its 1,200 s limit
-RG_LAYERS = 5
+# recurrentgemma's served depth in phase 15: 2 (R, R, A) super-blocks and
+# the R, R tail, 8 of its 38 layers, at full width.  Drawing all 38 (10.44
+# B parameters, 79-94 s on the host's generator) leaves the script too
+# close to its 1,200 s limit beside phase 16
+RG_LAYERS = 8
 # (policy, batch, prompt, gen): decode at batch 4 (mamba's prompt one SSD
 # chunk, 128; recurrentgemma's 32), an 8 x 512 prefill, and the w4
 # weights drawn from the same fp32 tree
@@ -4063,11 +4066,10 @@ def ssm_hybrid_serving(torch, dev, card):
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MIXTRAL_ARCH = "mixtral-8x22b"
-# depth cut from 48 to 2 layers (4 until phase 18 came, for the
-# script's time limit): the reference serves MoE with its fp32 tree
-# (PTQ'd MoE raises there), 122 GB at 48 layers; at 2 it is about 1.87 B
-# parameters
-MOE_LAYERS = 2
+# depth cut from 48 to 4 layers: the reference serves MoE with its fp32
+# tree (PTQ'd MoE raises there), 122 GB at 48 layers; at 4 it is 3.11 B
+# parameters, 12.4 GB
+MOE_LAYERS = 4
 MOE_EXPERTS = 128
 # an expert's products (K, N): gate and up [2048, 768], down [768, 2048]
 MOE_KN = ((2048, 768), (768, 2048))
@@ -4726,14 +4728,16 @@ def sharded_fleet(torch, dev, card):
     a NCCL group of one rank on the card (one card: NCCL takes one rank
     a device, so two ranks cannot share it).  PPO on cartpole at phase
     9's widths through the mesh, params and history bitwise the plain
-    collect's run and 4 x 129 ``qmac_i8`` launches an iteration; DQN
-    ``--sync lockstep`` bitwise the unsharded run (params, target,
-    optimizer, replay, envs, history); QR-DQN with PER ``--sync
-    doublebuf`` twice, bitwise and finite; ``compressed_psum_mean`` on
-    4 M fp32 elements over NCCL bitwise the same call on a gloo group on
-    the CPU, at 8 and 32 bits, both strategies, and timed.  Returns the
-    path's launches by wrapper (the main path's: the counts are zeroed
-    just before and read just after)."""
+    collect's run and 4 x 129 ``qmac_i8`` launches an iteration; each
+    value algorithm ``--sync lockstep`` bitwise its unsharded run
+    (params, target, optimizer, replay, envs, history): DQN, QR-DQN on
+    catch with the conv torso and PER, DDPG on pendulum; QR-DQN with PER
+    ``--sync doublebuf`` twice, bitwise and finite;
+    ``compressed_psum_mean`` on 4 M fp32 elements over NCCL bitwise the
+    same call on a gloo group on the CPU, at 8 and 32 bits, both
+    strategies, and timed.  Returns the path's launches by wrapper: the
+    sum over the runs through the mesh alone, the counts zeroed just
+    before each and read just after."""
     import torch.distributed as dist
 
     from repro_torch import kernels
@@ -4748,9 +4752,19 @@ def sharded_fleet(torch, dev, card):
           f"world size {dist.get_world_size()}")
     if backend != "nccl":
         raise AssertionError(f"the card's mesh runs on {backend}, not nccl")
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def on_path(run):
+        """``run()``, one run through the mesh: the counts zeroed just
+        before it, its launches added to the path's just after."""
+        kernels.reset_launch_counts()
+        out = run()
+        for k, v in kernels.launch_counts().items():
+            launches[k] += v
+        return out
+
     counted = _counting_trainer(torch, kernels)
     plain = _plain_collect_trainer(torch, kernels, counted)
-    kernels.reset_launch_counts()
     want = 4 * (128 + 1)
     runs = []
     # in turns, plain, mesh, mesh, plain: the first run of a kind pays
@@ -4759,7 +4773,7 @@ def sharded_fleet(torch, dev, card):
                       ("mesh", counted), ("plain", plain)):
         tr = cls(iters=FLEET_PPO_ITERS, seed=0, device=dev, verbose=False)
         t1 = time.perf_counter()
-        state, hist = tr.train()
+        state, hist = on_path(tr.train) if name == "mesh" else tr.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         qmac = [c["qmac_i8"] for c in tr.per_iter]
@@ -4779,28 +4793,40 @@ def sharded_fleet(torch, dev, card):
         raise AssertionError("ppo through the mesh differs from the plain "
                              "collect's run")
 
-    def value(**kw):
+    def value(mesh_kind=None, **kw):
         tr = ValueTrainer(iters=FLEET_VALUE_ITERS, seed=0, device=dev,
-                          verbose=False, **kw)
+                          verbose=False, mesh_kind=mesh_kind, **kw)
         t1 = time.perf_counter()
-        state, hist = tr.train()
+        state, hist = on_path(tr.train) if mesh_kind else tr.train()
         torch.cuda.synchronize()
         return state, hist, time.perf_counter() - t1
 
-    dqn = [(name, value(algo="dqn", **kw)) for name, kw in (
-        ("unsharded", {}), ("mesh", FLEET), ("mesh", FLEET),
-        ("unsharded", {}))]
-    s0, h0, _ = dqn[0][1]
-    same = all(h == h0 and _trees_bitwise(torch, tuple(s), tuple(s0))
-               for _, (s, h, _) in dqn[1:])
-    walls = ", ".join(f"{name} {w:.3f} s" for name, (_, _, w) in dqn)
-    print(f"  dqn --mesh host --sync lockstep vs unsharded, "
-          f"{FLEET_VALUE_ITERS} iterations ({walls}): params, target, "
-          f"optimizer, replay, envs and history bitwise "
-          f"{'equal' if same else 'DIFFERENT'}")
-    if not same:
-        raise AssertionError("dqn lockstep through the mesh differs from "
-                             "the unsharded run")
+    # each algorithm's default run and its lockstep run through the mesh;
+    # dqn in turns, as ppo
+    for flags, kw, order in (
+            ("--algo dqn", dict(algo="dqn"),
+             ("unsharded", "mesh", "mesh", "unsharded")),
+            ("--algo qrdqn --env catch --net conv --frame-stack 4 "
+             "--replay per", dict(algo="qrdqn", env_name="catch", net="conv",
+                                  frame_stack_k=4, replay="per"),
+             ("unsharded", "mesh")),
+            ("--algo ddpg --env pendulum",
+             dict(algo="ddpg", env_name="pendulum"),
+             ("unsharded", "mesh"))):
+        pair = [value(**kw, **(FLEET if name == "mesh" else {}))
+                for name in order]
+        s0, h0, _ = pair[0]
+        same = all(h == h0 and _trees_bitwise(torch, tuple(s), tuple(s0))
+                   for s, h, _ in pair[1:])
+        walls = ", ".join(f"{name} {w:.3f} s"
+                          for name, (_, _, w) in zip(order, pair))
+        print(f"  {flags} --mesh host --sync lockstep vs unsharded, "
+              f"{FLEET_VALUE_ITERS} iterations ({walls}): params, target, "
+              f"optimizer, replay, envs and history bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{flags} lockstep through the mesh "
+                                 "differs from the unsharded run")
     qr = [value(algo="qrdqn", replay="per", mesh_kind="host",
                 sync="doublebuf") for _ in range(2)]
     same = qr[0][1] == qr[1][1] and _trees_bitwise(
@@ -4813,9 +4839,9 @@ def sharded_fleet(torch, dev, card):
     if not (same and finite and all(map(math.isfinite, qr[0][1]))):
         raise AssertionError("qrdqn doublebuf: two runs differ, or a value "
                              "is not finite")
-    launches = kernels.launch_counts()
-    if not launches["qmac_i8"]:
-        raise AssertionError("the sharded fleet launched no qmac_i8")
+    for name in ("qmac_i8", "qconv_i8_taps"):
+        if not launches[name]:
+            raise AssertionError(f"the sharded fleet launched no {name}")
 
     cpu_mesh = make_host_mesh(device="cpu")
     g = torch.Generator().manual_seed(18)

@@ -24,7 +24,7 @@ from repro_torch.rl.actor_learner import collect_sharded, collect_value_sharded
 from repro_torch.rl.envs import make
 from repro_torch.rl.inference import build_env, make_value_agent
 from repro_torch.rl.nets import mlp_ac_apply
-from repro_torch.rl.replay import make_sharded_replay
+from repro_torch.rl.replay import make_replay
 from repro_torch.rl.rollout import init_envs
 from repro_torch.rl.train_steps import ValueDraws, make_sharded_value_iteration
 
@@ -92,18 +92,16 @@ def value_update(algo: str, env_name: str, params, target,
     n_slots = len(batches)
     n_local = len(batches[0]["rewards"])
     act = batches[0]["actions"]
-    srb = make_sharded_replay("uniform", n_slots, n_slots * n_local,
-                              env.spec.obs_shape, act.shape[1:],
-                              torch.float32 if algo == "ddpg"
-                              else torch.int32)
+    rb = make_replay("uniform", n_local, env.spec.obs_shape, act.shape[1:],
+                     torch.float32 if algo == "ddpg" else torch.int32)
     ocfg = AdamWConfig(weight_decay=0.0, max_grad_norm=10.0)
     it = make_sharded_value_iteration(
-        env, agent, srb, None, constant(lr), ocfg, mesh, algo=algo,
+        env, agent, rb, None, constant(lr), ocfg, mesh, algo=algo,
         rollout_len=1, updates_per_iter=1, per_beta0=0.4, beta_iters=1)
     b = {k: torch.from_numpy(v)
          for k, v in batches[torch.distributed.get_rank()].items()}
-    buf = srb.local.add(srb.local.init(), b["obs"], b["actions"],
-                        b["rewards"], b["next_obs"], b["discounts"])
+    buf = rb.add(rb.init(), b["obs"], b["actions"], b["rewards"],
+                 b["next_obs"], b["discounts"])
     params = from_numpy_tree(params, "cpu")
     target = from_numpy_tree(target, "cpu")
     opt = ({k: adamw_init(v) for k, v in params.items()} if algo == "ddpg"
@@ -113,10 +111,10 @@ def value_update(algo: str, env_name: str, params, target,
                        torch.from_numpy(smoothing)[None]
                        if algo == "ddpg" else None)
     grads = {}
-    params, _, opt, _ = it.update(
-        params, target, opt, buf, draws, 0, 1.0,
-        alive=torch.tensor(list(alive)),
-        on_grad=lambda name, g: grads.__setitem__(name, g))
+    view = it.slot_view(buf, torch.tensor(list(alive)))
+    step = it.mean_grad_step(view.n_alive, grads.__setitem__)
+    params, _, opt, _ = it.update(params, target, opt, buf, draws, 0, 1.0,
+                                  step=step, view=view)
     return as_numpy({"grads": grads, "params": params, "opt": opt})
 
 

@@ -12,7 +12,8 @@ from repro_torch.rl.replay.per import (PERState, PRIORITY_EPS, per_add,
                                        per_init, per_sample, per_update)
 from repro_torch.rl.replay.sharded import (make_sharded_replay,
                                            normalize_weights,
-                                           per_global_weights)
+                                           per_global_weights,
+                                           slot_capacity)
 from repro_torch.rl.replay.uniform import (Replay, replay_add, replay_init,
                                            replay_sample)
 
@@ -20,4 +21,4 @@ __all__ = ["KINDS", "PERState", "PRIORITY_EPS", "Replay", "ReplayBuffer",
            "make_replay", "make_sharded_replay", "normalize_weights",
            "per_add", "per_global_weights", "per_init", "per_sample", "per_update",
            "replay_add", "replay_init", "replay_sample", "replay_size",
-           "sum_tree"]
+           "slot_capacity", "sum_tree"]

@@ -21,7 +21,7 @@ makes them from a generator).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -41,8 +41,6 @@ class ReplayBuffer:
     add: Callable[..., Any]        # (state, obs, act, rew, nxt, disc)
     sample: Callable[..., dict]    # (state, draws, min_size=, beta=, ...)
     update: Callable[..., Any]     # (state, indices, td_abs) -> state
-    n_slots: int = 1               # >1: leading per-slot state axis
-    local: Optional["ReplayBuffer"] = None  # per-slot backend (sharded)
 
     @property
     def prioritized(self) -> bool:

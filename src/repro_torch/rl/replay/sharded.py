@@ -66,6 +66,19 @@ def _slot(state, d: int):
     return tree_map(lambda x: x[d], state)
 
 
+def slot_capacity(capacity: int, n_slots: int) -> int:
+    """Each of ``n_slots`` local buffers' capacity, ``capacity //
+    n_slots``; raises unless ``capacity`` divides evenly over them."""
+    if n_slots < 1:
+        raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+    if capacity % n_slots != 0:
+        raise ValueError(
+            f"replay capacity {capacity} does not divide evenly over "
+            f"{n_slots} slot(s); round it to a multiple of the mesh "
+            "size (--replay-capacity)")
+    return capacity // n_slots
+
+
 def make_sharded_replay(kind: str, n_slots: int, capacity: int, obs_shape,
                         action_shape: Tuple[int, ...] = (),
                         action_dtype=torch.int32, *, alpha: float = 0.6,
@@ -76,17 +89,10 @@ def make_sharded_replay(kind: str, n_slots: int, capacity: int, obs_shape,
     slot-major transitions [n_slots, B_local, ...]; ``sample`` takes the
     global draws ``[n]`` and returns slot-major [n_slots, n // n_slots]
     columns with globally corrected weights; ``update`` writes the
-    priorities back slot by slot.  The per-slot backend is ``.local``,
-    which the sharded learner runs on each rank."""
-    if n_slots < 1:
-        raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-    if capacity % n_slots != 0:
-        raise ValueError(
-            f"replay capacity {capacity} does not divide evenly over "
-            f"{n_slots} slot(s); round it to a multiple of the mesh "
-            "size (--replay-capacity)")
-    local = make_replay(kind, capacity // n_slots, obs_shape, action_shape,
-                        action_dtype, alpha=alpha, device=device)
+    priorities back slot by slot."""
+    local = make_replay(kind, slot_capacity(capacity, n_slots), obs_shape,
+                        action_shape, action_dtype, alpha=alpha,
+                        device=device)
 
     def init():
         return _stack([local.init() for _ in range(n_slots)])
@@ -123,4 +129,4 @@ def make_sharded_replay(kind: str, n_slots: int, capacity: int, obs_shape,
                        for d in range(n_slots)])
 
     return ReplayBuffer(kind, capacity, init=init, add=add, sample=sample,
-                        update=update, n_slots=n_slots, local=local)
+                        update=update)

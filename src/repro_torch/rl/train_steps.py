@@ -41,8 +41,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import (data_axes, local_rows, pmax,
-                                              psum, psum_tree, slot_index)
+from repro_torch.distributed.sharding import (data_axes, data_axis_size,
+                                              local_rows, pmax, psum,
+                                              psum_tree, slot_index)
 from repro_torch.obs.metrics import counter_add, gauge_max, gauge_set
 from repro_torch.optim import adamw_update
 from repro_torch.rl.actor_learner import (collect, collect_sharded,
@@ -225,7 +226,7 @@ def make_value_iteration(env, agent, rb, a_policy, sched, ocfg, *,
                             per_beta0=per_beta0, beta_iters=beta_iters)
 
 
-def make_sharded_value_iteration(env, agent, srb, a_policy, sched, ocfg,
+def make_sharded_value_iteration(env, agent, rb, a_policy, sched, ocfg,
                                  mesh, *, algo: str, rollout_len: int,
                                  updates_per_iter: int, per_beta0: float,
                                  beta_iters: int) -> Callable:
@@ -235,7 +236,8 @@ def make_sharded_value_iteration(env, agent, srb, a_policy, sched, ocfg,
         iteration(params, target, opt, buf, packed, est, obs, draws, it,
                   alive) -> (params, target, opt, buf, est, obs, ret, n_ep)
 
-    ``buf`` is this rank's replay slot (``srb.local``'s state); ``est``,
+    ``rb`` is the per-slot replay backend (capacity ``capacity //
+    n_slots``) and ``buf`` this rank's slot of it; ``est``,
     ``obs`` and the draws are global.  Slot ``d`` collects its envs with
     its rows of the draws, writes its transitions into its slot, samples
     its ``batch_size / n_slots`` with its columns of the replay draws,
@@ -252,12 +254,11 @@ def make_sharded_value_iteration(env, agent, srb, a_policy, sched, ocfg,
     if not data_axes(mesh):
         raise ValueError(f"mesh {mesh.mesh_dim_names} has no data axes to "
                          "shard the value fleet over")
-    n_slots = srb.n_slots
+    n_slots = data_axis_size(mesh)
     if agent.cfg.batch_size % n_slots != 0:
         raise ValueError(
             f"batch size {agent.cfg.batch_size} does not divide evenly over "
             f"{n_slots} replay slot(s) (--batch-size)")
-    rb = srb.local if srb.local is not None else srb
     return _value_iteration(env, agent, rb, a_policy, sched, ocfg, mesh,
                             algo=algo, rollout_len=rollout_len,
                             updates_per_iter=updates_per_iter,
@@ -335,7 +336,7 @@ def _value_iteration(env, agent, rb, a_policy, sched, ocfg, mesh, *,
         p, s = opt_step(p, s, g)
         return p, s, aux
 
-    def mean_grad_step(n_alive, on_grad: Optional[Callable]):
+    def mean_grad_step(n_alive, on_grad: Optional[Callable] = None):
         """``grad_step`` with the gradient the mean over the live slots
         (handed to ``on_grad(name, grads)`` first, when given)."""
         def step(name, loss_fn, p, s, args):
@@ -385,19 +386,15 @@ def _value_iteration(env, agent, rb, a_policy, sched, ocfg, mesh, *,
         return batch
 
     def update(params, target, opt, buf, draws: ValueDraws, u: int,
-               beta: float, step: Optional[Callable] = None, alive=None,
-               on_grad: Optional[Callable] = None,
+               beta: float, step: Optional[Callable] = None,
                view: Optional[_SlotView] = None):
         """Update ``u`` of an iteration: the replay sample, each
         gradient and AdamW ``step`` (default: the family's; on a mesh
-        the mean over the live slots, each mean handed to
-        ``on_grad(name, grads)`` when given), polyak and the priority
+        the mean over the live slots), polyak and the priority
         write-back.  On a mesh ``view`` is the iteration's
-        ``slot_view`` (gathered here when not given)."""
+        ``slot_view``."""
         if mesh is not None:
-            if view is None:
-                view = slot_view(buf, alive)
-            step = step or mean_grad_step(view.n_alive, on_grad)
+            step = step or mean_grad_step(view.n_alive)
         step = step or grad_step
         with torch.no_grad():
             batch = sample(buf, draws, u, beta, view)
@@ -471,5 +468,6 @@ def _value_iteration(env, agent, rb, a_policy, sched, ocfg, mesh, *,
     iteration.learn_phase = learn_phase
     iteration.add_rollout, iteration.beta = add_rollout, beta
     iteration.update = update
+    iteration.slot_view, iteration.mean_grad_step = slot_view, mean_grad_step
     iteration.record = record
     return iteration

@@ -25,9 +25,10 @@ and spans), ``profile_dir`` a ``torch.profiler`` trace of
 One device (``mesh_kind=None``, the default) runs the unsharded
 iteration.  With a mesh (``--mesh host``) collection and learning shard
 over its data slots, one a rank: each rank rolls its envs into its own
-replay slot (:func:`repro_torch.rl.replay.make_sharded_replay`'s
-per-slot backend: stratified global sampling, globally normalized PER
-weights), and the learner's gradient is the mean over the live slots.
+replay slot (a ``make_replay`` backend of ``capacity / n_slots``:
+stratified global sampling, globally normalized PER weights, as
+:mod:`repro_torch.rl.replay.sharded` sets out), and the learner's
+gradient is the mean over the live slots.
 The int8 weight sync runs through ``FleetSync`` in ``lockstep`` (fetch
 lag 0 and, on a mesh, a fence of the card and the mesh after every
 step) or ``doublebuf`` (fetch lag 1: the collect for step k+1 runs
@@ -54,8 +55,7 @@ from repro_torch.rl.envs.wrappers import (NormStats, init_norm_stats,
                                           merge_norm_stats)
 from repro_torch.rl.inference import (ON_POLICY_ALGOS, VALUE_ALGOS,
                                       build_env, make_value_agent)
-from repro_torch.rl.replay import (make_replay, make_sharded_replay,
-                                   replay_size)
+from repro_torch.rl.replay import make_replay, replay_size, slot_capacity
 from repro_torch.rl.rollout import init_envs
 from repro_torch.rl.train_steps import (draw_value_iteration,
                                         make_sharded_value_iteration,
@@ -163,14 +163,10 @@ class ValueTrainer(Trainer):
             tqc_drop=tqc_drop, device=dev)
         act = ((spec.action_space.shape, torch.float32)
                if algo == "ddpg" else ((), torch.int32))
-        if mesh is not None:
-            self.rb = make_sharded_replay(replay, n_slots, replay_capacity,
-                                          spec.obs_shape, act[0], act[1],
-                                          alpha=per_alpha, device=dev)
-        else:
-            self.rb = make_replay(replay, replay_capacity, spec.obs_shape,
-                                  act[0], act[1], alpha=per_alpha,
-                                  device=dev)
+        # on a mesh each rank holds one slot of the replay
+        self.rb = make_replay(replay, slot_capacity(replay_capacity, n_slots),
+                              spec.obs_shape, act[0], act[1],
+                              alpha=per_alpha, device=dev)
         self.capacity = replay_capacity
         self.beta_iters = max(per_beta_iters if per_beta_iters is not None
                               else iters, 1)
@@ -190,9 +186,7 @@ class ValueTrainer(Trainer):
             opt = adamw_init(params)
         est, obs = init_envs(self.env, self.seed + 1, self.n_envs,
                              self.device, mesh=self.mesh)
-        # on a mesh each rank holds its slot of the replay
-        local = self.rb.local or self.rb
-        return value_state(params, target, opt, local.init(), est, obs)
+        return value_state(params, target, opt, self.rb.init(), est, obs)
 
     def build_iteration(self):
         if self.mesh is not None:

@@ -116,14 +116,19 @@ def test_default_ppo_is_the_plain_collect_run(capsys):
 
 
 @pytest.mark.parametrize("algo,replay,env_name", [
-    ("dqn", "uniform", "cartpole"), ("qrdqn", "per", "cartpole")])
+    ("dqn", "uniform", "cartpole"), ("qrdqn", "per", "cartpole"),
+    ("qrdqn", "per", "catch"), ("ddpg", "uniform", "pendulum")])
 def test_value_mesh_lockstep_is_the_unsharded_run(algo, replay, env_name):
     """``value_train(mesh_kind="host", sync="lockstep")`` at one rank:
     params, targets, optimizer state, the replay (the PER tree
-    included), envs and history bitwise the unsharded run's."""
+    included), envs and history bitwise the unsharded run's (catch with
+    the conv torso over 4 stacked frames)."""
+    pixels = dict(net="conv", frame_stack_k=4) if env_name == "catch" \
+        else {}
     kw = dict(algo=algo, env_name=env_name, replay=replay, iters=4,
               n_envs=4, rollout_len=4, replay_capacity=64,
-              updates_per_iter=2, learn_start=8, verbose=False, device=CPU)
+              updates_per_iter=2, learn_start=8, verbose=False, device=CPU,
+              **pixels)
     s_plain, h_plain = ValueTrainer(**kw).train()
     s_mesh, h_mesh = ValueTrainer(mesh_kind="host", sync="lockstep",
                                   **kw).train()

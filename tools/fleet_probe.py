@@ -2,10 +2,10 @@
 """Phase 18 of ``chip_smoke.py`` alone: build the kernels, hold the
 fxp8 actor's Q-MAC products against their plain version, then run the
 sharded actor-learner fleet on a NCCL group of one rank (PPO through the
-mesh against the plain collect, DQN lockstep against the unsharded run,
-QR-DQN with PER doublebuf twice, the compressed gradient mean on the
-card against gloo on the CPU).  Needs one CUDA card; run from the repo
-root:
+mesh against the plain collect, DQN, QR-DQN (conv, PER) and DDPG in
+lockstep against their unsharded runs, QR-DQN with PER doublebuf twice,
+the compressed gradient mean on the card against gloo on the CPU).
+Needs one CUDA card; run from the repo root:
 
     python3 tools/fleet_probe.py
 """
