@@ -4486,18 +4486,24 @@ def lm_training(torch, dev, card):
     """Phase 17: ``repro_torch.launch.train.train("tinyllama-1.1b",
     smoke=False)`` on the card, all 22 layers at the published widths
     (random weights from seed 0), ``TRAIN_STEPS`` steps at the reference
-    CLI's defaults (8 x 128 tokens, w8a8, AdamW, warmup-cosine), each
+    CLI's defaults (8 x 128 tokens, w8a8, AdamW, warmup-cosine), through
+    the host mesh (``train`` always builds it: one NCCL rank here), each
     step timed on the host clock between two waits for the card and its
     Q-MAC launches counted: exactly 155 ``qmac_i8`` and no fused launch a
     step, every loss finite and the last at most the first + 1 (the
     reference's bar of not diverging, ``tests/test_arch_smoke.py``);
-    tok/s after the warm-up step, the card's peak allocation, then a
-    profile of one step (``_profile_lm_step``).  Returns the path's
-    launches."""
+    tok/s after the warm-up step, from the mean and from the median
+    step (one slow step moves the mean), the card's peak allocation,
+    then a profile of one step (``_profile_lm_step``).  Returns the
+    path's launches and the trained params (phase 19 starts from
+    them)."""
     import math
+
+    import torch.distributed as dist
 
     from repro_torch import kernels
     from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import make_host_mesh
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4537,11 +4543,16 @@ def lm_training(torch, dev, card):
     want = train_products(get_arch(LM_ARCH))
     dts = [dt for _, _, dt in steps]
     tok_s = (len(dts) - 1) * TRAIN_M / sum(dts[1:])
-    print(f"{LM_ARCH} trained at full width, {TRAIN_STEPS} steps of "
+    tok_s_median = TRAIN_M / statistics.median(dts[1:])
+    backend = dist.get_backend(make_host_mesh(device=dev).get_group("data"))
+    print(f"{LM_ARCH} trained at full width through the host mesh "
+          f"({backend}, world size {dist.get_world_size()}), {TRAIN_STEPS} "
+          f"steps of "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} at w8a8 on {card}: losses "
           f"{losses}; step 0 loss {losses[0]:.4f} beside ln 32000 = "
           f"{math.log(32000):.4f}; {tok_s:.1f} tok/s after the warm-up "
-          f"step (step seconds {[round(d, 4) for d in dts]}); draw and "
+          f"step from the mean step, {tok_s_median:.1f} tok/s from the "
+          f"median step (step seconds {[round(d, 4) for d in dts]}); draw and "
           f"optimizer init {steps[0][1] - t0:.1f} s, the run {wall:.1f} s; "
           f"card peak allocated {peak:.1f} GiB, host peak RSS "
           f"{_host_peak_gib():.1f} GiB; Q-MAC launches a step "
@@ -4553,12 +4564,13 @@ def lm_training(torch, dev, card):
         raise AssertionError(f"training losses {losses}")
     if losses[-1] > losses[0] + 1.0:
         raise AssertionError(f"training diverged: {losses}")
+    if backend != "nccl":
+        raise AssertionError(f"training ran on a {backend} mesh, not nccl")
     t1 = time.perf_counter()
     _profile_lm_step(torch, dev, params)
     print(f"{LM_ARCH} training profiles {time.perf_counter() - t1:.1f} s")
-    del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, params
 
 
 def _train_step_card_vs_cpu(torch, dev, what, cfg, fp, batch):
@@ -4867,6 +4879,244 @@ def sharded_fleet(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LM layout on the card: TinyLlama's training step through
+# the host mesh against the unsharded step, and one qwen3-moe layer's
+# dispatch over the mesh (moe_shard_map) at its published widths
+# ---------------------------------------------------------------------------
+
+LAYOUT_STEPS = 2
+# one qwen3-moe layer's tokens: 8 sequences of 512
+LAYOUT_MOE_TOKENS = (8, 512)
+
+
+def _layout_steps(torch, dev, cfg, params, mesh, launches):
+    """``LAYOUT_STEPS`` steps of ``make_train_step(cfg, mesh, ...)`` from
+    ``params`` and a fresh AdamW state on the first batches at phase 17's
+    settings, each step's Q-MAC launches counted (with a mesh, added to
+    ``launches``): (params, state, [(loss, grad_norm)], launches a step,
+    step seconds)."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data import DataConfig, batch_at, place
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+
+    step = make_train_step(cfg, mesh, get_policy("w8a8"),
+                           AdamWConfig(weight_decay=0.0),
+                           warmup_cosine(3e-4, 1, TRAIN_STEPS))
+    dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, 0)
+    p, o = params, adamw_init(params)
+    stats, per_step, dts = [], [], []
+    for s in range(LAYOUT_STEPS):
+        batch = batch_at(dcfg, s)
+        batch = place(batch, mesh) if mesh is not None else \
+            {k: v.to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        p, o, st = step(p, o, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        if mesh is not None:
+            for k, v in counts.items():
+                launches[k] += v
+        per_step.append({k: counts[k] for k in QMAC_WRAPPERS})
+        stats.append((st["loss"].cpu(), st["grad_norm"].cpu()))
+    return p, o, stats, per_step, dts
+
+
+def _recording_dispatch(torch):
+    """Records, while on, each MoE dispatch's chosen experts and kept
+    assignments (the mesh's ``_local_dispatch`` and the global path's
+    ``_dispatch_indices``) and every row-quantized activation's int8
+    codes.  Returns (record, on, off)."""
+    from repro_torch.core import qmatmul
+    from repro_torch.nn import moe, moe_shard
+
+    rec = {"experts": [], "keep": [], "codes": []}
+    orig = (moe_shard._local_dispatch, moe._dispatch_indices,
+            qmatmul.quantize_rowwise)
+
+    def local(x_rep, e_flat, n_experts, capacity):
+        out = orig[0](x_rep, e_flat, n_experts, capacity)
+        rec["experts"].append(e_flat.to(torch.int32).cpu())
+        rec["keep"].append(out[2].cpu())
+        return out
+
+    def global_(e_flat, n_experts, capacity):
+        pos, keep = orig[1](e_flat, n_experts, capacity)
+        rec["experts"].append(e_flat.to(torch.int32).cpu())
+        rec["keep"].append(keep.cpu())
+        return pos, keep
+
+    def rowwise(x, bits):
+        q, scale = orig[2](x, bits)
+        rec["codes"].append(q.cpu())
+        return q, scale
+
+    def on():
+        for v in rec.values():
+            v.clear()
+        moe_shard._local_dispatch = local
+        moe._dispatch_indices = global_
+        qmatmul.quantize_rowwise = rowwise
+
+    def off():
+        (moe_shard._local_dispatch, moe._dispatch_indices,
+         qmatmul.quantize_rowwise) = orig
+
+    return rec, on, off
+
+
+def lm_layout(torch, dev, card, params):
+    """Phase 19: the LM layout on the card.
+
+    (a) From phase 17's trained TinyLlama ``params`` (all 22 layers at
+    full width) and the same two batches, ``LAYOUT_STEPS`` steps of
+    ``make_train_step(cfg, make_host_mesh(), ...)`` (one NCCL rank, the
+    batch ``place``'d) and as many of ``make_train_step(cfg, None,
+    ...)``, one run after the other, the first run's trees waiting on
+    the host: the params, ``mu``, ``nu``, ``count``, every loss and
+    grad norm bitwise equal, 155 ``qmac_i8`` a step in each.
+
+    (b) One qwen3-moe layer at its published widths (d_model 2048, 128
+    experts, top-8, d_ff_expert 768; fp32 weights drawn from seed 19,
+    w8a8) on 8 x 512 tokens: ``moe_shard_map`` on the one-rank mesh
+    (``moe_apply`` takes it only above one rank, as the reference's
+    does) bitwise the same call on the CPU's plain path and the global
+    ``moe_apply`` on the card: the experts chosen, the assignments
+    dropped, every int8 code and the output; 3 ``qmac_i8_deq_bmm``
+    launches.  Returns the path's launches: the runs through the mesh
+    alone, the counts zeroed just before each and read just after."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.nn.moe import moe_apply, moe_init
+    from repro_torch.nn.moe_shard import moe_shard_map
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device=dev)
+    backend = dist.get_backend(mesh.get_group("data"))
+    if backend != "nccl":
+        raise AssertionError(f"the card's mesh runs on {backend}, not nccl")
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+    cfg = get_arch(LM_ARCH)
+    want = train_products(cfg)
+
+    # (a) the mesh's step against the unsharded step
+    runs = {}
+    for name, m in (("mesh", mesh), ("unsharded", None)):
+        torch.cuda.reset_peak_memory_stats()
+        p, o, stats, per_step, dts = _layout_steps(torch, dev, cfg, params,
+                                                   m, launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = (tree_map(lambda t: t.cpu(), (p, o)), stats)
+        del p, o
+        torch.cuda.empty_cache()
+        how = f"on {describe(m)}" if m is not None else "with no mesh"
+        print(f"  {LM_ARCH} {LAYOUT_STEPS} training steps, make_train_step "
+              f"{how}: losses {[float(s[0]) for s in stats]}, grad norms "
+              f"{[float(s[1]) for s in stats]}, step seconds "
+              f"{[round(d, 4) for d in dts]}, Q-MAC launches a step "
+              f"{per_step}; card peak allocated {peak:.1f} GiB")
+        if per_step != [want] * LAYOUT_STEPS:
+            raise AssertionError(f"{name} steps launched {per_step}, not "
+                                 f"{want} each")
+    (ta, sa), (tb, sb) = runs["mesh"], runs["unsharded"]
+    same = _trees_bitwise(torch, ta, tb) and all(
+        bits_equal(torch, x, y) for a, b in zip(sa, sb) for x, y in zip(a, b))
+    print(f"  the mesh's steps vs the unsharded steps: params, mu, nu, "
+          f"count, losses and grad norms bitwise "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the host mesh's training steps differ from "
+                             "the unsharded steps")
+    del runs, ta, tb
+
+    # (b) one qwen3-moe layer's dispatch over the mesh
+    mcfg = get_arch(MOE_ARCH)
+    pol = get_policy("w8a8")
+    t1 = time.perf_counter()
+    g = torch.Generator().manual_seed(19)
+    layer = moe_init(g, mcfg.d_model, mcfg.d_ff, mcfg.n_experts)
+    x = torch.randn(LAYOUT_MOE_TOKENS + (mcfg.d_model,), generator=g)
+    draw_s = time.perf_counter() - t1
+    kw = dict(top_k=mcfg.top_k, capacity_factor=mcfg.capacity_factor,
+              policy=pol, act=mcfg.act)
+    on_card = tree_map(lambda t: t.to(dev), layer)
+    xc = x.to(dev)
+    rec, rec_on, rec_off = _recording_dispatch(torch)
+    cpu_mesh = make_host_mesh(device="cpu")
+
+    def recorded(fn):
+        rec_on()
+        try:
+            out = fn()
+        finally:
+            rec_off()
+        return out.cpu(), {k: list(v) for k, v in rec.items()}
+
+    def shard_map_on(m, xs, w):
+        return moe_shard_map(xs, w["router"]["w"], w["w_gate"], w["w_up"],
+                             w["w_down"], m, **kw)
+
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        card_out, card_rec = recorded(lambda: shard_map_on(mesh, xc,
+                                                           on_card))
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        t1 = time.perf_counter()
+        cpu_out, cpu_rec = recorded(lambda: shard_map_on(cpu_mesh, x, layer))
+        cpu_s = time.perf_counter() - t1
+        glob_out, glob_rec = recorded(lambda: moe_apply(on_card, xc, **kw))
+        ms = device_ms(torch, lambda: shard_map_on(mesh, xc, on_card))
+        glob_ms = device_ms(torch, lambda: moe_apply(on_card, xc, **kw))
+    qcounts = {k: counts[k] for k in QMAC_WRAPPERS}
+    tokens = LAYOUT_MOE_TOKENS[0] * LAYOUT_MOE_TOKENS[1]
+    dropped = int((~card_rec["keep"][0]).sum())
+
+    def same_as(other):
+        return bits_equal(torch, card_out, other[0]) and all(
+            len(card_rec[k]) == len(other[1][k]) and all(
+                bits_equal(torch, a, b)
+                for a, b in zip(card_rec[k], other[1][k]))
+            for k in card_rec)
+
+    vs_cpu, vs_glob = same_as((cpu_out, cpu_rec)), same_as((glob_out,
+                                                            glob_rec))
+    n_codes = sum(c.numel() for c in card_rec["codes"])
+    print(f"  {MOE_ARCH} layer (d_model {mcfg.d_model}, {mcfg.n_experts} "
+          f"experts, top-{mcfg.top_k}, d_ff_expert {mcfg.d_ff}, w8a8) on "
+          f"{tokens} tokens through moe_shard_map on {describe(mesh)}: "
+          f"{dropped} of {tokens * mcfg.top_k} assignments dropped over "
+          f"capacity; {n_codes} int8 codes in {len(card_rec['codes'])} "
+          f"activations; vs the CPU's plain path "
+          f"{'bitwise' if vs_cpu else 'DIFFERENT'} (experts, drops, codes, "
+          f"output; the CPU call {cpu_s:.1f} s), vs moe_apply on the card "
+          f"{'bitwise' if vs_glob else 'DIFFERENT'}; Q-MAC launches "
+          f"{qcounts}; {ms:.4f} ms a call, moe_apply {glob_ms:.4f} ms, on "
+          f"{card}; the layer drawn in {draw_s:.1f} s")
+    if qcounts != {"qmac_i8_deq": 0, "qmac_i8": 0, "qmac_i8_deq_bmm": 3}:
+        raise AssertionError(f"moe_shard_map launched {qcounts}, not 3 "
+                             "qmac_i8_deq_bmm")
+    if not (vs_cpu and vs_glob):
+        raise AssertionError("moe_shard_map on the card differs from the "
+                             "CPU or from moe_apply")
+    del on_card, xc, layer
+    torch.cuda.empty_cache()
+    print(f"phase 19 launches: {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4977,11 +5227,15 @@ def main() -> int:
     lap("phase 15 (serving mamba2-2.7b and recurrentgemma-9b)")
     moe_launches = moe_serving(torch, dev, card)
     lap("phase 16 (serving qwen3-moe-30b-a3b, and mixtral-8x22b reduced)")
-    lm_train_launches = lm_training(torch, dev, card)
+    lm_train_launches, trained = lm_training(torch, dev, card)
     lm_train_card_vs_cpu(torch, dev)
     lap("phase 17 (training TinyLlama-1.1B, every family card vs CPU)")
     fleet_launches = sharded_fleet(torch, dev, card)
     lap("phase 18 (the sharded actor-learner fleet)")
+    layout_launches = lm_layout(torch, dev, card, trained)
+    del trained
+    lap("phase 19 (the LM layout: the mesh's training step, the MoE "
+        "dispatch)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -5014,7 +5268,8 @@ def main() -> int:
                    "recurrentgemma_serving": ssm_launches[HYBRID_ARCH][name],
                    "moe_serving": moe_launches[name],
                    "lm_training": lm_train_launches[name],
-                   "sharded_fleet": fleet_launches[name]}
+                   "sharded_fleet": fleet_launches[name],
+                   "lm_layout": layout_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -5029,7 +5284,8 @@ def main() -> int:
                      "recurrentgemma_serving": ssm_launches[HYBRID_ARCH],
                      "moe_serving": moe_launches,
                      "lm_training": lm_train_launches,
-                     "sharded_fleet": fleet_launches}
+                     "sharded_fleet": fleet_launches,
+                     "lm_layout": layout_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

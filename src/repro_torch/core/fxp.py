@@ -91,9 +91,9 @@ def quantize_eq1(w: Tensor, n: int = 8) -> Tuple[Tensor, Tensor]:
     return q, scale
 
 
-def _fake_quant_fwd(x: Tensor, bits: int,
-                    channel_axis: Optional[int]) -> Tensor:
-    q, s = quantize(x, bits, channel_axis)
+def _fake_quant_fwd(x: Tensor, bits: int, channel_axis: Optional[int],
+                    scale: Optional[Tensor] = None) -> Tensor:
+    q, s = quantize(x, bits, channel_axis, scale)
     return dequantize(q, s, x.dtype)
 
 
@@ -117,13 +117,14 @@ class _StraightThrough(torch.autograd.Function):
         return (None, g) + (None,) * (len(ctx.needs_input_grad) - 2)
 
 
-def fake_quant(x: Tensor, bits: int,
-               channel_axis: Optional[int] = None) -> Tensor:
-    """Quantize-dequantize on the ``quantize`` grid, with a
-    straight-through gradient."""
+def fake_quant(x: Tensor, bits: int, channel_axis: Optional[int] = None,
+               scale: Optional[Tensor] = None) -> Tensor:
+    """Quantize-dequantize on the ``quantize`` grid (of ``scale`` where
+    given), with a straight-through gradient."""
     if bits == 32:
         return x
-    return _StraightThrough.apply(_fake_quant_fwd, x, bits, channel_axis)
+    return _StraightThrough.apply(_fake_quant_fwd, x, bits, channel_axis,
+                                  scale)
 
 
 def fake_quant_rowwise(x: Tensor, bits: int) -> Tensor:

@@ -30,8 +30,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import exact
-from repro_torch.core.fxp import div_scalar, fake_quant
+from repro_torch.core.fxp import div_scalar, fake_quant, fxp_qmax
 from repro_torch.core.policy import QuantPolicy, cordic_iterations
+from repro_torch.distributed.sharding import across_slots, current_mesh, pmax
 
 Tensor = torch.Tensor
 
@@ -178,5 +179,18 @@ def activation(x: Tensor, kind: str, policy: Optional[QuantPolicy] = None,
         else:
             out = vact_ops.vact(x, kind, n)
     if policy is not None and policy.quantized_a and kind != "softmax":
-        out = fake_quant(out, policy.a_bits)
+        out = _requantize(out, policy.a_bits)
     return out.to(x.dtype)
+
+
+def _requantize(x: Tensor, bits: int) -> Tensor:
+    """``fake_quant`` on the tensor-wide grid.  Where the ranks of a mesh
+    each hold their rows of the batch, the grid's absmax is the whole
+    batch's (the max over the data slots), as the reference's global
+    program takes it; inside a per-slot body (``sharding.manual``) and
+    off a mesh it is the tensor's own."""
+    if not across_slots():
+        return fake_quant(x, bits)
+    amax = pmax(x.abs().amax(), current_mesh())
+    scale = div_scalar(torch.clamp_min(amax, 1e-12), fxp_qmax(bits))
+    return fake_quant(x, bits, scale=scale.reshape((1,) * x.ndim))

@@ -1,58 +1,155 @@
-"""The data axes of a mesh and the sharded map over them (port of the
-parts of ``repro.distributed.sharding`` the RL fleet runs).
+"""Sharding on ``torch.distributed`` (port of
+``repro.distributed.sharding``): the logical-axis layout of the LM
+params, the data axes of a mesh and the sharded map over them.
 
-``shard_map`` is the counterpart of the reference's: each rank takes its
-rows of the global ``[B, ...]`` inputs (the slot's share of the data
-axes), runs the body, and the outputs come back as the global tensors,
-gathered in slot order, on every rank.  The collectives that reduce
-(``psum``, ``pmax``) also gather in slot order and then sum (or take the
-max) on the device in that order, never through a backend's
-``all_reduce``: the result depends on the slot count alone, never on
-the backend's ring, and at one slot ``psum(x)`` is ``x`` bit for bit.
-The RL fleet's gradients and trajectories are kilobytes, so the extra
-bytes of a gather over a reduction do not matter.
+**Layout.**  Parameters carry *logical* axis names (``nn.module.Param``;
+each LM family's ``param_axes``).  A rule table maps each name to mesh
+axes (``BASE_RULES``, overridden per arch by
+``models.registry.sharding_rules``); ``spec_for`` turns one axes tuple
+into a :class:`PartitionSpec` and ``make_shardings`` a whole tree into
+:class:`NamedSharding` objects, a QTensor's scale following its
+payload's last dimension.  Specs need only the mesh's axis names and
+sizes (:class:`MeshShape`), so those of the (16, 16) and (2, 16, 16)
+production meshes are computed without 256 or 512 ranks.  On a live
+``DeviceMesh`` a spec becomes DTensor placements (``placements``:
+``Shard(d)`` or ``Replicate()`` on each mesh dimension), and
+``distribute`` / ``gather`` lay a tree out with ``distribute_tensor``
+and bring it back whole.  ``mesh_rules`` sets the mesh and rules that
+``constrain`` reads: the reference's in-graph layout hints.  Each rank
+here computes on its own rows of plain tensors, so on a plain tensor
+``constrain`` returns its input; a DTensor it redistributes to the
+spec's placements.
 
-Logical-axis rules (``make_shardings``, ``spec_for``, ``mesh_rules``,
-``constrain``) belong to the LM layout and are not ported here.
+**The data axes.**  ``shard_map`` is the counterpart of the
+reference's: each rank takes its rows of the global ``[B, ...]`` inputs
+(the slot's share of the data axes), runs the body, and the outputs
+come back as the global tensors, gathered in slot order, on every rank.
+The collectives that reduce (``psum``, ``pmax``, ``ordered_sum`` of a
+gather) gather in order and then sum (or take the max) on the device
+in that order, never through a backend's ``all_reduce``: the result
+depends on the slot count alone, never on the backend's ring, and at
+one slot ``psum(x)`` is ``x`` bit for bit.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import contextlib
+import dataclasses
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.tree import (is_namedtuple, tree_leaves, tree_map,
+from repro_torch.core.fxp import QTensor, is_qtensor
+from repro_torch.nn.module import is_axes
+from repro_torch.tree import (is_namedtuple, leaves_with_path,
+                              map_with_path, tree_leaves, tree_map,
                               tree_unflatten)
 
 Tensor = torch.Tensor
+AxisName = Union[str, Tuple[str, ...], None]
+
+# Base logical->mesh rules.  Per-arch overrides replace entries (e.g.
+# kv_heads -> "model" only when divisible; experts -> "model" for EP).
+BASE_RULES: Dict[str, AxisName] = {
+    "batch": "__data__",      # expands to ("pod","data") when present
+    "seq": None,              # flip to "model" for sequence parallelism
+    # FSDP/ZeRO-3: the d_model dim of every weight over the data axis
+    "d_model": "data",
+    "heads": "model",
+    "kv_heads": None,
+    "d_ff": "model",
+    "d_ff_expert": "model",
+    "experts": None,
+    "d_inner": "model",
+    "vocab": "model",
+    "layers": None,
+}
 
 
-def data_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes: all a spec is computed from."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes, strict=True))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
 
 
-def data_axis_size(mesh: DeviceMesh) -> int:
+def mesh_shape(mesh) -> MeshShape:
+    """The names and sizes of a ``DeviceMesh`` (a ``MeshShape`` as it
+    is)."""
+    if isinstance(mesh, MeshShape):
+        return mesh
+    return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+
+
+class PartitionSpec(tuple):
+    """The reference's ``PartitionSpec``: one entry a tensor dimension,
+    each a mesh axis name, a tuple of names, or ``None``."""
+
+    def __new__(cls, *entries: AxisName):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (a ``DeviceMesh``, or a ``MeshShape`` whose specs
+    are computed but not laid out)."""
+
+    mesh: object
+    spec: PartitionSpec
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    return mesh.axis_names if isinstance(mesh, MeshShape) \
+        else tuple(mesh.mesh_dim_names)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in _axis_names(mesh))
+
+
+def data_axis_size(mesh) -> int:
     """Total number of data-parallel slots (product of data-like axes)."""
+    shape = mesh_shape(mesh).shape
     n = 1
     for a in data_axes(mesh):
-        n *= mesh.mesh.shape[mesh.mesh_dim_names.index(a)]
+        n *= shape[a]
     return n
 
 
-def batch_spec(mesh: DeviceMesh, extra_dims: int = 1,
-               batch_size: Optional[int] = None) -> tuple:
-    """The reference's ``PartitionSpec`` for [batch, ...] inputs, as a
-    tuple: the batch dim over all data axes, the rest unsharded.  A
-    ``batch_size`` that does not divide the data axes replicates the
-    batch dim."""
+def batch_spec(mesh, extra_dims: int = 1,
+               batch_size: Optional[int] = None) -> PartitionSpec:
+    """The spec of [batch, ...] inputs: the batch dim over all data
+    axes, the rest unsharded.  A ``batch_size`` that does not divide the
+    data axes replicates the batch dim."""
     ax = data_axes(mesh)
     if ax and batch_size is not None and batch_size % data_axis_size(mesh):
         ax = ()
-    # as ``PartitionSpec`` holds it: one axis by its name
-    entry = (ax[0] if len(ax) == 1 else ax) if ax else None
-    return (entry,) + (None,) * extra_dims
+    return P(_entry(ax), *([None] * extra_dims))
+
+
+def _entry(ax: Tuple[str, ...]) -> AxisName:
+    """Mesh axes as ``PartitionSpec`` holds them: one axis by its name."""
+    return (ax[0] if len(ax) == 1 else ax) if ax else None
 
 
 def slot_index(mesh: DeviceMesh) -> int:
@@ -68,20 +165,39 @@ def slot_index(mesh: DeviceMesh) -> int:
     return idx
 
 
-def data_group(mesh: DeviceMesh):
-    """The process group of the mesh's data axes."""
-    axes = data_axes(mesh)
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
+    """The process group of this rank's peers over ``axes`` (the
+    others fixed), ranked row-major over them."""
+    axes = tuple(axes)
     if not axes:
-        raise ValueError(f"mesh {mesh.mesh_dim_names} has no data axes")
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no such axes")
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()
 
 
-def gather_slots(x: Tensor, mesh: DeviceMesh) -> List[Tensor]:
-    """Every slot's ``x`` (same shape and dtype on each), in slot order.
-    int16, which neither gloo nor NCCL gathers, travels as its bytes."""
-    group = data_group(mesh)
+def data_group(mesh: DeviceMesh):
+    """The process group of the mesh's data axes."""
+    axes = data_axes(mesh)
+    if not axes:
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no data axes")
+    return axes_group(mesh, axes)
+
+
+def axis_index(mesh: DeviceMesh, axis: str) -> int:
+    """This rank's coordinate along ``axis``."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    return coord[mesh.mesh_dim_names.index(axis)]
+
+
+def gather_over(x: Tensor, mesh: DeviceMesh,
+                axes: Sequence[str]) -> List[Tensor]:
+    """Every peer's ``x`` over ``axes`` (same shape and dtype on each),
+    in their order.  int16, which neither gloo nor NCCL gathers, travels
+    as its bytes."""
+    group = axes_group(mesh, axes)
     n = dist.get_world_size(group)
     shape, dtype = x.shape, x.dtype
     wire = x.reshape(-1).contiguous()
@@ -94,13 +210,24 @@ def gather_slots(x: Tensor, mesh: DeviceMesh) -> List[Tensor]:
     return [p.reshape(shape) for p in parts]
 
 
-def psum(x: Tensor, mesh: DeviceMesh) -> Tensor:
-    """Sum over the slots, added in slot order on the device."""
-    parts = gather_slots(x, mesh)
+def gather_slots(x: Tensor, mesh: DeviceMesh) -> List[Tensor]:
+    """Every slot's ``x`` (same shape and dtype on each), in slot order."""
+    if not data_axes(mesh):
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no data axes")
+    return gather_over(x, mesh, data_axes(mesh))
+
+
+def ordered_sum(parts: Sequence[Tensor]) -> Tensor:
+    """``parts[0] + parts[1] + ...``, added in that order."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p
     return total
+
+
+def psum(x: Tensor, mesh: DeviceMesh) -> Tensor:
+    """Sum over the slots, added in slot order on the device."""
+    return ordered_sum(gather_slots(x, mesh))
 
 
 def pmax(x: Tensor, mesh: DeviceMesh) -> Tensor:
@@ -175,7 +302,8 @@ def shard_map(f: Callable, mesh: DeviceMesh, in_specs, out_specs
     def run(*args):
         local = [a if s is None else local_rows(a, mesh, s)
                  for a, s in zip(args, in_specs, strict=True)]
-        out = f(*local)
+        with manual():
+            out = f(*local)
         return _map_spec(
             lambda s, t: t if s is None else gather_rows(t, mesh, s),
             out_specs, out)
@@ -189,3 +317,184 @@ def fence(mesh: DeviceMesh, device: torch.device) -> None:
         torch.cuda.synchronize(device)
     dist.barrier(group=data_group(mesh))
 
+
+
+# ---------------------------------------------------------------------------
+# logical-axis layout
+# ---------------------------------------------------------------------------
+
+def resolve(rules: Dict[str, AxisName], name: Optional[str],
+            mesh) -> AxisName:
+    """The mesh axes of one logical name under ``rules`` (``None`` where
+    the rule names an axis the mesh lacks)."""
+    if name is None:
+        return None
+    r = rules.get(name, None)
+    if r == "__data__":
+        ax = data_axes(mesh)
+        return ax if ax else None
+    if isinstance(r, str) and r not in _axis_names(mesh):
+        return None
+    return r
+
+
+def spec_for(axes, rules: Dict[str, AxisName], mesh) -> PartitionSpec:
+    """The spec of one axes tuple.  A mesh axis may appear once in a
+    spec (``seq`` under sequence parallelism collides with ``vocab``):
+    the first dimension to claim it keeps it."""
+    if axes is None:
+        return P()
+    resolved, used = [], set()
+    for a in axes:
+        r = resolve(rules, a, mesh)
+        flat = r if isinstance(r, tuple) else (r,) if r else ()
+        if any(f in used for f in flat):
+            r = None
+        else:
+            used.update(flat)
+        resolved.append(_entry(r) if isinstance(r, tuple) else r)
+    return P(*resolved)
+
+
+def make_shardings(params_like, axes_tree, mesh,
+                   rules: Optional[Dict[str, AxisName]] = None):
+    """A :class:`NamedSharding` tree matching ``params_like`` (tensors,
+    ``meta`` tensors or QTensors); ``axes_tree`` holds the logical axes
+    of the (pre-quantization) weights.  A QTensor's payload takes the
+    weight's spec and its scale the payload's last entry on its last
+    dimension, its broadcast dimensions unsharded."""
+    rules = dict(BASE_RULES, **(rules or {}))
+    axes_at = dict(leaves_with_path(axes_tree, is_leaf=is_axes))
+
+    def one(path, leaf):
+        spec = spec_for(axes_at.get(path), rules, mesh)
+        if isinstance(leaf, QTensor):
+            n = leaf.scale.ndim
+            last = spec[-1] if len(spec) else None
+            s_spec = P(*([None] * (n - 1) + [last])) if n else P()
+            return QTensor(NamedSharding(mesh, spec),
+                           NamedSharding(mesh, s_spec), leaf.bits)
+        return NamedSharding(mesh, spec)
+
+    return map_with_path(one, params_like, is_leaf=is_qtensor)
+
+
+def placements(spec: PartitionSpec, mesh: DeviceMesh):
+    """DTensor placements of ``spec`` on a live mesh: on each mesh
+    dimension ``Shard(d)`` for the tensor dimension ``d`` it splits, or
+    ``Replicate()``.  A dimension over several mesh axes is split over
+    them in the mesh's order, outer first, as ``("pod", "data")`` is."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else \
+            (entry,) if entry else ()
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec} splits dimension {d} over "
+                             f"{axes}, not in the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def _sharded(fn: Callable, tree, shardings):
+    """``fn(tensor, sharding)`` over the leaves of ``tree``, a QTensor's
+    payload and scale each with its own sharding."""
+    at = dict(leaves_with_path(shardings, is_leaf=is_qtensor))
+
+    def one(path, leaf):
+        s = at[path]
+        if isinstance(leaf, QTensor):
+            return QTensor(fn(leaf.qvalue, s.qvalue), fn(leaf.scale, s.scale),
+                           leaf.bits)
+        return fn(leaf, s)
+
+    return map_with_path(one, tree, is_leaf=is_qtensor)
+
+
+def distribute(tree, shardings):
+    """Every leaf of a replicated ``tree`` as a DTensor laid out by its
+    :class:`NamedSharding`: each rank keeps its shard of its own copy
+    (no data moves)."""
+    from torch.distributed.tensor import distribute_tensor
+    return _sharded(lambda t, s: distribute_tensor(
+        t, s.mesh, placements(s.spec, s.mesh), src_data_rank=None), tree,
+        shardings)
+
+
+def gather(tree):
+    """Every DTensor leaf of ``tree`` whole again, on every rank (an
+    all-gather; nothing is reduced)."""
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    return tree_map(lambda x: QTensor(full(x.qvalue), full(x.scale), x.bits)
+                    if isinstance(x, QTensor) else full(x), tree,
+                    is_leaf=is_qtensor)
+
+
+# ---------------------------------------------------------------------------
+# activation constraints via a thread-local mesh/rules context
+# ---------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_rules(mesh, rules: Optional[Dict[str, AxisName]] = None):
+    """Within the block, ``current_mesh()`` is ``mesh`` and ``constrain``
+    reads ``rules`` over the base rules (no mesh: no context)."""
+    prev = getattr(_ctx, "state", None)
+    _ctx.state = (mesh, dict(BASE_RULES, **(rules or {}))) if mesh \
+        else None
+    try:
+        yield
+    finally:
+        _ctx.state = prev
+
+
+def current_mesh():
+    state = getattr(_ctx, "state", None)
+    return state[0] if state else None
+
+
+@contextlib.contextmanager
+def manual():
+    """Within the block, a rank computes as one slot of a ``shard_map``
+    body does: its statistics are its own (``across_slots`` is false)."""
+    prev = getattr(_ctx, "manual", False)
+    _ctx.manual = True
+    try:
+        yield
+    finally:
+        _ctx.manual = prev
+
+
+def across_slots() -> bool:
+    """Whether a tensor-wide statistic here spans the data slots: under
+    a mesh of more than one slot, outside ``manual``.  The reference's
+    global program takes such a statistic over the whole batch; off a
+    mesh, at one slot and in a per-slot body, a rank's own tensor is
+    the whole of it."""
+    mesh = current_mesh()
+    return mesh is not None and not getattr(_ctx, "manual", False) \
+        and data_axis_size(mesh) > 1
+
+
+def constrain(x, axes: Tuple[Optional[str], ...]):
+    """The reference's layout hint.  A plain tensor holds this rank's
+    own rows and comes back as it is; a DTensor is redistributed to the
+    spec of ``axes`` on its mesh.  Neither changes a value."""
+    state = getattr(_ctx, "state", None)
+    if state is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh, rules = state
+    spec = spec_for(axes, rules, mesh)
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.qconv import ref as _ref
 from repro_torch.kernels.qconv.ref import same_pads, valid_out
 
 Tensor = torch.Tensor
@@ -241,3 +242,6 @@ def qconv2d_i8(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor, b: Tensor,
 
 
 qconv2d_i8.launches = 0
+
+# the oracles, re-exported for tests, as the reference's ops do
+ref_qconv2d_i8 = _ref.qconv2d_i8

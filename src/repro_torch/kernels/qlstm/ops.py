@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.vact import cordic_sigmoid, cordic_tanh
 from repro_torch.kernels import _build
+from repro_torch.kernels.qlstm import ref as _ref
 from repro_torch.kernels.qmac.ops import qmac_i8_plain
 from repro_torch.kernels.vact.ops import CordicParams, cordic_params
 
@@ -192,3 +193,6 @@ def qlstm_cell(qx, sx, qh, sh, qw, sw, qu, su, b, c, *,
 
 
 qlstm_cell.launches = 0
+
+# the oracles, re-exported for tests, as the reference's ops do
+ref_qlstm_cell = _ref.qlstm_cell

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.qmac import ref as _ref
 
 Tensor = torch.Tensor
 
@@ -287,3 +288,7 @@ def qmac_i8_deq_bmm(qx: Tensor, sx: Tensor, qw: Tensor,
 qmac_i8.launches = 0
 qmac_i8_deq.launches = 0
 qmac_i8_deq_bmm.launches = 0
+
+# the oracles, re-exported for tests, as the reference's ops do
+ref_qmac_i8 = _ref.qmac_i8
+ref_qmac_i8_deq = _ref.qmac_i8_deq

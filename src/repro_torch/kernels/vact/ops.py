@@ -418,3 +418,7 @@ def vact_q8(qx: Tensor, sx: Tensor, kind: str, n_iters: int) -> Tensor:
 vact_ew.launches = 0
 vact_softmax.launches = 0
 vact_q8.launches = 0
+
+# the oracles, re-exported for tests, as the reference's ops do
+ref_vact = _ref.vact
+ref_vact_q8 = _ref.vact_q8

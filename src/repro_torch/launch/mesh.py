@@ -27,6 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import MeshShape
 
 # the ranks' layout of the reference's meshes
 HOST_AXES = ("data", "model")
@@ -102,6 +103,13 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The production mesh's names and sizes, from which its specs are
+    computed without the 256 or 512 ranks a live mesh needs."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    return MeshShape(names, shape)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: DeviceLike = None) -> DeviceMesh:
     """The reference's production mesh, (16, 16) over ("data", "model")
@@ -133,6 +141,23 @@ def make_host_mesh(n_devices: Optional[int] = None,
         raise ValueError(f"n_devices={n_devices} but this host exposes "
                          f"{have} device(s)")
     return _GROUP.mesh(dev, (n, 1), HOST_AXES)
+
+
+def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
+              device: DeviceLike = None) -> DeviceMesh:
+    """The first ``prod(shape)`` ranks as a mesh of ``shape`` over
+    ``names``, row-major (as ``jax.make_mesh`` lays out host devices):
+    a (2, 4) mesh over ("data", "model") puts rank ``r`` at (r // 4,
+    r % 4)."""
+    dev = resolve_device(device)
+    need = 1
+    for s in shape:
+        need *= s
+    have = world_size(dev)
+    if need > have:
+        raise ValueError(f"a mesh {dict(zip(names, shape))} needs {need} "
+                         f"ranks; this world has {have}")
+    return _GROUP.mesh(dev, tuple(shape), tuple(names))
 
 
 def in_mesh(mesh: DeviceMesh) -> bool:

@@ -30,8 +30,10 @@ one fp32 tree can PTQ it per policy (:func:`ptq`) and call
 As in the reference, ``--smoke`` is ``store_true`` with a default of
 True, so the CLI always serves the reduced config; the published widths
 are reached through ``serve(arch, smoke=False)``.  The reference's
-``make_host_mesh`` and sharding hints are not ported (with one device
-they change nothing); the sharded paths bring them.
+``serve`` imports ``make_host_mesh`` and never calls it: it serves on
+one device with no mesh, and so does this one.  (A caller who wants a
+mesh builds ``launch.steps.make_prefill_step`` / ``make_decode_step``
+on one.)
 """
 from __future__ import annotations
 

@@ -20,11 +20,19 @@ second time; the port names both by the steps taken.
 As in the reference, ``--smoke`` is ``store_true`` with a default of
 True, so the CLI always trains the reduced config; the published widths
 are reached through ``train(arch, smoke=False)``.  Runs on the card
-unless ``device="cpu"`` / ``--device cpu`` is given.  The reference's
-host mesh and parameter shardings are not ported (with one device they
-change nothing); the sharded paths bring them.  Like the reference,
-``train("whisper-large-v3")`` raises ``KeyError: 'frames'``: the
-synthetic batches carry no audio frames.
+unless ``device="cpu"`` / ``--device cpu`` is given.
+
+The loop always runs on the host mesh (``launch.mesh.make_host_mesh``),
+as the reference's does: one rank without ``torchrun``, N under
+``torchrun --nproc-per-node N`` (NCCL on the card, gloo on the CPU).
+Every rank draws the same params from ``seed`` and keeps them
+replicated; each step ``data.place`` lays out the batch, so a rank
+holds its slot's rows, and ``launch.steps.make_train_step`` averages
+the slots' losses and gradients.  Rank 0 alone prints and writes checkpoints;
+every rank waits for each save, and every rank restores the newest
+checkpoint on a resume.  At one rank the run is the unsharded run bit
+for bit.  Like the reference, ``train("whisper-large-v3")`` raises
+``KeyError: 'frames'``: the synthetic batches carry no audio frames.
 """
 from __future__ import annotations
 
@@ -37,19 +45,13 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.policy import get_policy
-from repro_torch.data import DataConfig, batch_at
+from repro_torch.data import DataConfig, batch_at, place
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import fence
+from repro_torch.launch.mesh import describe, make_host_mesh, rank
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.registry import model_for
 from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
-
-
-def describe(dev: torch.device) -> str:
-    """The device the loop runs on, where the reference names its
-    mesh."""
-    if dev.type == "cuda":
-        return f"{dev.type} ({torch.cuda.get_device_name(dev)})"
-    return dev.type
 
 
 def train(arch: str, steps: int = 50, smoke: bool = True,
@@ -66,9 +68,11 @@ def train(arch: str, steps: int = 50, smoke: bool = True,
         cfg = cfg.reduced()
     policy = get_policy(policy_name) if policy_name else None
     dev = resolve_device(device)
+    mesh = make_host_mesh(device=dev)
     model = model_for(cfg)
-    print(f"training {cfg.name} on {describe(dev)} "
-          f"policy={policy_name}")
+    lead = rank() == 0
+    log = print if lead else (lambda *a, **kw: None)
+    log(f"training {cfg.name} on {describe(mesh)} policy={policy_name}")
 
     # init (or resume)
     params = model.init(torch.Generator().manual_seed(seed), cfg,
@@ -81,34 +85,40 @@ def train(arch: str, steps: int = 50, smoke: bool = True,
         if mgr.latest_step() is not None:
             (params, opt_state), start_step = mgr.restore(
                 (params, opt_state))[0], mgr.latest_step()
-            print(f"resumed from step {start_step}")
+            log(f"resumed from step {start_step}")
 
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                       global_batch=batch, seed=seed)
     sched = warmup_cosine(lr, max(steps // 10, 1), steps)
-    step_fn = make_train_step(cfg, None, policy,
+    step_fn = make_train_step(cfg, mesh, policy,
                               AdamWConfig(weight_decay=0.0),
                               schedule=sched)
+
+    def save(step):
+        # rank 0 writes; every rank waits for the file before going on
+        if lead:
+            mgr.save(step, (params, opt_state))
+        fence(mesh, dev)
 
     t0 = time.time()
     tokens_per_batch = seq_len * batch
     losses = []
     for step in range(start_step, steps):
-        data = {k: v.to(dev) for k, v in batch_at(dcfg, step).items()}
+        data = place(batch_at(dcfg, step), mesh)
         params, opt_state, stats = step_fn(params, opt_state, data)
         if step % log_every == 0 or step == steps - 1:
             loss = float(stats["loss"])
             losses.append(loss)
             dt = time.time() - t0
-            print(f"step {step:5d}  loss {loss:8.4f}  "
-                  f"gnorm {float(stats['grad_norm']):7.3f}  "
-                  f"{(step - start_step + 1) * tokens_per_batch / max(dt, 1e-9):8.0f} tok/s")
+            log(f"step {step:5d}  loss {loss:8.4f}  "
+                f"gnorm {float(stats['grad_norm']):7.3f}  "
+                f"{(step - start_step + 1) * tokens_per_batch / max(dt, 1e-9):8.0f} tok/s")
         # a checkpoint is named by the steps it holds, as the final one
         # is, so a resume from it takes the next step, not this one again
         if mgr and mgr.should_save(step + 1) and step + 1 < steps:
-            mgr.save(step + 1, (params, opt_state))
+            save(step + 1)
     if mgr:
-        mgr.save(steps, (params, opt_state))
+        save(steps)
     return params, losses
 
 

@@ -1,9 +1,8 @@
-"""Shared model plumbing: stacked layer init, the LM head, losses
-(port of ``repro.models.common``, forward only).
+"""Shared model plumbing: stacked layer init and axes, the LM head,
+losses (port of ``repro.models.common``, forward only).
 
-The reference's ``distributed.sharding.constrain`` layout hints are
-dropped: with no mesh they return their input, and the sharded paths
-bring them back.
+The reference's ``distributed.sharding.constrain`` layout hints stand
+at its sites; on a rank's plain tensors they return their input.
 """
 from __future__ import annotations
 
@@ -14,7 +13,9 @@ import torch
 from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar
 from repro_torch.core.qmatmul import q_matmul
+from repro_torch.distributed.sharding import constrain
 from repro_torch.nn.linear import embedding_attend
+from repro_torch.nn.module import is_axes
 from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 
 Tensor = torch.Tensor
@@ -37,6 +38,13 @@ def stack_init(block_init_fn: Callable, gen: torch.Generator, n: int,
                          skeleton)
 
 
+def stack_axes(block_axes):
+    """A block's axes tree with the leading ``"layers"`` axis that
+    :func:`stack_init` gives every leaf."""
+    return tree_map(lambda a: ("layers",) + tuple(a), block_axes,
+                    is_leaf=is_axes)
+
+
 def cross_entropy(logits: Tensor, labels: Tensor,
                   mask: Optional[Tensor] = None) -> Tensor:
     """Mean next-token CE: logsumexp minus the label logit."""
@@ -56,6 +64,7 @@ def chunked_ce(head_fn: Callable, x: Tensor, labels: Tensor,
     never whole; the sums run over the chunks in order, as the
     reference's scan carries them."""
     B, S, _ = x.shape
+    x = constrain(x, ("batch", None, None))        # gather seq under SP
     if chunk is None or S <= chunk or S % chunk != 0:
         return cross_entropy(head_fn(x), labels, mask)
     tot = x.new_zeros((), dtype=torch.float32)
@@ -91,6 +100,7 @@ def logits_from_hidden(x: Tensor, head, tie_emb, policy,
                        n_valid: Optional[int] = None) -> Tensor:
     """Final projection to fp32 logits; padded vocab columns (see
     ``configs.base.pad_vocab``) get -1e9."""
+    x = constrain(x, ("batch", None, None))
     if tie_emb is not None:
         logits = embedding_attend(tie_emb, x, policy)
     else:
@@ -99,4 +109,4 @@ def logits_from_hidden(x: Tensor, head, tie_emb, policy,
     if n_valid is not None and n_valid < logits.shape[-1]:
         cols = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits + torch.where(cols < n_valid, 0.0, -1e9)
-    return logits
+    return constrain(logits, ("batch", None, "vocab"))

@@ -34,15 +34,18 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
-                                       sinusoidal_positions, stack_init)
+                                       sinusoidal_positions, stack_axes,
+                                       stack_init)
 from repro_torch.models.transformer import layers, stack_caches
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
-                                      attention_decode, attention_init,
-                                      cache_update, init_cache, project_kv)
-from repro_torch.nn.linear import (embedding_apply, embedding_init,
-                                   linear_init)
-from repro_torch.nn.mlp import mlp_apply, mlp_init
-from repro_torch.nn.norm import layernorm_apply, layernorm_init
+                                      attention_axes, attention_decode,
+                                      attention_init, cache_update,
+                                      init_cache, project_kv)
+from repro_torch.nn.linear import (embedding_apply, embedding_axes,
+                                   embedding_init, linear_axes, linear_init)
+from repro_torch.nn.mlp import mlp_apply, mlp_axes, mlp_init
+from repro_torch.nn.norm import (layernorm_apply, layernorm_axes,
+                                 layernorm_init)
 
 Tensor = torch.Tensor
 
@@ -93,6 +96,22 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
         "lm_head": linear_init(gen, cfg.d_model, v_pad, bias=False,
                                dtype=dtype, device=dev),
     }
+
+
+def param_axes(cfg: ArchConfig):
+    """The reference's logical axes of :func:`init`'s tree."""
+    enc = {"ln1": layernorm_axes(),
+           "attn": attention_axes(_acfg(cfg, causal=False)),
+           "ln2": layernorm_axes(), "mlp": mlp_axes()}
+    dec = {"ln1": layernorm_axes(),
+           "self": attention_axes(_acfg(cfg, causal=True)),
+           "ln_x": layernorm_axes(),
+           "cross": attention_axes(_acfg(cfg, causal=False, cross=True)),
+           "ln2": layernorm_axes(), "mlp": mlp_axes()}
+    return {"embed": embedding_axes(("vocab", "d_model")),
+            "enc_blocks": stack_axes(enc), "dec_blocks": stack_axes(dec),
+            "ln_enc": layernorm_axes(), "ln_dec": layernorm_axes(),
+            "lm_head": linear_axes(("d_model", "vocab"), False)}
 
 
 @functools.lru_cache(maxsize=16)

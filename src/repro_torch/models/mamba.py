@@ -20,13 +20,14 @@ import torch
 from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import chunked_ce, stack_init
+from repro_torch.models.common import chunked_ce, stack_axes, stack_init
 from repro_torch.models.transformer import (_embed, _head, layers,
                                             stack_caches)
-from repro_torch.nn.linear import embedding_init, linear_init
-from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
-from repro_torch.nn.ssm import SSMConfig, ssm_apply, ssm_init, \
-    ssm_init_state
+from repro_torch.nn.linear import (embedding_axes, embedding_init,
+                                   linear_axes, linear_init)
+from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
+from repro_torch.nn.ssm import (SSMConfig, ssm_apply, ssm_axes, ssm_init,
+                                ssm_init_state)
 
 Tensor = torch.Tensor
 
@@ -60,6 +61,15 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
         "lm_head": linear_init(gen, cfg.d_model, v_pad, bias=False,
                                dtype=dtype, device=dev),
     }
+
+
+def param_axes(cfg: ArchConfig):
+    """The reference's logical axes of :func:`init`'s tree."""
+    del cfg
+    return {"embed": embedding_axes(("vocab", "d_model")),
+            "blocks": stack_axes({"ln": rmsnorm_axes(), "ssm": ssm_axes()}),
+            "ln_f": rmsnorm_axes(),
+            "lm_head": linear_axes(("d_model", "vocab"), False)}
 
 
 def forward(params, tokens: Tensor, cfg: ArchConfig,

@@ -24,18 +24,19 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.vact import activation
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import chunked_ce, stack_init
+from repro_torch.models.common import chunked_ce, stack_axes, stack_init
 from repro_torch.models.transformer import (_embed, _head, _positions,
                                             layers, stack_caches)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
-                                      attention_decode, attention_init,
-                                      init_cache)
+                                      attention_axes, attention_decode,
+                                      attention_init, init_cache)
 from repro_torch.nn.conv import causal_conv1d_apply
-from repro_torch.nn.linear import (embedding_init, linear_apply,
-                                   linear_init)
-from repro_torch.nn.mlp import swiglu_apply, swiglu_init
-from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
+from repro_torch.nn.linear import (embedding_axes, embedding_init,
+                                   linear_apply, linear_axes, linear_init)
+from repro_torch.nn.mlp import swiglu_apply, swiglu_axes, swiglu_init
+from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
 from repro_torch.nn.rglru import (recurrent_block_apply,
+                                  recurrent_block_axes,
                                   recurrent_block_init,
                                   recurrent_block_init_state, rglru_apply)
 from repro_torch.tree import tree_map
@@ -123,6 +124,32 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
                                    _sub_init(gen, kind, cfg, dtype))
                           for kind in tail]
     return params
+
+
+def _sub_axes(kind: str, cfg: ArchConfig):
+    p = {"ln1": rmsnorm_axes(), "ln2": rmsnorm_axes(),
+         "mlp": swiglu_axes()}
+    if kind == "R":
+        p["rec"] = recurrent_block_axes()
+    else:
+        p["attn"] = attention_axes(attn_config(cfg))
+    return p
+
+
+def param_axes(cfg: ArchConfig):
+    """The reference's logical axes of :func:`init`'s tree: the
+    super-blocks stacked, the tail's layers not."""
+    pat, _, tail = _layout(cfg)
+    axes = {
+        "embed": embedding_axes(("vocab", "d_model")),
+        "supers": stack_axes({f"b{i}_{kind}": _sub_axes(kind, cfg)
+                              for i, kind in enumerate(pat)}),
+        "ln_f": rmsnorm_axes(),
+        "lm_head": linear_axes(("d_model", "vocab"), False),
+    }
+    if tail:
+        axes["tail"] = [_sub_axes(kind, cfg) for kind in tail]
+    return axes
 
 
 def _layers(params, cfg):

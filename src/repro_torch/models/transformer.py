@@ -11,8 +11,8 @@ its ``lax.scan`` (:func:`layers`): a layer's weights are views ``w[i]``
 leaf.  Like the scan, the walk refuses a tree whose stacked leaves do
 not all lead with the layer count.  ``cfg.remat`` and
 ``cfg.scan_layers`` are compile knobs and change nothing here.  The
-reference's ``distributed.sharding.constrain`` layout hints are
-dropped (with no mesh they return their input).
+reference's ``distributed.sharding.constrain`` layout hints stand at
+its sites; on a rank's plain tensors they return their input.
 """
 from __future__ import annotations
 
@@ -24,16 +24,17 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.fxp import QTensor, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
-                                       stack_init)
+                                       stack_axes, stack_init)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
-                                      attention_decode, attention_init,
-                                      init_cache)
-from repro_torch.nn.linear import (embedding_apply, embedding_init,
-                                   linear_init)
-from repro_torch.nn.mlp import swiglu_apply, swiglu_init
-from repro_torch.nn.moe import moe_apply, moe_init
-from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_init
+                                      attention_axes, attention_decode,
+                                      attention_init, init_cache)
+from repro_torch.nn.linear import (embedding_apply, embedding_axes,
+                                   embedding_init, linear_axes, linear_init)
+from repro_torch.nn.mlp import swiglu_apply, swiglu_axes, swiglu_init
+from repro_torch.nn.moe import moe_apply, moe_axes, moe_init
+from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
 from repro_torch.tree import leaves_with_path, map_with_path, path_str
 
 Tensor = torch.Tensor
@@ -71,11 +72,17 @@ def _ffn(p, h, cfg: ArchConfig, policy):
 
 
 def _block_apply(p, x, cfg: ArchConfig, policy, positions):
+    # the reference's layout: the residual stream over "seq" (sequence
+    # parallelism), gathered before the attention and the FFN
+    x = constrain(x, ("batch", "seq", None))
     h = rmsnorm_apply(p["ln1"], x)
-    x = x + attention_apply(p["attn"], h, attn_config(cfg), policy,
-                            positions=positions)
+    h = constrain(h, ("batch", None, None))
+    a = attention_apply(p["attn"], h, attn_config(cfg), policy,
+                        positions=positions)
+    x = x + constrain(a, ("batch", "seq", None))
     h = rmsnorm_apply(p["ln2"], x)
-    return x + _ffn(p, h, cfg, policy)
+    h = constrain(h, ("batch", None, None))
+    return x + constrain(_ffn(p, h, cfg, policy), ("batch", "seq", None))
 
 
 def _block_prefill(p, x, cfg, policy, positions, kv_bits):
@@ -154,6 +161,22 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
         params["lm_head"] = linear_init(gen, cfg.d_model, v_pad, bias=False,
                                         dtype=dtype, device=dev)
     return params
+
+
+def param_axes(cfg: ArchConfig):
+    """The reference's logical axes of :func:`init`'s tree (its boxed
+    init's ``axes_of``)."""
+    block = {"ln1": rmsnorm_axes(), "attn": attention_axes(attn_config(cfg)),
+             "ln2": rmsnorm_axes()}
+    if cfg.is_moe:
+        block["moe"] = moe_axes()
+    else:
+        block["mlp"] = swiglu_axes()
+    axes = {"embed": embedding_axes(("vocab", "d_model")),
+            "blocks": stack_axes(block), "ln_f": rmsnorm_axes()}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = linear_axes(("d_model", "vocab"), False)
+    return axes
 
 
 def _head(params, x, cfg, policy):

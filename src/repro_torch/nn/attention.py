@@ -15,9 +15,9 @@ buffer, cross-attention (enc-dec), GQA/MQA, qk-norm, QKV biases, RoPE.
 
 Differences from the reference, none of them in a result:
 
-* the reference's ``distributed.sharding.constrain`` layout hints are
-  dropped: with no mesh they return their input, and the sharded paths
-  bring them back;
+* the reference's ``distributed.sharding.constrain`` layout hints sit
+  where the reference's do; each rank computes on its own rows, so on
+  a plain tensor they return their input;
 * a cache update writes the new positions into the cache's tensors in
   place and returns the cache (a decode step would otherwise copy every
   layer's whole cache); callers hand each cache to one update;
@@ -35,7 +35,8 @@ import torch
 from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fxp_dtype, fxp_qmax
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.nn.linear import linear_apply, linear_init
+from repro_torch.distributed.sharding import constrain
+from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import ones_init
 from repro_torch.nn.norm import rmsnorm_apply
 from repro_torch.nn.rotary import apply_rope
@@ -75,6 +76,22 @@ def attention_init(gen: torch.Generator, cfg: AttnConfig,
     if cfg.qk_norm:
         p["q_norm"] = {"scale": ones_init()(gen, (D,), dtype, device)}
         p["k_norm"] = {"scale": ones_init()(gen, (D,), dtype, device)}
+    return p
+
+
+def attention_axes(cfg: AttnConfig):
+    """The logical axes of :func:`attention_init`'s tree: the kv
+    projections over ``"kv_heads"``, which the rules map to the model
+    axis only where the head count divides it."""
+    p = {
+        "wq": linear_axes(("d_model", "heads"), cfg.qkv_bias),
+        "wk": linear_axes(("d_model", "kv_heads"), cfg.qkv_bias),
+        "wv": linear_axes(("d_model", "kv_heads"), cfg.qkv_bias),
+        "wo": linear_axes(("heads", "d_model"), False),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
     return p
 
 
@@ -232,19 +249,21 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
-    k = k.to(compute_dtype)
-    v = v.to(compute_dtype)
-    q = q.to(compute_dtype)
+    k = constrain(k.to(compute_dtype), ("batch", None, "heads", None))
+    v = constrain(v.to(compute_dtype), ("batch", None, "heads", None))
+    q = constrain(q.to(compute_dtype), ("batch", None, "heads", None))
 
     def block(q_blk: Tensor, pos_blk: Tensor) -> Tensor:
         scores = exact.einsum("bshd,bthd->bhst", q_blk, k)
         # the scale rounded to the compute dtype, as the reference's
         # weak-typed Python number is
         scores = scores * scores.new_full((), 1.0 / math.sqrt(D))
+        scores = constrain(scores, ("batch", "heads", None, None))
         bias = _mask_bias(pos_blk, k_pos, causal, window)
         scores = scores.to(torch.float32) + bias[:, None]
         w = _softmax(scores).to(compute_dtype)
-        return exact.einsum("bhst,bthd->bshd", w, v)
+        out = exact.einsum("bhst,bthd->bshd", w, v)
+        return constrain(out, ("batch", None, "heads", None))
 
     if q_chunk is None or S <= q_chunk or S % q_chunk != 0:
         return block(q, q_pos)

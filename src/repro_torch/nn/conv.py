@@ -168,6 +168,11 @@ def causal_conv1d_init(gen: torch.Generator, channels: int, width: int = 4,
     }
 
 
+def causal_conv1d_axes():
+    """The logical axes of :func:`causal_conv1d_init`'s tree."""
+    return {"w": (None, "d_inner"), "b": ("d_inner",)}
+
+
 def causal_conv1d_apply(p, x: torch.Tensor, state=None):
     """Depthwise causal conv.  x: [B, S, C].
 

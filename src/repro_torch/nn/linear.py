@@ -22,6 +22,15 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+def linear_axes(axes, bias: bool = True):
+    """The logical axes of :func:`linear_init`'s tree: ``w`` over
+    ``axes``, ``b`` over their last."""
+    p = {"w": axes}
+    if bias:
+        p["b"] = (axes[-1],) if axes else None
+    return p
+
+
 def linear_apply(p, x: torch.Tensor, policy: Optional[QuantPolicy] = None):
     y = q_matmul(x, p["w"], policy)
     if "b" in p:
@@ -34,6 +43,11 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
     """``{"emb": [vocab, d_model]}``."""
     return {"emb": (init or normal_init(0.02))(gen, (vocab, d_model),
                                                 dtype, device)}
+
+
+def embedding_axes(axes):
+    """The logical axes of :func:`embedding_init`'s tree."""
+    return {"emb": axes}
 
 
 def embedding_apply(p, ids: torch.Tensor,

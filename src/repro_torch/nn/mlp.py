@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.vact import activation
-from repro_torch.nn.linear import linear_apply, linear_init
+from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 
 
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
@@ -21,6 +21,13 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
         "w_down": linear_init(gen, d_ff, d_model, bias=False, dtype=dtype,
                               device=device),
     }
+
+
+def swiglu_axes():
+    """The logical axes of :func:`swiglu_init`'s tree."""
+    return {"w_gate": linear_axes(("d_model", "d_ff"), bias=False),
+            "w_up": linear_axes(("d_model", "d_ff"), bias=False),
+            "w_down": linear_axes(("d_ff", "d_model"), bias=False)}
 
 
 def swiglu_apply(p, x: torch.Tensor, policy: Optional[QuantPolicy] = None,
@@ -39,6 +46,12 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
         "w_out": linear_init(gen, d_ff, d_model, bias=bias, dtype=dtype,
                              device=device),
     }
+
+
+def mlp_axes(bias: bool = True):
+    """The logical axes of :func:`mlp_init`'s tree."""
+    return {"w_in": linear_axes(("d_model", "d_ff"), bias),
+            "w_out": linear_axes(("d_ff", "d_model"), bias)}
 
 
 def mlp_apply(p, x: torch.Tensor, policy: Optional[QuantPolicy] = None,

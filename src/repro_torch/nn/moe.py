@@ -24,9 +24,12 @@ is taken exactly:
   sees repeated indices, and it is sliced off.
 
 ``capacity`` is a Python int from static shapes, and nothing here reads
-a tensor back to the host.  The reference's mesh branch (``moe_shard``,
-expert parallelism across devices) and its ``constrain`` layout hints
-arrive with the sharded paths.
+a tensor back to the host.  Under ``distributed.sharding.mesh_rules``
+with more than one rank, ``moe_apply`` takes ``nn.moe_shard``'s
+dispatch (expert parallelism, or tensor parallelism within each
+expert), each rank routing its own rows at its own capacity, as the
+reference's does on more than one device; one rank runs the global
+path below.
 """
 from __future__ import annotations
 
@@ -40,8 +43,10 @@ from repro_torch.core.fxp import as_dense
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qmatmul import q_batched_matmul
 from repro_torch.core.vact import activation
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              mesh_shape)
 from repro_torch.nn.attention import _softmax
-from repro_torch.nn.linear import linear_init
+from repro_torch.nn.linear import linear_axes, linear_init
 from repro_torch.nn.module import lecun_init
 
 Tensor = torch.Tensor
@@ -62,10 +67,21 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     }
 
 
-def _dispatch_indices(expert_idx: Tensor, n_experts: int, capacity: int):
-    """Position of each (token, slot) inside its expert's buffer.
+def moe_axes():
+    """The logical axes of :func:`moe_init`'s tree: the rules put
+    ``"experts"`` (expert parallelism) or ``"d_ff_expert"`` (tensor
+    parallelism within each expert) on the model axis."""
+    return {
+        "router": linear_axes(("d_model", None), False),
+        "w_gate": ("experts", "d_model", "d_ff_expert"),
+        "w_up": ("experts", "d_model", "d_ff_expert"),
+        "w_down": ("experts", "d_ff_expert", "d_model"),
+    }
 
-    expert_idx: [Tk] int.  Returns (pos [Tk] int32, keep-mask [Tk])."""
+
+def _segments(expert_idx: Tensor, n_experts: int):
+    """(stable order by expert, counts [E], position of each assignment
+    within its expert [Tk] int32) of the expert ids ``expert_idx``."""
     e = expert_idx.to(torch.int64)
     tk = e.shape[0]
     order = torch.argsort(e, stable=True)
@@ -77,7 +93,14 @@ def _dispatch_indices(expert_idx: Tensor, n_experts: int, capacity: int):
     ranks = torch.arange(tk, device=e.device) - starts[e[order]]
     pos = torch.empty_like(ranks)
     pos[order] = ranks
-    pos = pos.to(torch.int32)
+    return order, counts, pos.to(torch.int32)
+
+
+def _dispatch_indices(expert_idx: Tensor, n_experts: int, capacity: int):
+    """Position of each (token, slot) inside its expert's buffer.
+
+    expert_idx: [Tk] int.  Returns (pos [Tk] int32, keep-mask [Tk])."""
+    _, _, pos = _segments(expert_idx, n_experts)
     return pos, pos < capacity
 
 
@@ -96,6 +119,18 @@ def moe_apply(p, x: Tensor, *, top_k: int,
     w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
     E = w_gate.shape[0]
     T = B * S
+
+    # more than one rank in the mesh -> the explicit dispatch over the
+    # model axis (EP or TP-within-expert)
+    from repro_torch.nn import moe_shard
+    mesh = current_mesh()
+    if mesh is not None and mesh_shape(mesh).size > 1 and \
+            moe_shard.shardable(x, mesh, E):
+        return moe_shard.moe_shard_map(
+            x, p["router"]["w"], w_gate, w_up, w_down, mesh,
+            top_k=top_k, capacity_factor=capacity_factor, policy=policy,
+            act=act)
+
     xf = x.reshape(T, D)
 
     # --- routing (fp32, through fp64: it chooses the experts) ---------
@@ -114,18 +149,24 @@ def moe_apply(p, x: Tensor, *, top_k: int,
     # dropped assignments go to a scratch slot (capacity), sliced off
     pos_c = torch.where(keep, pos, capacity).to(torch.int64)
     x_rep = torch.repeat_interleave(xf, top_k, dim=0)       # [Tk, D]
+    x_rep = constrain(x_rep, ("batch", None))
     buf = x.new_zeros((E, capacity + 1, D))
+    buf = constrain(buf, ("experts", "batch", None))
     buf[e_flat, pos_c] = x_rep
+    buf = constrain(buf, ("experts", "batch", None))
     buf = buf[:, :capacity]
 
     # --- expert FFN (batched quantized products) -----------------------
     g = q_batched_matmul(buf, w_gate, policy)
     u = q_batched_matmul(buf, w_up, policy)
     h = activation(g, act, policy) * u
+    h = constrain(h, ("experts", "batch", None))
     out_buf = q_batched_matmul(h, w_down, policy)           # [E, C, D]
+    out_buf = constrain(out_buf, ("experts", "batch", None))
 
     # --- combine -------------------------------------------------------
     gathered = out_buf[e_flat, torch.clamp_max(pos_c, capacity - 1)]
+    gathered = constrain(gathered, ("batch", None))
     gathered = torch.where(keep[:, None], gathered, 0.0)
     weighted = gathered * w_flat[:, None].to(gathered.dtype)
     out = exact.total(weighted.reshape(T, top_k, D), dim=1)[:, 0]

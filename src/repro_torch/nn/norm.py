@@ -15,6 +15,11 @@ def rmsnorm_init(gen: torch.Generator, d: int, dtype=torch.float32,
     return {"scale": ones_init()(gen, (d,), dtype, device)}
 
 
+def rmsnorm_axes():
+    """The logical axes of :func:`rmsnorm_init`'s tree."""
+    return {"scale": (None,)}
+
+
 def rmsnorm_apply(p, x: Tensor, eps: float = 1e-6) -> Tensor:
     """The sum of squares and the ``rsqrt`` are fp32 (through fp64, see
     ``core.exact``), as the reference's dot with
@@ -30,6 +35,11 @@ def layernorm_init(gen: torch.Generator, d: int, dtype=torch.float32,
                    device="cpu"):
     return {"scale": ones_init()(gen, (d,), dtype, device),
             "bias": zeros_init()(gen, (d,), dtype, device)}
+
+
+def layernorm_axes():
+    """The logical axes of :func:`layernorm_init`'s tree."""
+    return {"scale": (None,), "bias": (None,)}
 
 
 def layernorm_apply(p, x: Tensor, eps: float = 1e-5) -> Tensor:

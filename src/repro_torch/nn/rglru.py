@@ -28,8 +28,9 @@ from repro_torch.core import exact
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qmatmul import q_matmul
 from repro_torch.core.vact import activation
-from repro_torch.nn.conv import causal_conv1d_apply, causal_conv1d_init
-from repro_torch.nn.linear import linear_apply, linear_init
+from repro_torch.nn.conv import (causal_conv1d_apply, causal_conv1d_axes,
+                                 causal_conv1d_init)
+from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import uniform
 
 Tensor = torch.Tensor
@@ -47,6 +48,13 @@ def rglru_init(gen: torch.Generator, width: int, dtype=torch.float32,
         # Lambda parametrized so a = sigmoid(L) starts near 0.9-0.999
         "L": uniform(gen, (width,), 2.0, 6.0, device),
     }
+
+
+def rglru_axes():
+    """The logical axes of :func:`rglru_init`'s tree."""
+    return {"w_r": linear_axes(("d_inner", "d_inner"), True),
+            "w_i": linear_axes(("d_inner", "d_inner"), True),
+            "L": ("d_inner",)}
 
 
 def _gates(p, x: Tensor, policy):
@@ -137,6 +145,15 @@ def recurrent_block_init(gen: torch.Generator, d_model: int, width: int,
         "rglru": rglru_init(gen, width, dtype, device),
         "lin_out": linear_init(gen, width, d_model, **kw),
     }
+
+
+def recurrent_block_axes():
+    """The logical axes of :func:`recurrent_block_init`'s tree."""
+    return {"lin_x": linear_axes(("d_model", "d_inner"), False),
+            "lin_y": linear_axes(("d_model", "d_inner"), False),
+            "conv": causal_conv1d_axes(),
+            "rglru": rglru_axes(),
+            "lin_out": linear_axes(("d_inner", "d_model"), False)}
 
 
 def recurrent_block_apply(p, x: Tensor,

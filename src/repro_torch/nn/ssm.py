@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.core import exact
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.nn.conv import causal_conv1d_apply, causal_conv1d_init
-from repro_torch.nn.linear import linear_apply, linear_init
+from repro_torch.nn.conv import (causal_conv1d_apply, causal_conv1d_axes,
+                                 causal_conv1d_init)
+from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import normal_init, ones_init, uniform
 from repro_torch.nn.norm import rmsnorm_apply
 
@@ -61,6 +62,19 @@ def ssm_init(gen: torch.Generator, cfg: SSMConfig, dtype=torch.float32,
         "norm": {"scale": ones_init()(gen, (cfg.d_inner,), dtype, device)},
         "out_proj": linear_init(gen, cfg.d_inner, cfg.d_model, bias=False,
                                 dtype=dtype, device=device),
+    }
+
+
+def ssm_axes():
+    """The logical axes of :func:`ssm_init`'s tree."""
+    return {
+        "in_proj": linear_axes(("d_model", "d_inner"), False),
+        "conv": causal_conv1d_axes(),
+        "A_log": ("heads",),
+        "D": ("heads",),
+        "dt_bias": ("heads",),
+        "norm": {"scale": (None,)},
+        "out_proj": linear_axes(("d_inner", "d_model"), False),
     }
 
 

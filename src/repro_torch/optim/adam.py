@@ -83,3 +83,14 @@ def adamw_update(grads, state, params, schedule: Callable,
     stats = {"grad_norm": gnorm, "lr": lr,
              "nonfinite": nonfinite.to(torch.int32)}
     return new_params, new_state, stats
+
+
+def optimizer_shardings(param_shardings):
+    """Optimizer-state sharding tree matching ``adamw_init`` structure:
+    the moments laid out as the params, the count replicated (``None``,
+    resolved by the caller's mesh)."""
+    return {
+        "mu": param_shardings,
+        "nu": param_shardings,
+        "count": None,
+    }

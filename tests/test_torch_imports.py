@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
             "repro_torch.distributed.ranks",
             "repro_torch.distributed.checks",
+            "repro_torch.nn.moe_shard", "repro_torch.data.sharded_loader",
             "repro_torch.optim.compression",
             "repro_torch.rl.replay.sharded"} \
         <= set(got["modules"])

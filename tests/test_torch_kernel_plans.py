@@ -490,3 +490,21 @@ def test_split_plan_refuses_more_than_65535_row_tiles_over_experts():
         qmac_ops.split_plan(33, 64, 16, 32768)
     with pytest.raises(ValueError, match="batch >= 1"):
         qmac_ops.split_plan(4, 64, 16, 0)
+
+
+@pytest.mark.parametrize("kernel,alias,name", [
+    ("qmac", "ref_qmac_i8", "qmac_i8"),
+    ("qmac", "ref_qmac_i8_deq", "qmac_i8_deq"),
+    ("qconv", "ref_qconv2d_i8", "qconv2d_i8"),
+    ("vact", "ref_vact", "vact"),
+    ("vact", "ref_vact_q8", "vact_q8"),
+    ("qlstm", "ref_qlstm_cell", "qlstm_cell")])
+def test_ops_reexport_their_oracles(kernel, alias, name):
+    """Each ``ops`` module names its plain oracle as the reference's
+    ``ops`` does (``ref_<kernel>``): the ``ref.py`` function itself."""
+    import importlib
+    ops = importlib.import_module(f"repro_torch.kernels.{kernel}.ops")
+    ref = importlib.import_module(f"repro_torch.kernels.{kernel}.ref")
+    jops = importlib.import_module(f"repro.kernels.{kernel}.ops")
+    assert getattr(ops, alias) is getattr(ref, name)
+    assert hasattr(jops, alias)

@@ -78,12 +78,39 @@ def test_microbatches_must_divide_the_batch():
 
 
 def test_a_mesh_is_refused():
+    """The steps take a mesh now: on the one-rank host mesh each returns
+    what ``mesh=None`` returns, bit for bit (the training step's params,
+    state and stats; the prefill's logits and caches; the decode step's
+    logits)."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
     cfg = get_arch("tinyllama-1.1b").reduced()
-    for make in (tsteps.make_train_step, tsteps.make_prefill_step,
-                 tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="sharded paths"):
-            make(cfg, object(), None)
+    mesh = make_host_mesh(device="cpu")
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    batch = batch_at(DataConfig(cfg.vocab, 16, 2, 0), 0)
+    pol = get_policy("w8a8kv8")
+
+    def same(a, b):
+        for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+            bits_equal(x, y.numpy())
+
+    same(*(tsteps.make_train_step(cfg, m, None)(params, adamw_init(params),
+                                                batch)
+           for m in (mesh, None)))
+    pre = [tsteps.make_prefill_step(cfg, m, pol, 8)(params, batch)
+           for m in (mesh, None)]
+    same(*pre)
+    token = pre[0][0].argmax(-1, keepdim=True).to(torch.int32)
+    same(*(tsteps.make_decode_step(cfg, m, pol, 8)(
+        params, pad_caches(tree_map(lambda t: t.clone(), pre[0][1]), 1),
+        token, 16)[0] for m in (mesh, None)))
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "whisper-large-v3"])
@@ -276,7 +303,8 @@ def test_cli_reaches_the_reduced_config(monkeypatch):
          "tinyllama-1.1b", "--steps", "3", "--device", "cpu"],
         capture_output=True, text=True, check=True, timeout=120, env=env)
     lines = out.stdout.splitlines()
-    assert lines[0] == "training tinyllama-1.1b-smoke on cpu policy=w8a8"
+    assert lines[0] == ("training tinyllama-1.1b-smoke on mesh {'data': 1, "
+                        "'model': 1} (1 devices) policy=w8a8")
     assert [ln.split()[:2] for ln in lines[1:]] == [["step", "0"],
                                                     ["step", "2"]]
     loss = float(lines[1].split()[3])

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Phase 17 of ``chip_smoke.py`` alone, with phases 3-4's training rows:
-build the kernels, hold ``qmac_i8`` at TinyLlama's training products
-(M = 1,024) against its plain version and time them, train TinyLlama-1.1B
-at full width through ``repro_torch.launch.train`` and profile a step,
-then one training step card against CPU at 2 full-width layers and at
-every reduced config.  Needs one CUDA card; run from the repo root:
+"""Phases 17 and 19 of ``chip_smoke.py`` alone, with phases 3-4's
+training rows: build the kernels, hold ``qmac_i8`` at TinyLlama's
+training products (M = 1,024) against its plain version and time them,
+train TinyLlama-1.1B at full width through ``repro_torch.launch.train``
+(on the one-rank host mesh) and profile a step, then one training step
+card against CPU at 2 full-width layers and at every reduced config,
+then phase 19: the mesh's training steps against the unsharded ones and
+one full-width qwen3-moe layer through ``moe_shard_map``.  Needs one
+CUDA card; run from the repo root:
 
     python3 tools/lm_train_probe.py
 """
@@ -38,11 +41,15 @@ def main() -> int:
     for r in cs.time_lm_train_kernels(torch, dev):
         cs.print_row("qmac_i8", r)
     t0 = time.perf_counter()
-    print(cs.lm_training(torch, dev, card), flush=True)
+    launches, params = cs.lm_training(torch, dev, card)
+    print(launches, flush=True)
     print(f"lm_training {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     cs.lm_train_card_vs_cpu(torch, dev)
     print(f"card vs CPU {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(cs.lm_layout(torch, dev, card, params), flush=True)
+    print(f"lm_layout {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"probe wall {time.perf_counter() - t_all:.1f} s")
     return 0
 
