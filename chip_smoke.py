@@ -95,7 +95,8 @@ non-zero:
    mlp agent at hidden 64, fxp8 actors on Q-MAC, an fp32 learner, an
    8-bit weight sync, 40 iterations of 32 envs x 128 steps, the fleet
    sharded over ``--mesh host``'s one rank, as phase 18 sets out) at seeds 0,
-   1 and 2: greedy return (the median must reach half the JAX
+   1 and 2, each seed a job of its own among phases 10 and 11's (see
+   there): greedy return (the median must reach half the JAX
    reference's median at seeds 0-4), env steps/s, the wall split between
    weight sync, rollout and learner, and Q-MAC's launches, exactly
    4 x 129 in every iteration; then one default iteration on the card
@@ -111,9 +112,11 @@ non-zero:
    (``--env catch --net conv --frame-stack 4``, 40 iterations), both at
    32 envs x 128 steps with fxp8 actors on Q-Conv and Q-MAC, at seeds 0,
    1 and 2, and one iteration of each on the card against the CPU
-   (E2HRL: one of each stage), each job in a process of its own, all at
-   once: greedy return (the median must reach half the way from the
-   untrained policy's to the JAX reference's median at seeds 0-2), env
+   (E2HRL: one of each stage), each job in a process of its own, with
+   phase 9's and 11's jobs, as many at once as the host has cores and
+   the longest first: greedy return (the median must reach half the way
+   from the untrained policy's to the JAX reference's median at seeds
+   0-2), env
    steps/s, the wall split, Q-Conv and Q-MAC launches exactly 3 + 5 and
    2 + 3 per actor forward in every iteration; the card-vs-CPU bars of
    phase 9, with both learners run from the CPU's rollout, Adam's moments
@@ -125,7 +128,7 @@ non-zero:
    fp32 learner), each through ``--mesh host --sync lockstep`` at one
    rank: ``--algo dqn`` on cartpole, ``--algo qrdqn --env
    catch --net conv --frame-stack 4`` and ``--algo ddpg --env
-   pendulum``, at seeds 0, 1 and 2, in processes of their own after
+   pendulum``, at seeds 0, 1 and 2, in processes of their own among
    phase 10's: greedy return (the median must reach half the way from
    the untrained reference's median to the trained reference's at
    seeds 0-2), env steps/s, the wall split, Q-MAC and Q-Conv launches
@@ -186,18 +189,19 @@ non-zero:
    heads, state 128, vocab 50,280) and recurrentgemma-9b (12 (R, R, A)
    super-blocks and an R, R tail, d_model 4096, 16 heads over 1 KV head,
    window 2048, d_ff 12288, vocab 256,000) at their published widths
-   (mamba2 at 32 of its 64 layers; recurrentgemma at 8 of its 38: 2
-   super-blocks and the tail),
+   (mamba2 at 16 of its 64 layers; recurrentgemma at 5 of its 38: one
+   super-block and the tail),
    each fp32 tree drawn once on the card (the host's peak RSS and the
    card's peak allocation printed), through ``generate``: w8a8kv8 decode
    at batch 4 (prompt 128, one SSD chunk, and 32), an 8 x 512 prefill,
    and w4a8 decode, each after a warm-up call: PTQ MiB, tok/s, exactly
-   65 and 63 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
+   33 and 40 ``qmac_i8_deq`` a forward, no ``qmac_i8``; a profile of a
    decode step and an 8 x 512 prefill (launches, idle share, Q-MAC's
    share of the busy time); card against CPU at full width (mamba2 at 2
-   layers, a 4 x 128 prompt; recurrentgemma's first super-block, 4 x
-   32) and at the reduced recurrentgemma (window 8, 4 x 32), 8 greedy
-   steps: every int8 code, every logit and all 36 tokens equal;
+   layers, a 4 x 128 prompt, 8 greedy steps; recurrentgemma's first
+   super-block, 4 x 32, 2 greedy steps) and at the reduced
+   recurrentgemma (window 8, 4 x 32, 8 greedy steps): every int8 code,
+   every logit and every token equal;
 16. serving qwen3-moe-30b-a3b (d_model 2048, 32 heads over 4 KV heads
    of 128, 128 experts, top 8, d_ff 768, vocab 151,936) at its
    published widths and 4 of its 48 layers (the fp32 tree the
@@ -214,9 +218,10 @@ non-zero:
    cache) at w8a8kv8 and w4a8: every int8 code, every logit, every
    expert each layer chose and every token equal;
 17. training TinyLlama-1.1B at its published widths, all 22 layers,
-   through ``repro_torch.launch.train.train(..., smoke=False)`` at the
-   reference CLI's defaults (8 x 128 tokens a step, w8a8, AdamW,
-   warmup-cosine; random weights from seed 0), 6 steps: exactly 155
+   through ``repro_torch.launch.train.train(..., smoke=False)`` on the
+   one-rank NCCL host mesh at the reference CLI's defaults (8 x 128
+   tokens a step, w8a8, AdamW, warmup-cosine; random weights from seed
+   0), 6 steps: exactly 155
    ``qmac_i8`` and no fused launch a step, every loss finite and the
    last at most the first + 1, the step-0 loss beside ln 32000, tok/s
    after the warm-up step, the card's peak allocation; a profile of one
@@ -245,8 +250,17 @@ non-zero:
    bits, both strategies, bitwise the same call over gloo on the CPU,
    timed; the path's launches, summed over the runs through the mesh
    alone, each counted from 0;
-19. print the kernels' JSON line (the batched launches in
+19. the LM layout on the one-rank NCCL mesh: 2 full-width TinyLlama
+   training steps of ``make_train_step(cfg, make_host_mesh(), ...)``
+   from phase 17's params bitwise 2 unsharded ones (params, ``mu``,
+   ``nu``, ``count``, losses, grad norms), 155 ``qmac_i8`` a step in
+   each; one qwen3-moe layer at its published widths on 8 x 512 tokens
+   through ``moe_shard_map`` bitwise the CPU's plain path and the global
+   ``moe_apply`` on the card, 3 ``qmac_i8_deq_bmm``;
+20. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
+
+Every trace (``_profiled``) records the device's activity alone.
 """
 from __future__ import annotations
 
@@ -1541,8 +1555,10 @@ def _profiled(torch, fn, n):
     from repro_torch import kernels
 
     for _ in range(TRACE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+        # the device's activity alone: the rows read are its kernels and
+        # copies, and the host's operator events, many times as many, are
+        # neither recorded nor read back
+        with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=1, warmup=2, active=n)) as prof:
             for i in range(3 + n):
                 if i == 3:
@@ -1824,54 +1840,64 @@ def _counting_trainer(torch, kernels):
     return Counted
 
 
-def training_path(torch, dev, card):
-    """Phase 9: the training main path, ``rl_train``'s default run (ppo
-    on cartpole, the mlp agent at hidden 64, fxp8 actors, an 8-bit sync,
-    40 iterations of 32 envs x 128 steps) on the card at three seeds:
-    greedy return, env steps/s, the wall split between sync, rollout and
-    learner, and the Q-MAC launches of every iteration, which must be
-    exactly 4 x (128 + 1)."""
+def train_ppo_seed(torch, dev, seed):
+    """Phase 9 worker: one seed of the training main path,
+    ``rl_train``'s default run (ppo on cartpole, the mlp agent at hidden
+    64, fxp8 actors, an 8-bit sync, 40 iterations of 32 envs x 128
+    steps) on the card: the Q-MAC launches of every iteration, which
+    must be exactly 4 x (128 + 1) and no other kernel's, the wall split
+    between sync, rollout and learner, and the greedy return."""
     from repro_torch import kernels
 
-    trainer_cls = _counting_trainer(torch, kernels)
-    totals = dict.fromkeys(kernels.WRAPPERS, 0)
-    returns = []
+    tr = _counting_trainer(torch, kernels)(seed=seed, device=dev,
+                                           verbose=False)
+    t0 = time.perf_counter()
+    state, history = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = 4 * (tr.rollout_len + 1)
+    qmac = [c["qmac_i8"] for c in tr.per_iter]
+    if len(qmac) != tr.iters or any(q != want for q in qmac):
+        raise AssertionError(f"seed {seed}: qmac_i8 launches per "
+                             f"iteration {sorted(set(qmac))}, not "
+                             f"{want} in each of {tr.iters}")
+    others = {k: sum(c[k] for c in tr.per_iter) for k in kernels.WRAPPERS
+              if k != "qmac_i8" and any(c[k] for c in tr.per_iter)}
+    if others:
+        raise AssertionError(f"seed {seed}: kernels off the training "
+                             f"path launched: {others}")
+    t1 = time.perf_counter()
+    ret, n_ep = tr.eval_policy(state.params)
+    eval_s = time.perf_counter() - t1
+    if not all(torch.isfinite(x).all() for x in _leaves(state.params)):
+        raise AssertionError(f"seed {seed}: non-finite params")
+    return dict(seed=seed, ret=ret, n_ep=n_ep, eval_s=eval_s, wall=wall,
+                steps=tr.iters * tr.n_envs * tr.rollout_len,
+                iters=tr.iters, spans=tr.clock.drain(), per_iter=want,
+                totals={k: sum(c[k] for c in tr.per_iter)
+                        for k in kernels.WRAPPERS},
+                last_train_return=history[-1])
+
+
+def training_path(card, results):
+    """Phase 9: the training main path at three seeds, from the workers'
+    results (``train_ppo_seed``): greedy return, env steps/s, the wall
+    split and the Q-MAC launches of every iteration; the median greedy
+    return against half the reference's."""
+    totals, returns = None, []
     for seed in TRAIN_SEEDS:
-        tr = trainer_cls(seed=seed, device=dev, verbose=False)
-        t0 = time.perf_counter()
-        state, history = tr.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        want = 4 * (tr.rollout_len + 1)
-        qmac = [c["qmac_i8"] for c in tr.per_iter]
-        if len(qmac) != tr.iters or any(q != want for q in qmac):
-            raise AssertionError(f"seed {seed}: qmac_i8 launches per "
-                                 f"iteration {sorted(set(qmac))}, not "
-                                 f"{want} in each of {tr.iters}")
-        others = {k: sum(c[k] for c in tr.per_iter) for k in totals
-                  if k != "qmac_i8" and any(c[k] for c in tr.per_iter)}
-        if others:
-            raise AssertionError(f"seed {seed}: kernels off the training "
-                                 f"path launched: {others}")
-        for c in tr.per_iter:
-            for k, v in c.items():
-                totals[k] += v
-        t1 = time.perf_counter()
-        ret, n_ep = tr.eval_policy(state.params)
-        eval_s = time.perf_counter() - t1
-        if not all(torch.isfinite(x).all() for x in
-                   _leaves(state.params)):
-            raise AssertionError(f"seed {seed}: non-finite params")
-        returns.append(ret)
-        spans = tr.clock.drain()
-        steps = tr.iters * tr.n_envs * tr.rollout_len
-        split = ", ".join(f"{k} {v:.3f} s ({v / wall:.3f})"
-                          for k, v in spans.items())
-        print(f"training seed {seed} on {card}: greedy return {ret} over "
-              f"{n_ep} episodes (eval {eval_s:.2f} s); last train return "
-              f"{history[-1]:.2f}; {steps} env steps in {wall:.3f} s = "
-              f"{steps / wall:.1f} env steps/s; wall split: {split}; "
-              f"qmac_i8 {want} launches in each of {tr.iters} iterations")
+        r = results[("ptrain", "default", str(seed))]
+        totals = ({k: totals[k] + v for k, v in r["totals"].items()}
+                  if totals else dict(r["totals"]))
+        returns.append(r["ret"])
+        split = ", ".join(f"{k} {v:.3f} s ({v / r['wall']:.3f})"
+                          for k, v in r["spans"].items())
+        print(f"training seed {seed} on {card}: greedy return {r['ret']} "
+              f"over {r['n_ep']} episodes (eval {r['eval_s']:.2f} s); last "
+              f"train return {r['last_train_return']:.2f}; {r['steps']} env "
+              f"steps in {r['wall']:.3f} s = {r['steps'] / r['wall']:.1f} "
+              f"env steps/s; wall split: {split}; qmac_i8 {r['per_iter']} "
+              f"launches in each of {r['iters']} iterations")
     median = statistics.median(returns)
     bar = REF_GREEDY_MEDIAN / 2
     print(f"training: median greedy return {median} over seeds "
@@ -2412,14 +2438,17 @@ def pixel_card_vs_cpu(torch, dev, run):
 
 
 def _worker(torch, argv):
-    """``chip_smoke.py --worker train|vtrain RUN SEED OUT``, ``--worker
-    parity RUN OUT`` or ``--worker vparity all OUT``: one phase-10 or
-    phase-11 job in a process of its own, its result as JSON in OUT."""
+    """``chip_smoke.py --worker ptrain default SEED OUT``, ``--worker
+    train|vtrain RUN SEED OUT``, ``--worker parity RUN OUT`` or
+    ``--worker vparity all OUT``: one job of phase 9, 10 or 11 in a
+    process of its own, its result as JSON in OUT."""
     kind, run, out = argv[0], argv[1], argv[-1]
     dev = torch.device("cuda", 0)
-    if kind in ("train", "vtrain"):
+    if kind in ("ptrain", "train", "vtrain"):
         torch.set_num_threads(1)
-        if kind == "train":
+        if kind == "ptrain":
+            result = train_ppo_seed(torch, dev, int(argv[2]))
+        elif kind == "train":
             result = train_seed(torch, dev, run, int(argv[2]))
         else:
             result = train_value_seed(torch, dev, run, int(argv[2]),
@@ -2433,47 +2462,88 @@ def _worker(torch, argv):
     return 0
 
 
-def pixel_jobs():
-    """Phase 10's worker jobs: three seeds of each pixel run and one
-    card-vs-CPU iteration of each."""
+# each kind of worker job's folder under ``build/chip_smoke``
+WORKER_DIRS = {"ptrain": "phase9", "train": "phase10", "parity": "phase10",
+               "vtrain": "phase11", "vparity": "phase11"}
+
+
+def worker_jobs():
+    """Phases 9-11's worker jobs, the longest first (the order of their
+    walls in the committed logs): three seeds of each pixel run (E2HRL
+    first) and one card-vs-CPU iteration of each, three seeds of each
+    value run and their card-vs-CPU iterations, three seeds of the
+    default PPO run."""
     jobs = []
     for run in PIXEL_RUNS:
         jobs += [["train", run, str(s)] for s in TRAIN_SEEDS]
         jobs.append(["parity", run])
+    jobs += [["vtrain", run, str(s)] for run in
+             ("value_qrdqn", "value_ddpg", "value_dqn") for s in TRAIN_SEEDS]
+    jobs.append(["vparity", "all"])
+    jobs += [["ptrain", "default", str(s)] for s in TRAIN_SEEDS]
     return jobs
 
 
-def _run_workers(torch, work, jobs):
-    """Each job in a process of its own (``chip_smoke.py --worker ...``),
-    all at once (the runs are host-bound: the processes share the host's
-    cores and the card), within ``WORKER_TIMEOUT_S``: their results by
-    job, the card-vs-CPU jobs' output printed."""
-    os.makedirs(work, exist_ok=True)
-    procs = []
+def _run_workers(torch, work, jobs, width=None):
+    """Each job in a process of its own (``chip_smoke.py --worker ...``,
+    its output in ``WORKER_DIRS``' folder under ``work``), started in the
+    order given and at most ``width`` at once (default: the cores this
+    process may run on), all within ``WORKER_TIMEOUT_S``: their results
+    by job, each job's wall and the jobs' CPU seconds printed, the
+    card-vs-CPU jobs' output printed.  Each run alone is host-bound; run
+    together, the card's switching between their processes bounds them
+    (``tools/pool_probe.py``: 6 and 8 at once take the same wall, with
+    cores to spare)."""
+    import resource
+
+    width = width or len(os.sched_getaffinity(0))
+    pending, running, done = list(jobs), [], []
+    t0 = time.perf_counter()
+    deadline = t0 + WORKER_TIMEOUT_S
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
     try:
-        for args in jobs:
-            out = os.path.join(work, "_".join(args) + ".json")
-            log = open(out + ".log", "w")
-            procs.append((args, out, log, subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--worker",
-                 *args, out], stdout=log, stderr=subprocess.STDOUT)))
-        deadline = time.perf_counter() + WORKER_TIMEOUT_S
-        for args, out, log, p in procs:
-            p.wait(timeout=max(deadline - time.perf_counter(), 1))
-            log.close()
+        while pending or running:
+            while pending and len(running) < width:
+                args = pending.pop(0)
+                where = os.path.join(work, WORKER_DIRS[args[0]])
+                os.makedirs(where, exist_ok=True)
+                out = os.path.join(where, "_".join(args) + ".json")
+                log = open(out + ".log", "w")
+                running.append((args, out, log, time.perf_counter(),
+                                subprocess.Popen(
+                                    [sys.executable,
+                                     os.path.abspath(__file__), "--worker",
+                                     *args, out],
+                                    stdout=log, stderr=subprocess.STDOUT)))
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"worker jobs still running after {WORKER_TIMEOUT_S} "
+                    f"s: {[' '.join(j[0]) for j in running]}")
+            time.sleep(0.1)
+            for job in [j for j in running if j[-1].poll() is not None]:
+                running.remove(job)
+                job[2].close()
+                done.append((job[0], job[1], time.perf_counter() - job[3],
+                             job[-1].returncode))
     finally:
-        for *_, log, p in procs:
+        for _, _, log, _, p in running:
             if p.poll() is None:
                 p.kill()
                 p.wait()
             log.close()
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu = (cpu1.ru_utime - cpu0.ru_utime) + (cpu1.ru_stime - cpu0.ru_stime)
+    wall = time.perf_counter() - t0
+    print(f"worker jobs, {width} at once: {wall:.1f} s, "
+          f"the jobs' CPU {cpu:.1f} s ({cpu / wall:.2f} cores busy); "
+          + ", ".join(f"{' '.join(args)} {sec:.1f} s"
+                      for args, _, sec, _ in done))
     results, failed = {}, []
-    for args, out, _, p in procs:
+    for args, out, _, rc in sorted(done, key=lambda d: jobs.index(d[0])):
         with open(out + ".log") as f:
             text = f.read()
-        if p.returncode != 0:
-            failed.append(f"{' '.join(args)} exited {p.returncode}:\n"
-                          + text[-4000:])
+        if rc != 0:
+            failed.append(f"{' '.join(args)} exited {rc}:\n" + text[-4000:])
             continue
         if args[0] in ("parity", "vparity"):
             print(text.strip())
@@ -3064,13 +3134,6 @@ def profile_value(torch, dev, run, n=2):
     if out["learner"][3]:
         raise AssertionError(f"{run} learner launched {out['learner'][3]}")
     return out
-
-
-def value_jobs():
-    """Phase 11's worker jobs: three seeds of each value run and the
-    card-vs-CPU iterations."""
-    return [["vtrain", run, str(s)] for run in VALUE_RUNS
-            for s in TRAIN_SEEDS] + [["vparity", "all"]]
 
 
 def value_training(card, results):
@@ -3922,15 +3985,19 @@ def lm_products(cfg) -> int:
 
 
 MAMBA_PER_FORWARD = 2 * 64 + 1                  # 129
-# mamba2's served depth in phase 15: 32 of its 64 layers at full width,
-# since phase 17 (training) needs the time within the script's limit
-MAMBA_LAYERS = 32
+# mamba2's served depth in phase 15: 16 of its 64 layers at full width,
+# since the script must end well within its limit
+MAMBA_LAYERS = 16
 RG_PER_FORWARD = 8 * 26 + 7 * 12 + 1            # 293: 26 R, 12 A layers
-# recurrentgemma's served depth in phase 15: 2 (R, R, A) super-blocks and
-# the R, R tail, 8 of its 38 layers, at full width.  Drawing all 38 (10.44
-# B parameters, 79-94 s on the host's generator) leaves the script too
-# close to its 1,200 s limit beside phase 16
-RG_LAYERS = 8
+# recurrentgemma's served depth in phase 15: one (R, R, A) super-block and
+# the R, R tail, 5 of its 38 layers, at full width.  Drawing all 38 (10.44
+# B parameters on the host's generator) leaves the script too close to
+# its 1,200 s limit
+RG_LAYERS = 5
+# recurrentgemma's card against CPU at full width: a 4 x 32 prefill and 2
+# greedy steps (the CPU's plain product widens the head's [4096, 256000]
+# codes to fp64, 8 GB, every forward)
+RG_PARITY_STEPS = 2
 # (policy, batch, prompt, gen): decode at batch 4 (mamba's prompt one SSD
 # chunk, 128; recurrentgemma's 32), an 8 x 512 prefill, and the w4
 # weights drawn from the same fp32 tree
@@ -4019,9 +4086,11 @@ def ssm_hybrid_serving(torch, dev, card):
     from repro_torch.models.registry import model_for
 
     launches = {}
-    for arch, runs, full, prompt, depth in (
-            (SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD, 128, MAMBA_LAYERS),
-            (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD, 32, RG_LAYERS)):
+    for arch, runs, full, prompt, depth, steps in (
+            (SSM_ARCH, MAMBA_RUNS, MAMBA_PER_FORWARD, 128, MAMBA_LAYERS,
+             LM_PARITY_STEPS),
+            (HYBRID_ARCH, RG_RUNS, RG_PER_FORWARD, 32, RG_LAYERS,
+             RG_PARITY_STEPS)):
         if lm_products(get_arch(arch)) != full:
             raise AssertionError(f"{arch}: {lm_products(get_arch(arch))} "
                                  f"products a forward, not {full}")
@@ -4045,7 +4114,7 @@ def ssm_hybrid_serving(torch, dev, card):
                                 ).to(torch.int32)
         _card_vs_cpu(torch, dev, f"{arch} at {cfg.n_layers} layers", cfg,
                      model_for(cfg), cut, prompts, prompt,
-                     [lm_products(cfg)] * (1 + LM_PARITY_STEPS))
+                     [lm_products(cfg)] * (1 + steps), steps=steps)
         del cut
         print(f"{arch}: cut and card vs CPU {time.perf_counter() - t0:.1f} s")
     cfg = get_arch(HYBRID_ARCH).reduced()
@@ -5191,19 +5260,16 @@ def main() -> int:
     for name, v in fps.items():
         print(f"{name} on {card}: {v:.1f} frames/s")
     lap("phases 7-8 (the HRL forward)")
-    train_launches = training_path(torch, dev, card)
+    # phases 9-11's training jobs, each in a process of its own, as many
+    # at once as the host has cores; then their checks and profiles on a
+    # quiet host and card
+    results = _run_workers(torch, work, worker_jobs())
+    lap("phases 9-11's jobs")
+    train_launches = training_path(card, results)
     card_vs_cpu_iteration(torch, dev)
     profile_training(torch, dev)
-    lap("phase 9 (PPO training on cartpole)")
-    # phase 10's jobs, then phase 11's: each phase's processes share the
-    # host's cores only among themselves
-    results = _run_workers(torch, os.path.join(work, "phase10"),
-                           pixel_jobs())
-    lap("phase 10's jobs")
+    lap("phase 9's card vs CPU and profile")
     pixel_launches = pixel_training(card, results)
-    results = _run_workers(torch, os.path.join(work, "phase11"),
-                           value_jobs())
-    lap("phase 11's jobs")
     value_launches = value_training(card, results)
     for run in PIXEL_RUNS:
         profile_training(torch, dev, run=run)
