@@ -257,7 +257,16 @@ non-zero:
    each; one qwen3-moe layer at its published widths on 8 x 512 tokens
    through ``moe_shard_map`` bitwise the CPU's plain path and the global
    ``moe_apply`` on the card, 3 ``qmac_i8_deq_bmm``;
-20. print the kernels' JSON line (the batched launches in
+20. the static analysis on the card (``repro_torch.analysis``, within
+   ``ANALYSIS_LIMIT_S``): the lint over ``src/repro_torch`` with 0 kept
+   findings and 0 stale allowlist entries (the suppressed count per
+   rule printed), then the full trace audit on the card — one real
+   iteration of each of the 54 accepted combos and the 5 sharded value
+   combos at one NCCL rank under the op recorder, and the 2 serving
+   ladders — with 0 findings after the allowlist and every fxp8 combo
+   raising its kernel's launch counter; the combos checked, the leaves
+   QF904 held and the phase's seconds printed;
+21. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 
 Every trace (``_profiled``) records the device's activity alone.
@@ -5186,6 +5195,67 @@ def lm_layout(torch, dev, card, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the static analysis — the lint and the trace audit on the card
+# ---------------------------------------------------------------------------
+
+# phase 20's own limit, seconds
+ANALYSIS_LIMIT_S = 120
+# the trace audit's sweep: 54 accepted combos, 5 sharded, 2 ladders
+AUDITED = 54 + 5 + 2
+
+
+def analysis_gate(card):
+    """Phase 20: ``repro_torch.analysis``'s lint over the port's tree and
+    its full trace audit on the card, each clean under the committed
+    allowlist; returns the audit's kernel launches."""
+    from collections import Counter
+
+    from repro_torch.analysis import trace_audit
+    from repro_torch.analysis.allowlist import (apply_allowlist,
+                                                load_allowlist)
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.analysis.rules import RULES
+
+    t0 = time.perf_counter()
+    entries = load_allowlist()
+
+    def gate(findings, rules, what):
+        kept, stale, suppressed = apply_allowlist(
+            findings, [e for e in entries if e.rule in rules])
+        for f in kept:
+            print(f"phase 20 {what}: {f.render()}")
+        for e in stale:
+            print(f"phase 20 {what}: stale allowlist entry {e.rule} "
+                  f"{e.path} {e.match!r}")
+        assert not kept and not stale, (
+            f"phase 20 {what}: {len(kept)} finding(s), {len(stale)} stale "
+            "allowlist entries")
+        return dict(sorted(Counter(f.rule for f in suppressed).items()))
+
+    lint = run_lint(ROOT)
+    per_rule = gate(lint, RULES, "lint")
+    print(f"phase 20 lint over src/repro_torch: {len(lint)} findings, 0 "
+          f"kept, 0 stale; suppressed by rule {per_rule}")
+    t1 = time.perf_counter()
+    res = trace_audit.run_trace_audit(device="cuda")
+    per_check = gate(res.findings, trace_audit.CHECKS, "trace audit")
+    assert len(res.combos_checked) == AUDITED, res.combos_checked
+    fxp8 = [c for c in res.combos_checked if "/fxp8" in c]
+    secs = time.perf_counter() - t0
+    print(f"phase 20 trace audit on {card}: {len(res.combos_checked)} "
+          f"audits ({len(fxp8)} fxp8, each with a kernel launch), 0 "
+          f"findings after the allowlist (suppressed {per_check}) in "
+          f"{time.perf_counter() - t1:.1f} s; QF904 held {res.held}; "
+          f"launches {res.launches}")
+    print("phase 20 combos checked: " + " ".join(
+        c.removeprefix("trace:") for c in res.combos_checked))
+    print(f"phase 20 took {secs:.1f} s of its {ANALYSIS_LIMIT_S} s limit")
+    assert secs <= ANALYSIS_LIMIT_S, (
+        f"phase 20 took {secs:.1f} s, past its {ANALYSIS_LIMIT_S} s limit")
+    return res.launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5302,6 +5372,8 @@ def main() -> int:
     del trained
     lap("phase 19 (the LM layout: the mesh's training step, the MoE "
         "dispatch)")
+    audit_launches = analysis_gate(card)
+    lap("phase 20 (the static analysis: lint and trace audit)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -5335,7 +5407,8 @@ def main() -> int:
                    "moe_serving": moe_launches[name],
                    "lm_training": lm_train_launches[name],
                    "sharded_fleet": fleet_launches[name],
-                   "lm_layout": layout_launches[name]}
+                   "lm_layout": layout_launches[name],
+                   "trace_audit": audit_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -5351,7 +5424,8 @@ def main() -> int:
                      "moe_serving": moe_launches,
                      "lm_training": lm_train_launches,
                      "sharded_fleet": fleet_launches,
-                     "lm_layout": layout_launches}
+                     "lm_layout": layout_launches,
+                     "trace_audit": audit_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

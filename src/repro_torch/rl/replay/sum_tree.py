@@ -51,8 +51,10 @@ def get(tree: Tensor, idx: Tensor) -> Tensor:
 
 
 def update(tree: Tensor, idx: Tensor, values: Tensor) -> Tensor:
-    """A new tree with leaves ``idx`` ([m] slots) set to ``values`` and
-    their ancestors recomputed bottom-up.  Earlier duplicates of a slot
+    """The tree with leaves ``idx`` ([m] slots) set to ``values`` and
+    their ancestors recomputed bottom-up, written in place (the replay is
+    donated, as the reference's jitted iteration donates it, so the tree
+    is never copied to update a batch).  Earlier duplicates of a slot
     are redirected to node 0 with value 0 (an O(m^2) mask), so the last
     occurrence wins; every level then writes each touched parent the sum
     of its children, duplicates writing the same sum."""
@@ -68,7 +70,6 @@ def update(tree: Tensor, idx: Tensor, values: Tensor) -> Tensor:
         values = torch.where(win, values, 0.0)
     else:
         node = idx + L
-    tree = tree.clone()
     tree[node] = values.to(tree.dtype)
     for _ in range(depth_of(tree)):
         node = node // 2

@@ -39,7 +39,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.distributed.checks",
             "repro_torch.nn.moe_shard", "repro_torch.data.sharded_loader",
             "repro_torch.optim.compression",
-            "repro_torch.rl.replay.sharded"} \
+            "repro_torch.rl.replay.sharded", "repro_torch.analysis",
+            "repro_torch.analysis.cli", "repro_torch.analysis.lint",
+            "repro_torch.analysis.allowlist",
+            "repro_torch.analysis.trace_audit",
+            "repro_torch.analysis.rules",
+            "repro_torch.analysis.rules.tracer_control"} \
         <= set(got["modules"])
     banned = [m for m in got["loaded"]
               if m.startswith("jax") or m.split(".")[0] == "repro"]
