@@ -266,7 +266,23 @@ non-zero:
    ladders — with 0 findings after the allowlist and every fxp8 combo
    raising its kernel's launch counter; the combos checked, the leaves
    QF904 held and the phase's seconds printed;
-21. print the kernels' JSON line (the batched launches in
+21. the dry run against the card (``repro_torch.launch.{steps,
+   hlo_analysis,roofline,dryrun}``, within ``DRY_RUN_LIMIT_S``): at
+   TinyLlama-1.1B's full width, the steps phases 13 and 17 run (an
+   8 x 512 prefill and a decode step at batch 4 with a cache of 48 at
+   w8a8kv8, a training step of 8 x 128 at w8a8) on the one-rank NCCL
+   mesh, each traced on the meta device (``lower_cell``) and run once
+   on the card under the same recorder, from inputs drawn on the card:
+   the two traces equal call by call (so the histograms, flops, integer
+   ops, bytes and collective bytes), the Q-MAC records equal the
+   wrappers' launch counters (155 a step), the device busy time
+   (``_profiled``) at least the roofline's ``t_step``, and the card's
+   peak allocation over the step against the forecast (arguments +
+   temps) within ``DRY_RUN_MEMORY_BAR``; meanwhile one production cell,
+   ``python -m repro_torch.launch.dryrun --arch qwen2-72b --shape
+   train_4k``, in a process of its own with no card: exit 0 and its
+   roofline line;
+22. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 
 Every trace (``_profiled``) records the device's activity alone.
@@ -5256,6 +5272,170 @@ def analysis_gate(card):
     return res.launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run's forecasts against the card
+# ---------------------------------------------------------------------------
+
+# phase 21's own limit, seconds
+DRY_RUN_LIMIT_S = 90
+# the cells phases 13 and 17 run: (name, seq_len, batch, kind, policy)
+DRY_RUN_CELLS = (("prefill_8x512", 512, 8, "prefill", "w8a8kv8"),
+                 ("decode_4x48", 48, 4, "decode", "w8a8kv8"),
+                 ("train_8x128", 128, 8, "train", "w8a8"))
+# the card's peak allocation over a step (arguments + the step's own
+# peak) over the forecast (arguments + temps): PERF.md section 6 gives
+# the bar's reason
+DRY_RUN_MEMORY_BAR = (0.999, 1.001)
+DRY_RUN_CELL = ("qwen2-72b", "train_4k")
+
+
+def _first_difference(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[:5] != y[:5]:
+            return f"record {i}: meta {x[:4]} card {y[:4]}"
+    return f"{len(a)} meta records, {len(b)} on the card"
+
+
+def dry_run_gate(torch, dev, card):
+    """Phase 21: each TinyLlama cell of ``DRY_RUN_CELLS`` traced on the
+    meta device and on the card under one recorder, the traces equal,
+    the busy time at least the roofline's floor, the memory forecast
+    within its bar; one production cell on the card machine's CPU in a
+    subprocess started first.  Returns the phase's launches: each
+    cell's warm-up and traced steps, counted from 0 (its profile resets
+    the counters, as every ``_profiled`` does)."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "phase21")
+    os.makedirs(out_dir, exist_ok=True)
+    arch, shape_name = DRY_RUN_CELL
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cell = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_name, "--json",
+         os.path.join(out_dir, "production_cell.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        cfg = get_arch(LM_ARCH)
+        mesh = make_host_mesh(device=dev)
+        launches = dict.fromkeys(kernels.launch_counts(), 0)
+        for name, seq, batch, kind, pol_name in DRY_RUN_CELLS:
+            ran = _dry_run_cell(torch, dev, card, cfg, mesh,
+                                ShapeConfig(name, seq, batch, kind),
+                                get_policy(pol_name))
+            for k, v in ran.items():
+                launches[k] += v
+        out, err = cell.communicate(
+            timeout=max(1.0, DRY_RUN_LIMIT_S - (time.perf_counter() - t0)))
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.communicate()
+    lines = out.splitlines()
+    print(f"phase 21 {arch} x {shape_name} on this machine's CPU, no card "
+          f"(exit {cell.returncode}):")
+    for line in lines:
+        if line.strip():
+            print(f"  {line}")
+    if cell.returncode != 0 or not any("roofline:" in ln for ln in lines):
+        raise AssertionError(f"the production cell failed: {err[-2000:]}")
+    secs = time.perf_counter() - t0
+    print(f"phase 21 took {secs:.1f} s of its {DRY_RUN_LIMIT_S} s limit")
+    assert secs <= DRY_RUN_LIMIT_S, (
+        f"phase 21 took {secs:.1f} s, past its {DRY_RUN_LIMIT_S} s limit")
+    return launches
+
+
+def _dry_run_cell(torch, dev, card, cfg, mesh, shape, policy):
+    """One cell of phase 21 (``dry_run_gate``); returns the launches of
+    its warm-up and traced steps."""
+    from repro_torch import kernels
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+    from repro_torch.launch.roofline import roofline_terms
+
+    step = steps.cell_step(cfg, shape, mesh, policy)
+    args, _ = steps.cell_inputs(cfg, shape, mesh, policy)
+    args = steps.materialize(args, torch.Generator(device=dev).manual_seed(21),
+                             cfg.vocab)
+    kernels.reset_launch_counts()
+    # a warm-up on each device (tables built once a device, the rope's)
+    step(*args)
+    steps.lower_cell(cfg, shape, mesh, policy)
+    meta, info = steps.lower_cell(cfg, shape, mesh, policy)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts()
+    on_card = H.trace(step, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    after = kernels.launch_counts()
+    what = f"{LM_ARCH} {info['step']} {shape.name} at {policy.name}"
+    same = [r[:5] for r in meta.ops] == [r[:5] for r in on_card.ops]
+    cost_m, cost_c = H.cost_terms(meta), H.cost_terms(on_card)
+    hist = H.op_histogram(meta)
+    qmac = {k: hist.get(k, 0) for k in QMAC_WRAPPERS}
+    counted = {k: after[k] - before[k] for k in QMAC_WRAPPERS}
+    print(f"phase 21 {what}: {len(meta.ops)} records on meta, "
+          f"{len(on_card.ops)} on the card, equal {same}; Q-MAC records "
+          f"{qmac}, launch counters {counted}; flops "
+          f"{cost_m['flops']:.6e} {cost_m['flops_by_dtype']}, int_ops "
+          f"{cost_m['int_ops']:.6e}, bytes {cost_m['bytes']:.6e}, "
+          f"collective bytes {cost_m['collective_bytes']:.6e}")
+    if not same:
+        raise AssertionError(f"{what}: the traces differ, "
+                             f"{_first_difference(meta.ops, on_card.ops)}")
+    if cost_m != cost_c or hist != H.op_histogram(on_card):
+        raise AssertionError(f"{what}: costs {cost_m} on meta, {cost_c} on "
+                             "the card")
+    if qmac != counted or sum(qmac.values()) != LM_PER_FORWARD:
+        raise AssertionError(f"{what}: Q-MAC records {qmac}, launches "
+                             f"{counted}")
+    roof = roofline_terms(cfg, shape, mesh, cost_m)
+
+    def run():
+        step(*args)
+        torch.cuda.synchronize()
+
+    wall, rows, _, _ = _profiled(torch, run, 1)
+    busy_s = sum(r[0] for r in rows) / 1e3
+    mem = H.memory_stats(meta)
+    card_mem = H.memory_stats(on_card)
+    forecast = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = mem["argument_size_in_bytes"] + peak
+    ratio = measured / forecast
+    print(f"  roofline forecast at H100 data-sheet peaks: compute "
+          f"{roof['t_compute']:.6e} s, memory {roof['t_memory']:.6e} s, "
+          f"collective {roof['t_collective']:.6e} s, bound "
+          f"{roof['bound']}, t_step {roof['t_step']:.6e} s; device busy "
+          f"{busy_s:.6e} s on {card} (wall {wall / 1e3:.6e} s), busy / "
+          f"t_step {busy_s / roof['t_step']:.4f}")
+    print(f"  memory: arguments {mem['argument_size_in_bytes'] / 2**30:.4f} "
+          f"GiB + temps forecast {mem['temp_size_in_bytes'] / 2**30:.4f} GiB "
+          f"(the card's trace {card_mem['temp_size_in_bytes'] / 2**30:.4f} "
+          f"GiB) = {forecast / 2**30:.4f} GiB; the card's peak over the step "
+          f"{peak / 2**30:.4f} GiB beyond {held / 2**30:.4f} GiB held, "
+          f"arguments + peak {measured / 2**30:.4f} GiB; measured / forecast "
+          f"{ratio:.6f} (bar {DRY_RUN_MEMORY_BAR}); not in the trace: "
+          f"Q-MAC's split-K workspace and cuBLAS's workspace, each made "
+          f"once a stream and held before the step")
+    if busy_s < roof["t_step"]:
+        raise AssertionError(f"{what}: busy {busy_s} s under the floor "
+                             f"{roof['t_step']} s: the count is wrong")
+    lo, hi = DRY_RUN_MEMORY_BAR
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{what}: memory measured / forecast {ratio}")
+    return after
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5374,6 +5554,8 @@ def main() -> int:
         "dispatch)")
     audit_launches = analysis_gate(card)
     lap("phase 20 (the static analysis: lint and trace audit)")
+    dry_run_launches = dry_run_gate(torch, dev, card)
+    lap("phase 21 (the dry run against the card)")
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -5408,7 +5590,8 @@ def main() -> int:
                    "lm_training": lm_train_launches[name],
                    "sharded_fleet": fleet_launches[name],
                    "lm_layout": layout_launches[name],
-                   "trace_audit": audit_launches[name]}
+                   "trace_audit": audit_launches[name],
+                   "dry_run": dry_run_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -5425,7 +5608,8 @@ def main() -> int:
                      "lm_training": lm_train_launches,
                      "sharded_fleet": fleet_launches,
                      "lm_layout": layout_launches,
-                     "trace_audit": audit_launches}
+                     "trace_audit": audit_launches,
+                     "dry_run": dry_run_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

@@ -107,6 +107,8 @@ class LintConfig:
 
 TRANSFORMS = {
     "torch.compile", "torch.vmap", "torch.utils.checkpoint.checkpoint",
+    # the port's jax.eval_shape: the dry run's abstract trees
+    "repro_torch.nn.module.eval_shape",
 }
 # every torch.func transform (grad, vjp, vmap, functional_call, ...)
 TRANSFORM_PREFIXES = ("torch.func.",)

@@ -14,8 +14,8 @@ exact programs training runs) at the reference audit's small sizes
 * **QF901a** — no ``float64``/``complex128`` output of any op in the
   step.  The kernels' plain versions stand in for the kernels on the
   CPU (Q-MAC and Q-Conv compute the exact integer product in fp64
-  there), so the recorder skips every op inside a ``*_plain`` function
-  of :mod:`repro_torch.kernels`: the CPU and the card audit the same
+  there), so the recorder skips every op inside a kernel wrapper's call
+  (``repro_torch.record``): the CPU and the card audit the same
   program.  int64 is PyTorch's index dtype (``gather``, ``argmax``,
   ``randint``) and is allowed inside the step; QF901b guards the state.
   On the card, every fxp8 combo must also have raised its kernel's
@@ -40,18 +40,24 @@ exact programs training runs) at the reference audit's small sizes
   on-policy family writes no state in place (its optimizer and env
   states are rebound, as the reference's are donated and rewritten), so
   it holds none.
+
+The same recorder, made with ``costing=True``, is the dry run's trace
+(``launch.steps.lower_cell``, read by ``launch.hlo_analysis``): it keeps
+one :class:`OpRecord` for every op, kernel call and collective, in
+order, and the peak of the live bytes the recorded calls allocate.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import traceback
-from typing import Dict, List, Optional, Tuple
+import weakref
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import record
 from repro_torch.analysis.rules import Finding
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.tree import leaves_with_path, path_str
@@ -72,7 +78,6 @@ _WIDE_DTYPES = (torch.float64, torch.complex128)
 # the kernel counters an fxp8 combo's actors must raise on the card
 _ACTOR_KERNELS = {"mlp": ("qmac_i8", "qmac_i8_deq"),
                   "conv": ("qconv_i8_taps",)}
-_KERNEL_OPS = ("qconv", "qlstm", "qmac", "vact")
 
 
 @dataclasses.dataclass
@@ -136,6 +141,9 @@ def _tensors(x):
     elif isinstance(x, (tuple, list)):
         for y in x:
             yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)
 
 
 def _origin() -> str:
@@ -149,16 +157,80 @@ def _origin() -> str:
     return "outside repro_torch"
 
 
+class OpRecord(NamedTuple):
+    """One recorded call: an op, a kernel wrapper's call or a
+    collective, with the shapes and dtypes of its tensor operands and
+    outputs and the elements each addresses (a broadcast dimension,
+    stride 0, addresses one)."""
+
+    kind: str             # "op", "kernel" or "collective"
+    name: str             # "aten.mm", "qmac_i8", "all-gather", ...
+    ins: Tuple            # ((shape, dtype, elements), ...) of the
+    outs: Tuple           # tensor operands and of the outputs
+    view: bool            # an op whose outputs alias an operand
+    extra: Any            # a kernel's integer ops, a collective's peers,
+    #                       convolution_backward's output mask
+
+
+def _specs(ts) -> Tuple:
+    return tuple((tuple(t.shape), t.dtype, _addressed(t)) for t in ts)
+
+
+def _addressed(t: torch.Tensor) -> int:
+    n = 1
+    for size, stride in zip(t.shape, t.stride(), strict=True):
+        if stride:
+            n *= size
+    return n if t.numel() else 0
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+_OP_NAMES: Dict[Any, Tuple[str, bool]] = {}
+
+
+def _op_name(func) -> Tuple[str, bool]:
+    """(``namespace.op``, whether it is a view op) of an op overload."""
+    got = _OP_NAMES.get(func)
+    if got is None:
+        got = _OP_NAMES[func] = (str(func.overloadpacket),
+                                 bool(getattr(func, "is_view", False)))
+    return got
+
+
 class OpRecorder(TorchDispatchMode):
     """Records every op's wide (float64/complex128) outputs with the port
-    frame that produced them.  Ops inside a kernel's plain version
-    (``with recorder.inside_kernel():``) are not the audited program."""
+    frame that produced them.  Ops inside a kernel wrapper's call (its
+    launch, or its plain version on the CPU: ``with
+    recorder.inside_kernel():``) are not the audited program: the call
+    is one record (``kernel``), on every device.
 
-    def __init__(self):
+    ``costing=True`` also keeps an :class:`OpRecord` for every call in
+    ``records`` and tracks the bytes the calls allocate: a call's output
+    whose storage is none of its operands' is a new allocation, live
+    until the last recorded tensor on that storage dies (a
+    ``weakref.finalize``; autograd keeps a tensor it saves alive);
+    ``peak_bytes`` is the most that were live at once.  A costing
+    recorder does not audit wide values."""
+
+    def __init__(self, costing: bool = False):
         super().__init__()
         self.ops = 0
         self.wide: List[Tuple[str, str, str]] = []   # (dtype, op, origin)
         self._kernel_depth = 0
+        self.costing = costing
+        self.records: List[OpRecord] = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live: Dict[int, List[int]] = {}     # storage -> [refs, bytes]
+        # (op, port frame) of the op that raised, if one did
+        self.failed_op: Optional[Tuple[str, str]] = None
+
+    @property
+    def in_kernel(self) -> bool:
+        return self._kernel_depth > 0
 
     @contextlib.contextmanager
     def inside_kernel(self):
@@ -169,14 +241,68 @@ class OpRecorder(TorchDispatchMode):
             self._kernel_depth -= 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        try:
+            out = func(*args, **(kwargs or {}))
+        except Exception:
+            if self.failed_op is None:
+                self.failed_op = (str(func), _origin())
+            raise
         if self._kernel_depth == 0:
             self.ops += 1
-            for t in _tensors(out):
-                if t.dtype in _WIDE_DTYPES:
+            outs = list(_tensors(out))
+            for t in outs:
+                if t.dtype in _WIDE_DTYPES and not self.costing:
                     self.wide.append((str(t.dtype).replace("torch.", ""),
                                       str(func), _origin()))
+            if self.costing:
+                name, view = _op_name(func)
+                ins = list(_tensors(args)) + list(_tensors(kwargs or {}))
+                extra = (tuple(args[10]) if name ==
+                         "aten.convolution_backward" else None)
+                self.records.append(OpRecord("op", name, _specs(ins),
+                                             _specs(outs), view, extra))
+                self._track(outs, ins)
         return out
+
+    def kernel(self, name: str, args, out, int_ops: int) -> None:
+        """A kernel wrapper's call (``repro_torch.record.kernel``)."""
+        self.ops += 1
+        if self.costing:
+            ins, outs = list(_tensors(args)), list(_tensors(out))
+            self.records.append(OpRecord("kernel", name, _specs(ins),
+                                         _specs(outs), False, int_ops))
+            self._track(outs, ins)
+
+    def collective(self, kind: str, x: torch.Tensor, parts) -> None:
+        """A gather over ``len(parts)`` peers
+        (``distributed.sharding.gather_over``)."""
+        self.ops += 1
+        if self.costing:
+            self.records.append(OpRecord("collective", kind, _specs([x]),
+                                         _specs(parts), False, len(parts)))
+            self._track(list(parts), [x])
+
+    def _track(self, outs, ins) -> None:
+        in_keys = {_storage_key(t) for t in ins}
+        for t in outs:
+            key = _storage_key(t)
+            entry = self._live.get(key)
+            if entry is None:
+                if key in in_keys:
+                    continue          # a view of a buffer made elsewhere
+                nbytes = t.untyped_storage().nbytes()
+                entry = self._live[key] = [0, nbytes]
+                self.live_bytes += nbytes
+                self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            entry[0] += 1
+            weakref.finalize(t, self._release, key).atexit = False
+
+    def _release(self, key: int) -> None:
+        entry = self._live[key]
+        entry[0] -= 1
+        if entry[0] == 0:
+            self.live_bytes -= entry[1]
+            del self._live[key]
 
     def wide_dtypes(self) -> List[str]:
         return sorted({d for d, _, _ in self.wide})
@@ -184,30 +310,12 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def recording(recorder: OpRecorder):
-    """Run under ``recorder`` with every kernel's plain version marked
-    as inside the kernel (the wrappers look their plain versions up in
-    their module at call time)."""
-    patched = []
-    for fam in _KERNEL_OPS:
-        mod = importlib.import_module(f"repro_torch.kernels.{fam}.ops")
-        for name in dir(mod):
-            fn = getattr(mod, name)
-            if name.endswith("_plain") and callable(fn):
-                patched.append((mod, name, fn))
-                setattr(mod, name, _marked(recorder, fn))
-    try:
-        with recorder:
-            yield recorder
-    finally:
-        for mod, name, fn in patched:
-            setattr(mod, name, fn)
-
-
-def _marked(recorder: OpRecorder, fn):
-    def plain(*args, **kwargs):
-        with recorder.inside_kernel():
-            return fn(*args, **kwargs)
-    return plain
+    """Run under ``recorder``, the kernel wrappers and collectives
+    reporting to it (``repro_torch.record``): each wrapper's call is one
+    kernel record, and the ops inside it (the card's launch, the CPU's
+    plain version) are not recorded."""
+    with record.activated(recorder), recorder:
+        yield recorder
 
 
 def wide_findings(recorder: OpRecorder, tag: str) -> List[Finding]:

@@ -29,6 +29,17 @@ gather) gather in order and then sum (or take the max) on the device
 in that order, never through a backend's ``all_reduce``: the result
 depends on the slot count alone, never on the backend's ring, and at
 one slot ``psum(x)`` is ``x`` bit for bit.
+
+**One rank of a mesh, in one process.**  A :class:`MeshShape` also
+stands for a mesh this process is rank 0 of, with no process group
+behind it: the dry run (``launch.dryrun``) traces one rank of the
+production meshes this way.  Its coordinate is 0 on every axis, and
+``gather_over`` hands back copies of this rank's own value from every
+peer.  Every collective of the port starts in ``gather_over``; under an
+op recorder (``repro_torch.record``) each call is one transfer, filed
+under the reference's kind (``psum`` and ``pmax`` as ``all-reduce``,
+the rest, the MoE exchange included, as ``all-gather``), of the bytes
+this rank receives: ``n - 1`` copies of its input.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch import record
 from repro_torch.core.fxp import QTensor, is_qtensor
 from repro_torch.nn.module import is_axes
 from repro_torch.tree import (is_namedtuple, leaves_with_path,
@@ -92,7 +104,8 @@ def mesh_shape(mesh) -> MeshShape:
     is)."""
     if isinstance(mesh, MeshShape):
         return mesh
-    return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+    with record.unrecorded():
+        return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
 
 
 class PartitionSpec(tuple):
@@ -152,16 +165,25 @@ def _entry(ax: Tuple[str, ...]) -> AxisName:
     return (ax[0] if len(ax) == 1 else ax) if ax else None
 
 
-def slot_index(mesh: DeviceMesh) -> int:
-    """This rank's slot: its coordinate over the data axes, row-major."""
-    coord = mesh.get_coordinate()
+def _coordinate(mesh):
+    """This rank's coordinate on the mesh (0 on every axis of a
+    ``MeshShape``)."""
+    if isinstance(mesh, MeshShape):
+        return (0,) * len(mesh.sizes)
+    with record.unrecorded():
+        coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not in the mesh")
-    names = mesh.mesh_dim_names
+    return coord
+
+
+def slot_index(mesh) -> int:
+    """This rank's slot: its coordinate over the data axes, row-major."""
+    coord, ms = _coordinate(mesh), mesh_shape(mesh)
     idx = 0
     for a in data_axes(mesh):
-        i = names.index(a)
-        idx = idx * mesh.mesh.shape[i] + coord[i]
+        i = ms.axis_names.index(a)
+        idx = idx * ms.sizes[i] + coord[i]
     return idx
 
 
@@ -184,23 +206,36 @@ def data_group(mesh: DeviceMesh):
     return axes_group(mesh, axes)
 
 
-def axis_index(mesh: DeviceMesh, axis: str) -> int:
+def axis_index(mesh, axis: str) -> int:
     """This rank's coordinate along ``axis``."""
-    coord = mesh.get_coordinate()
-    if coord is None:
-        raise ValueError("this rank is not in the mesh")
-    return coord[mesh.mesh_dim_names.index(axis)]
+    return _coordinate(mesh)[mesh_shape(mesh).axis_names.index(axis)]
 
 
-def gather_over(x: Tensor, mesh: DeviceMesh,
-                axes: Sequence[str]) -> List[Tensor]:
+def gather_over(x: Tensor, mesh, axes: Sequence[str],
+                kind: str = "all-gather") -> List[Tensor]:
     """Every peer's ``x`` over ``axes`` (same shape and dtype on each),
     in their order.  int16, which neither gloo nor NCCL gathers, travels
-    as its bytes."""
-    group = axes_group(mesh, axes)
-    n = dist.get_world_size(group)
+    as its bytes.  Over a ``MeshShape`` every peer's is a copy of this
+    rank's.  An active op recorder files the call under ``kind``."""
+    rec = record.active()
+    if rec is None or rec.in_kernel:
+        return _gather(x, mesh, axes)
+    with rec.inside_kernel():
+        parts = _gather(x, mesh, axes)
+    rec.collective(kind, x, parts)
+    return parts
+
+
+def _gather(x: Tensor, mesh, axes: Sequence[str]) -> List[Tensor]:
     shape, dtype = x.shape, x.dtype
     wire = x.reshape(-1).contiguous()
+    if isinstance(mesh, MeshShape):
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        return [wire.clone().reshape(shape) for _ in range(n)]
+    group = axes_group(mesh, axes)
+    n = dist.get_world_size(group)
     if dtype == torch.int16:
         wire = wire.view(torch.uint8)
     parts = [torch.empty_like(wire) for _ in range(n)]
@@ -210,11 +245,11 @@ def gather_over(x: Tensor, mesh: DeviceMesh,
     return [p.reshape(shape) for p in parts]
 
 
-def gather_slots(x: Tensor, mesh: DeviceMesh) -> List[Tensor]:
+def gather_slots(x: Tensor, mesh, kind: str = "all-gather") -> List[Tensor]:
     """Every slot's ``x`` (same shape and dtype on each), in slot order."""
     if not data_axes(mesh):
-        raise ValueError(f"mesh {mesh.mesh_dim_names} has no data axes")
-    return gather_over(x, mesh, data_axes(mesh))
+        raise ValueError(f"mesh {_axis_names(mesh)} has no data axes")
+    return gather_over(x, mesh, data_axes(mesh), kind)
 
 
 def ordered_sum(parts: Sequence[Tensor]) -> Tensor:
@@ -225,14 +260,14 @@ def ordered_sum(parts: Sequence[Tensor]) -> Tensor:
     return total
 
 
-def psum(x: Tensor, mesh: DeviceMesh) -> Tensor:
+def psum(x: Tensor, mesh) -> Tensor:
     """Sum over the slots, added in slot order on the device."""
-    return ordered_sum(gather_slots(x, mesh))
+    return ordered_sum(gather_slots(x, mesh, "all-reduce"))
 
 
-def pmax(x: Tensor, mesh: DeviceMesh) -> Tensor:
+def pmax(x: Tensor, mesh) -> Tensor:
     """Elementwise max over the slots."""
-    parts = gather_slots(x, mesh)
+    parts = gather_slots(x, mesh, "all-reduce")
     total = parts[0]
     for p in parts[1:]:
         total = torch.maximum(total, p)
@@ -252,7 +287,7 @@ def psum_tree(tree, mesh: DeviceMesh):
     return tree_unflatten(tree, out)
 
 
-def local_rows(tree, mesh: DeviceMesh, dim: int = 0):
+def local_rows(tree, mesh, dim: int = 0):
     """This slot's rows along ``dim`` of every leaf of a global tree."""
     n, d = data_axis_size(mesh), slot_index(mesh)
 
@@ -267,7 +302,7 @@ def local_rows(tree, mesh: DeviceMesh, dim: int = 0):
     return tree_map(take, tree)
 
 
-def gather_rows(tree, mesh: DeviceMesh, dim: int = 0):
+def gather_rows(tree, mesh, dim: int = 0):
     """Every slot's rows concatenated along ``dim`` in slot order: the
     global tree, on every rank."""
     return tree_map(lambda t: torch.cat(gather_slots(t, mesh), dim=dim),

@@ -22,6 +22,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import record
 from repro_torch.kernels import _build
 from repro_torch.kernels.qconv import ref as _ref
 from repro_torch.kernels.qconv.ref import same_pads, valid_out
@@ -177,6 +178,16 @@ def qconv2d_i8_plain(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor,
     return torch.clamp_min(out, 0.0) if fuse_relu else out
 
 
+def _int_ops(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor, b: Tensor, *,
+             stride: int = 1, padding: str = "SAME", **_) -> int:
+    """``2 * B * H' * W' * KH * KW * C * N``, the integer operations a
+    recorder charges a call."""
+    ho, wo = out_geometry(qx.shape[1], qx.shape[2], qw.shape[0],
+                          qw.shape[1], stride, padding)[:2]
+    return 2 * qx.shape[0] * ho * wo * qw.numel()
+
+
+@record.kernel("qconv_i8_taps", _int_ops)
 def qconv2d_i8(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor, b: Tensor,
                *, stride: int = 1, padding: str = "SAME",
                fuse_relu: bool = False) -> Tensor:

@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch import record
 from repro_torch.core.vact import cordic_sigmoid, cordic_tanh
 from repro_torch.kernels import _build
 from repro_torch.kernels.qlstm import ref as _ref
@@ -129,6 +130,13 @@ def qlstm_cell_plain(qx, sx, qh, sh, qw, sw, qu, su, b, c, n_iters: int):
     return cordic_tanh(c_new, n_iters) * o, c_new
 
 
+def _int_ops(qx, sx, qh, sh, qw, sw, qu, su, *_, **__) -> int:
+    """``2 B (Din + H) 4H``, the integer operations a recorder charges a
+    call."""
+    return 2 * (qx.shape[0] * qw.numel() + qh.shape[0] * qu.numel())
+
+
+@record.kernel("qlstm_cell", _int_ops)
 def qlstm_cell(qx, sx, qh, sh, qw, sw, qu, su, b, c, *,
                n_iters: int = 13):
     """Fused quantized LSTM cell step (one timestep).

@@ -9,7 +9,13 @@ kernel with the experts folded into its grid, one launch a product.
 There is no fallback: a CUDA tensor launches ``csrc/qmac.cu`` or
 raises.  Each wrapper counts its kernel launches in a plain integer
 attribute (``qmac_i8.launches``) so a run can show that its path went
-through the kernel.
+through the kernel.  On a ``meta`` tensor (the dry run's trace,
+``launch.steps.lower_cell``) a wrapper checks its operands as on the
+card and returns an empty ``meta`` output of the kernel's shape and
+dtype: it launches nothing and counts nothing.  Under an op recorder
+(``repro_torch.record``) each call is one record of its kernel with
+``2 M N K`` integer operations (times the experts), whichever the
+device.
 
 The kernel splits K across blocks and reduces the slices inside the
 same launch (see the source's note).  :func:`split_plan` picks the
@@ -26,6 +32,7 @@ import functools
 
 import torch
 
+from repro_torch import record
 from repro_torch.kernels import _build
 from repro_torch.kernels.qmac import ref as _ref
 
@@ -169,9 +176,16 @@ def _check_operands(qx: Tensor, qw: Tensor):
     if qx.shape[1] > MAX_K:
         raise ValueError(f"K={qx.shape[1]} > {MAX_K} can overflow the "
                          "int32 accumulator")
-    if qx.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"Q-MAC runs on cpu or cuda, not {qx.device}")
+    if qx.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"Q-MAC runs on cpu, cuda or meta, not "
+                         f"{qx.device}")
     return qx.shape[0], qx.shape[1], qw.shape[1]
+
+
+def _int_ops(qx: Tensor, qw: Tensor) -> int:
+    """``2 M N K`` of ``[M, K] x [K, N]`` (``[E, C, K] x [E, K, N]``:
+    times E), the integer operations a recorder charges a call."""
+    return 2 * qx.numel() * qw.shape[-1]
 
 
 def _check_cuda(name: str, *ts: Tensor):
@@ -200,12 +214,15 @@ def _launch(qx, qw, sx, sw, sw_stride, out, m, n, k, deq, batch=1):
     _build.check(code, "qmac")
 
 
+@record.kernel("qmac_i8", _int_ops)
 def qmac_i8(qx: Tensor, qw: Tensor) -> Tensor:
     """Q-MAC int8 matmul: int8 [M, K] x int8 [K, N] -> int32 [M, N].
 
     Dtype contract: int8 operands, exact int32 accumulation, int32 out.
     """
     m, k, n = _check_operands(qx, qw)
+    if qx.device.type == "meta":
+        return torch.empty((m, n), dtype=torch.int32, device="meta")
     if qx.device.type == "cpu":
         return qmac_i8_plain(qx, qw)
     _check_cuda("qmac_i8", qx, qw)
@@ -217,6 +234,7 @@ def qmac_i8(qx: Tensor, qw: Tensor) -> Tensor:
     return out
 
 
+@record.kernel("qmac_i8_deq", lambda qx, sx, qw, sw: _int_ops(qx, qw))
 def qmac_i8_deq(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor) -> Tensor:
     """Fused dequantizing Q-MAC: (qx . qw) * sx * sw -> fp32 [M, N].
 
@@ -232,6 +250,8 @@ def qmac_i8_deq(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor) -> Tensor:
                          f"{tuple(sw.shape)} do not fit [{m}, {n}]")
     if sx.device != qx.device or sw.device != qx.device:
         raise ValueError("scales must live on the operands' device")
+    if qx.device.type == "meta":
+        return torch.empty((m, n), dtype=torch.float32, device="meta")
     if qx.device.type == "cpu":
         return qmac_i8_deq_plain(qx, sx, qw, sw)
     _check_cuda("qmac_i8_deq", qx, qw, sx, sw)
@@ -243,6 +263,8 @@ def qmac_i8_deq(qx: Tensor, sx: Tensor, qw: Tensor, sw: Tensor) -> Tensor:
     return out
 
 
+@record.kernel("qmac_i8_deq_bmm",
+               lambda qx, sx, qw, sw: _int_ops(qx, qw))
 def qmac_i8_deq_bmm(qx: Tensor, sx: Tensor, qw: Tensor,
                     sw: Tensor) -> Tensor:
     """Fused dequantizing Q-MAC over experts: for each e,
@@ -272,10 +294,13 @@ def qmac_i8_deq_bmm(qx: Tensor, sx: Tensor, qw: Tensor,
     if k > MAX_K:
         raise ValueError(f"K={k} > {MAX_K} can overflow the int32 "
                          "accumulator")
+    if qx.device.type == "meta":
+        return torch.empty((e, c, n), dtype=torch.float32, device="meta")
     if qx.device.type == "cpu":
         return qmac_i8_deq_bmm_plain(qx, sx, qw, sw)
     if qx.device.type != "cuda":
-        raise ValueError(f"Q-MAC runs on cpu or cuda, not {qx.device}")
+        raise ValueError(f"Q-MAC runs on cpu, cuda or meta, not "
+                         f"{qx.device}")
     _check_cuda("qmac_i8_deq_bmm", qx, qw, sx, sw)
     out = torch.empty((e, c, n), dtype=torch.float32, device=qx.device)
     if out.numel() == 0:

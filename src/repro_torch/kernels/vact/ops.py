@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch import record
 from repro_torch.core.vact import (_ATANH, _MAX_ITERS, LN2, cordic_gain,
                                    hyperbolic_schedule)
 from repro_torch.kernels import _build
@@ -309,6 +310,7 @@ def vact_q8_plain(qx: Tensor, sx: Tensor, kind: str, n_iters: int) -> Tensor:
 # wrappers
 # ---------------------------------------------------------------------------
 
+@record.kernel("vact_ew")
 def vact_ew(x: Tensor, kind: str, n_iters: int) -> Tensor:
     """Elementwise V-ACT (relu, sigmoid, tanh) by ``n_iters``-round
     CORDIC on any shape: fp32 in (cast), fp32 out, contiguous.  A view
@@ -338,6 +340,7 @@ def vact_ew(x: Tensor, kind: str, n_iters: int) -> Tensor:
     return out
 
 
+@record.kernel("vact_softmax")
 def vact_softmax(x: Tensor, n_iters: int) -> Tensor:
     """Softmax over the last axis with CORDIC exp: fp32 out, contiguous.
     A view that :func:`softmax_operand` accepts is read in place;
@@ -375,6 +378,7 @@ def vact(x: Tensor, kind: str, n_iters: int) -> Tensor:
     return vact_ew(x, kind, n_iters)
 
 
+@record.kernel("vact_ew_q8")
 def vact_q8(qx: Tensor, sx: Tensor, kind: str, n_iters: int) -> Tensor:
     """Fused int8 -> int8 V-ACT activation (requantizing).
 

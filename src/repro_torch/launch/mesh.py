@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import MeshShape
+from repro_torch.distributed.sharding import MeshShape, mesh_shape
 
 # the ranks' layout of the reference's meshes
 HOST_AXES = ("data", "model")
@@ -165,9 +165,8 @@ def in_mesh(mesh: DeviceMesh) -> bool:
     return mesh.get_coordinate() is not None
 
 
-def describe(mesh: DeviceMesh) -> str:
+def describe(mesh) -> str:
     """The reference's banner: ``mesh {'data': n, 'model': 1} (n
-    devices)``."""
-    shape = tuple(mesh.mesh.shape)
-    return (f"mesh {dict(zip(mesh.mesh_dim_names, shape, strict=True))} "
-            f"({mesh.mesh.numel()} devices)")
+    devices)``, of a live mesh or a ``MeshShape``."""
+    ms = mesh_shape(mesh)
+    return f"mesh {ms.shape} ({ms.size} devices)"

@@ -16,27 +16,36 @@ the unsharded program bit for bit.  Prefill and decode return this
 rank's rows of the logits and the caches.
 
 ``cache_shardings`` and ``batch_shardings`` give the reference's specs
-of the serving caches and the inputs.  The abstract trees and
-``lower_cell`` belong to the dry-run tools and are not ported.
+of the serving caches and the inputs.  ``abstract_params``,
+``abstract_opt_state`` and ``abstract_caches`` give the trees as
+``meta`` tensors (``nn.module.eval_shape``) with their shardings, and
+``lower_cell`` traces one rank's step of a cell on the meta device for
+the dry run.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import functools
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.fxp import div_scalar
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.core.fxp import QTensor, div_scalar, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.distributed.sharding import (NamedSharding, P, batch_spec,
                                               data_axes, data_axis_size,
                                               gather_rows, local_rows,
-                                              mesh_rules, mesh_shape, psum)
-from repro_torch.models.registry import model_for, sharding_rules
-from repro_torch.optim import (AdamWConfig, adamw_update,
+                                              make_shardings, mesh_rules,
+                                              mesh_shape, psum)
+from repro_torch.models.registry import (input_specs, model_for,
+                                         sharding_rules)
+from repro_torch.nn.module import eval_shape
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
-from repro_torch.tree import (map_with_path, tree_leaves, tree_map,
-                              tree_unflatten)
+from repro_torch.tree import (leaves_with_path, map_with_path, tree_leaves,
+                              tree_map, tree_unflatten)
 
 
 def _rules(cfg: ArchConfig, mesh, serve: bool = False) -> Dict:
@@ -238,3 +247,211 @@ def make_decode_step(cfg: ArchConfig, mesh,
                                      policy, kv_bits)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract state and shardings: meta tensors, nothing drawn or allocated
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _abstract_init(cfg: ArchConfig, dtype):
+    return eval_shape(functools.partial(model_for(cfg).init, cfg=cfg,
+                                        dtype=dtype, device="cpu"),
+                      torch.Generator().manual_seed(0))
+
+
+def abstract_params(cfg: ArchConfig, mesh, dtype=torch.float32,
+                    weight_ptq: Optional[QuantPolicy] = None,
+                    serve: bool = False) -> Tuple[Any, Any]:
+    """(the param tree as meta tensors, its ``NamedSharding`` tree), the
+    reference's ``jax.eval_shape(model.init)``: the family's ``init``
+    runs under a ``FakeTensorMode``.  ``weight_ptq``: the serving
+    weights, int8 QTensors (payload and scales), as a deployed engine
+    loads them.  ``mesh`` is a live mesh or a ``MeshShape``."""
+    model = model_for(cfg)
+    # fresh containers around the cached meta leaves
+    params = tree_map(lambda t: t, _abstract_init(cfg, dtype))
+    if weight_ptq is not None and weight_ptq.quantized_w:
+        from repro_torch.core.quantizer import quantize_params
+        params = eval_shape(lambda t: quantize_params(t, weight_ptq), params)
+    rules = sharding_rules(cfg, mesh_shape(mesh).shape.get("model", 1),
+                           serve=serve)
+    return params, make_shardings(params, model.param_axes(cfg), mesh, rules)
+
+
+def abstract_opt_state(abs_params, param_shardings, mesh):
+    """(AdamW's state of ``abs_params`` as meta tensors, its shardings):
+    the moments take the params' shardings, the count is replicated."""
+    opt = eval_shape(adamw_init, abs_params)
+    shard = {"mu": param_shardings, "nu": param_shardings,
+             "count": NamedSharding(mesh, P())}
+    return opt, shard
+
+
+def abstract_caches(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                    kv_bits: int = 32, dtype=torch.float32):
+    """(the serving caches of ``shape``'s whole batch as meta tensors,
+    their ``cache_shardings``)."""
+    model = model_for(cfg)
+    caches = eval_shape(lambda: model.init_caches(
+        cfg, shape.global_batch, shape.seq_len, kv_bits, dtype,
+        device="meta"))
+    return caches, cache_shardings(caches, cfg, shape.global_batch, mesh)
+
+
+def _sharded_pairs(tree, shardings):
+    """(tensor, its ``NamedSharding``) for every tensor of ``tree``, a
+    QTensor's payload and scale each with its own."""
+    at = dict(leaves_with_path(shardings, is_leaf=is_qtensor))
+    for path, leaf in leaves_with_path(tree, is_leaf=is_qtensor):
+        s = at[path]
+        if isinstance(leaf, QTensor):
+            yield leaf.qvalue, s.qvalue
+            yield leaf.scale, s.scale
+        elif isinstance(leaf, torch.Tensor):
+            yield leaf, s
+
+
+def _shard_shape(shape, sharding: NamedSharding, axes=None) -> Tuple:
+    """A shard of ``shape`` under ``sharding``: each dimension divided
+    (rounding up) by the sizes of the mesh axes its spec names (of
+    ``axes`` only, when given)."""
+    sizes = mesh_shape(sharding.mesh).shape
+    out = list(shape)
+    for d, entry in enumerate(sharding.spec):
+        names = entry if isinstance(entry, tuple) else \
+            (entry,) if entry else ()
+        k = math.prod(sizes[a] for a in names if axes is None or a in axes)
+        out[d] = -(-out[d] // k)
+    return tuple(out)
+
+
+def layout_bytes(tree, shardings) -> int:
+    """The bytes one device holds of ``tree`` laid out by
+    ``shardings``."""
+    return sum(math.prod(_shard_shape(t.shape, s)) * t.dtype.itemsize
+               for t, s in _sharded_pairs(tree, shardings))
+
+
+def rank_rows(tree, shardings, mesh):
+    """``tree`` (meta tensors of the whole batch) as this rank holds it:
+    the dimensions its shardings lay over the data axes divided among
+    the slots (``data.place``'s rows), the rest whole."""
+    at = dict(leaves_with_path(shardings))
+    dax = data_axes(mesh)
+    return map_with_path(lambda path, t: torch.empty(
+        _shard_shape(t.shape, at[path], dax), dtype=t.dtype, device="meta"),
+        tree)
+
+
+# ---------------------------------------------------------------------------
+# one (arch x shape x mesh) cell: its step, traced on the meta device
+# ---------------------------------------------------------------------------
+
+STEP_NAMES = {"train": "train_step", "prefill": "prefill_step",
+              "decode": "serve_step"}
+
+
+def cell_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
+              policy: Optional[QuantPolicy] = None) -> Callable:
+    """The step a cell runs, with the reference's choices: a training
+    cell at ``seq_len <= 8192`` with two or more microbatches attends
+    unchunked (``q_chunk=None``), serving steps quantize the KV cache at
+    the policy's ``kv_bits``."""
+    kv_bits = policy.kv_bits if policy else 32
+    if shape.kind == "train":
+        if shape.seq_len <= 8192 and cfg.microbatches >= 2:
+            cfg = cfg.replace(q_chunk=None)
+        return make_train_step(cfg, mesh, policy)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mesh, policy, kv_bits)
+    return make_decode_step(cfg, mesh, policy, kv_bits)
+
+
+def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                policy: Optional[QuantPolicy] = None, dtype=torch.float32):
+    """(a cell's step inputs as rank 0 of ``mesh`` holds them, as meta
+    tensors; their bytes a device under the reference's layout).
+
+    The inputs are ``input_specs`` laid out as ``data.place`` lays them
+    on the rank (its rows over the data axes); the params (and AdamW's
+    state) are whole on the rank, as the port's steps hold them.
+    Serving steps take PTQ'd weights, but an MoE's: its packed experts'
+    scales do not lead with the layer count, and neither package's layer
+    walk takes them (the reference's dry run fails there), so an MoE
+    serves fp weights quantized at each call, as ``launch.serve`` serves
+    it (``weight_ptq=False``).  Decode takes the ``serve=True`` rules,
+    one token at the cache's last position."""
+    ms = mesh_shape(mesh)
+    specs = input_specs(cfg, shape)
+    in_shard = batch_shardings(specs, ms)
+    serve = shape.kind != "train"
+    ptq = policy if (serve and policy and policy.quantized_w
+                     and not cfg.is_moe) else None
+    abs_params, p_shard = abstract_params(cfg, ms, dtype, weight_ptq=ptq,
+                                          serve=shape.kind == "decode")
+    batch = rank_rows(specs, in_shard, ms)
+    if shape.kind == "train":
+        abs_opt, o_shard = abstract_opt_state(abs_params, p_shard, ms)
+        return (abs_params, abs_opt, batch), layout_bytes(
+            (abs_params, abs_opt, specs), (p_shard, o_shard, in_shard))
+    if shape.kind == "prefill":
+        return (abs_params, batch), layout_bytes((abs_params, specs),
+                                                 (p_shard, in_shard))
+    kv_bits = policy.kv_bits if policy else 32
+    caches, c_shard = abstract_caches(cfg, shape, ms, kv_bits, dtype)
+    args = (abs_params, rank_rows(caches, c_shard, ms), batch["token"],
+            shape.seq_len - 1)
+    # the index: one int32 scalar, replicated
+    return args, layout_bytes((abs_params, caches, specs),
+                              (p_shard, c_shard, in_shard)) + 4
+
+
+def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
+               policy: Optional[QuantPolicy] = None, dtype=torch.float32,
+               donate: bool = True):
+    """Trace one rank's step of this cell on the meta device; returns
+    (``hlo_analysis.Program``, meta dict).  Nothing is allocated.
+
+    The mesh is taken by its names and sizes alone (a ``MeshShape``):
+    this process is the mesh's rank 0 and no process group is touched.
+    The step is :func:`cell_step`'s, its inputs :func:`cell_inputs`'.
+    ``donate`` is the reference's; the port donates nothing."""
+    del donate
+    from repro_torch.launch import hlo_analysis
+
+    ms = mesh_shape(mesh)
+    args, layout = cell_inputs(cfg, shape, ms, policy, dtype)
+    program = hlo_analysis.trace(cell_step(cfg, shape, ms, policy), args,
+                                 layout)
+    return program, {"step": STEP_NAMES[shape.kind],
+                     "inputs": input_specs(cfg, shape)}
+
+
+def materialize(tree, gen: torch.Generator, vocab: int):
+    """Real tensors for a meta tree (``cell_inputs``'), drawn on the
+    device of ``gen`` (so a full-width tree costs the host nothing), to
+    run a cell's step there: floats N(0, 0.02^2), token ids below
+    ``vocab``, int8 codes in [-127, 127], a QTensor's scales in [1e-3,
+    1.1e-2]."""
+    dev = gen.device
+
+    def draw(t, scale=False):
+        if t.dtype == torch.int8:
+            x = torch.randint(-127, 128, t.shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+        elif not t.dtype.is_floating_point:
+            x = torch.randint(0, vocab, t.shape, generator=gen, device=dev,
+                              dtype=t.dtype)
+        elif scale:
+            x = torch.rand(t.shape, generator=gen, device=dev) * 1e-2 + 1e-3
+        else:
+            x = torch.randn(t.shape, generator=gen, device=dev) * 0.02
+        return x.to(t.dtype)
+
+    def one(x):
+        if isinstance(x, QTensor):
+            return QTensor(draw(x.qvalue), draw(x.scale, True), x.bits)
+        return draw(x) if isinstance(x, torch.Tensor) else x
+
+    return tree_map(one, tree, is_leaf=is_qtensor)

@@ -15,6 +15,10 @@ inits return unboxed trees and give the same axes tree through each
 family's ``param_axes(cfg)``; ``rebox`` joins the two, ``unbox`` and
 ``axes_of`` take a boxed tree apart again, and
 ``distributed.sharding.make_shardings`` turns the axes into specs.
+
+:func:`eval_shape` is the port's ``jax.eval_shape``: a tree's shapes
+and dtypes as ``meta`` tensors, computed without drawing or allocating
+anything.
 """
 from __future__ import annotations
 
@@ -70,6 +74,26 @@ def rebox(values, axes):
     by_path = dict(leaves_with_path(axes, is_leaf=is_axes))
     return map_with_path(lambda path, v: Param(v, by_path.get(path)),
                          values)
+
+
+def eval_shape(fn: Callable, *args):
+    """``fn(*args)`` run under a ``FakeTensorMode`` (no draw, no
+    allocation), its tensors handed back as ``meta`` tensors of the same
+    shapes and dtypes (a QTensor's payload and scale each).  Arguments
+    may be real or ``meta`` tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def to_meta(x):
+        if isinstance(x, QTensor):
+            return QTensor(meta(x.qvalue), meta(x.scale), x.bits)
+        return meta(x) if isinstance(x, torch.Tensor) else x
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        out = fn(*args)
+    return tree_map(to_meta, out, is_leaf=lambda x: isinstance(x, QTensor))
 
 
 def param(gen: torch.Generator, shape: Sequence[int], axes: Axes,

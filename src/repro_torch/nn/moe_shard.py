@@ -83,7 +83,8 @@ class _ReplicatedIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        return ordered_sum(gather_over(g.contiguous(), ctx.mesh, MODEL)), None
+        return ordered_sum(gather_over(g.contiguous(), ctx.mesh, MODEL,
+                                       "all-reduce")), None
 
 
 class _ReplicatedOut(torch.autograd.Function):

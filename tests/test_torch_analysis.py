@@ -302,28 +302,17 @@ def test_cli_lists_every_rule_and_check(capsys):
 # reachability: the port's step code holds the reference's traced code
 # ---------------------------------------------------------------------------
 
-_DRY_RUN = ("reached in the reference only through launch/steps' "
-            "abstract_params/abstract_caches (jax.eval_shape), dry-run "
-            "helpers the port does not have yet; the port runs it at set-up, "
-            "outside any step")
 # the reference's jit-reachable functions whose port counterpart (same
-# module, same qualname) is not step-reachable, and why
+# module, same qualname) is not step-reachable, and why.  The dry run's
+# abstract trees (launch/steps' abstract_params/abstract_caches) reach
+# the inits, quantize_params and the caches' inits through
+# nn.module.eval_shape, as the reference's reach them through
+# jax.eval_shape
 REACH_EXCEPTIONS = {
-    ("src/repro/core/quantizer.py", "quantize_params"):
-        _DRY_RUN + " (the trainers pack weights on the host loop)",
-    ("src/repro/nn/module.py", "param"): _DRY_RUN,
-    ("src/repro/models/encdec.py", "init_caches"): _DRY_RUN,
-    ("src/repro/models/mamba.py", "init_caches"): _DRY_RUN,
-    ("src/repro/models/recurrent.py", "init_caches"): _DRY_RUN,
-    ("src/repro/models/recurrent.py", "_sub_cache"): _DRY_RUN,
-    ("src/repro/models/transformer.py", "init_caches"): _DRY_RUN,
-    ("src/repro/nn/rglru.py", "recurrent_block_init_state"): _DRY_RUN,
-    ("src/repro/nn/ssm.py", "ssm_init_state"): _DRY_RUN,
-    ("src/repro/launch/steps.py",
-     "make_train_step.<locals>.train_step.<locals>.<lambda@202>"):
-        "lambdas are named by line: the reference's is the target of "
-        "jax.value_and_grad, the port's line 202 is another lambda (the "
-        "slot mean's tree_map), which no step calls by name",
+    ("src/repro/nn/module.py", "param"):
+        "the reference's inits box each leaf with param(); the port's "
+        "inits return unboxed trees, their axes given by each family's "
+        "param_axes, so no init, abstract or real, calls param",
 }
 
 
