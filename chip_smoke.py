@@ -221,8 +221,9 @@ non-zero:
    through ``repro_torch.launch.train.train(..., smoke=False)`` on the
    one-rank NCCL host mesh at the reference CLI's defaults (8 x 128
    tokens a step, w8a8, AdamW, warmup-cosine; random weights from seed
-   0), 6 steps: exactly 155
-   ``qmac_i8`` and no fused launch a step, every loss finite and the
+   0), 6 steps, each rematerialised as the config asks: exactly 309
+   ``qmac_i8`` (155 in the forward, the 22 layers' 154 again in the
+   backward) and no fused launch a step, every loss finite and the
    last at most the first + 1, the step-0 loss beside ln 32000, tok/s
    after the warm-up step, the card's peak allocation; a profile of one
    step, its forward, forward and backward, and AdamW; then one
@@ -253,7 +254,7 @@ non-zero:
 19. the LM layout on the one-rank NCCL mesh: 2 full-width TinyLlama
    training steps of ``make_train_step(cfg, make_host_mesh(), ...)``
    from phase 17's params bitwise 2 unsharded ones (params, ``mu``,
-   ``nu``, ``count``, losses, grad norms), 155 ``qmac_i8`` a step in
+   ``nu``, ``count``, losses, grad norms), 309 ``qmac_i8`` a step in
    each; one qwen3-moe layer at its published widths on 8 x 512 tokens
    through ``moe_shard_map`` bitwise the CPU's plain path and the global
    ``moe_apply`` on the card, 3 ``qmac_i8_deq_bmm``;
@@ -275,14 +276,31 @@ non-zero:
    on the card under the same recorder, from inputs drawn on the card:
    the two traces equal call by call (so the histograms, flops, integer
    ops, bytes and collective bytes), the Q-MAC records equal the
-   wrappers' launch counters (155 a step), the device busy time
+   wrappers' launch counters (155 a forward, 309 a rematerialised
+   training step), the device busy time
    (``_profiled``) at least the roofline's ``t_step``, and the card's
    peak allocation over the step against the forecast (arguments +
-   temps) within ``DRY_RUN_MEMORY_BAR``; meanwhile one production cell,
-   ``python -m repro_torch.launch.dryrun --arch qwen2-72b --shape
-   train_4k``, in a process of its own with no card: exit 0 and its
-   roofline line;
-22. print the kernels' JSON line (the batched launches in
+   temps) within ``DRY_RUN_MEMORY_BAR``; meanwhile, beside phases 21
+   and 22, one production cell, ``python -m repro_torch.launch.dryrun
+   --arch qwen2-72b --shape train_4k``, in a process of its own with no
+   card: exit 0 and its roofline line within ``DRY_RUN_CELL_LIMIT_S``;
+22. rematerialisation (``repro_torch.nn.remat``, within
+   ``REMAT_LIMIT_S``): (a) from phase 17's trained TinyLlama params, a
+   fresh AdamW state and the run's first batch (8 x 128, w8a8), one
+   ``make_train_step`` step with ``cfg.remat`` on and one with it off:
+   params, ``mu``, ``nu``, ``count``, loss and grad norm bitwise equal,
+   309 and 155 ``qmac_i8`` launches, each step's card peak allocation
+   and device busy ms beside each other; (b) one full-width TinyLlama
+   step at train_4k's sequence length (4,096) on the one-rank NCCL
+   mesh, remat on as the config asks, at the largest batch of
+   ``REMAT_BATCHES`` whose dry-run forecast (arguments + temps, traced
+   on the meta device in a process of its own beside phases 21 and 22
+   (a)) leaves ``REMAT_FREE`` of the card's memory free: the forecast
+   with remat and without it, the card's peak, the step's wall and busy
+   time, a finite loss, 316 ``qmac_i8`` launches (the head twice a CE
+   chunk) and the card's peak against the forecast within
+   ``DRY_RUN_MEMORY_BAR``;
+23. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 
 Every trace (``_profiled``) records the device's activity alone.
@@ -4433,21 +4451,56 @@ TRAIN_PARITY_BATCH = (2, 128)
 TRAIN_REDUCED_BATCH = (2, 32)
 
 
-def train_products(cfg):
-    """Q-MAC launches of one training step (its forward) of ``cfg`` under
-    w8a8 with fp weights: every product ``qmac_i8`` (7 a dense layer, 16
-    an enc-dec layer pair, the ssm and hybrid counts of ``lm_products``,
-    the head once) but the MoE experts', which take the batched kernel
-    (``moe_per_forward``)."""
+# the loss's CE chunk (``models.common.chunked_ce``): a longer sequence
+# that is a whole number of chunks takes the head a chunk at a time
+CE_CHUNK = 1024
+
+
+def _ce_chunks(seq):
+    return seq // CE_CHUNK if seq > CE_CHUNK and seq % CE_CHUNK == 0 else 1
+
+
+def train_products(cfg, seq=None, backward=True):
+    """Q-MAC launches of one training step of ``cfg`` at sequence ``seq``
+    (default ``TRAIN_SEQ``) under w8a8 with fp weights: its forward's
+    (every product ``qmac_i8``: 7 a dense layer, 16 an enc-dec layer
+    pair, the ssm and hybrid counts of ``lm_products``, the head once a
+    CE chunk; the MoE experts' on the batched kernel,
+    ``moe_per_forward``), then, with ``backward``, what the backward
+    recomputes: under ``cfg.remat`` every rematerialised layer's
+    products again (all the layers; the hybrid's super-blocks, not its
+    tail), and the head again a CE chunk when the loss takes more than
+    one (``chunked_ce`` rematerialises its chunks whatever ``cfg.remat``
+    says).  The backward's own straight-through products are fp32
+    matmuls, as in the reference."""
     if cfg.is_moe:
-        return moe_per_forward(cfg.n_layers)
-    if cfg.is_encdec:
-        n = 16 * cfg.n_layers + 1
+        per = moe_per_forward(cfg.n_layers)
+        per["qmac_i8"] -= 1
+    elif cfg.is_encdec:
+        per = {"qmac_i8_deq": 0, "qmac_i8": 16 * cfg.n_layers,
+               "qmac_i8_deq_bmm": 0}
     elif cfg.family in ("ssm", "hybrid"):
-        n = lm_products(cfg)
+        per = {"qmac_i8_deq": 0, "qmac_i8": lm_products(cfg) - 1,
+               "qmac_i8_deq_bmm": 0}
     else:
-        n = 7 * cfg.n_layers + 1
-    return {"qmac_i8_deq": 0, "qmac_i8": n, "qmac_i8_deq_bmm": 0}
+        per = {"qmac_i8_deq": 0, "qmac_i8": 7 * cfg.n_layers,
+               "qmac_i8_deq_bmm": 0}
+    chunks = _ce_chunks(TRAIN_SEQ if seq is None else seq)
+    out = dict(per, qmac_i8=per["qmac_i8"] + chunks)
+    if not backward:
+        return out
+    if cfg.remat:
+        again = dict(per)
+        if cfg.family == "hybrid":
+            pat = cfg.block_pattern
+            n_super = cfg.n_layers // len(pat)
+            tail = cfg.n_layers - n_super * len(pat)
+            again["qmac_i8"] -= sum(8 if pat[i] == "R" else 7
+                                    for i in range(tail))
+        out = {k: out[k] + again[k] for k in out}
+    if chunks > 1:
+        out["qmac_i8"] += chunks
+    return out
 
 
 def check_lm_train_kernels(torch, dev, worst):
@@ -4462,12 +4515,14 @@ def check_lm_train_kernels(torch, dev, worst):
 def time_lm_train_kernels(torch, dev):
     """Phase 4: ``qmac_i8`` at each of TinyLlama's training products at
     M = 1,024 beside its bound, its plain version and ``torch._int_mm``,
-    and summed over a step's 155 products.  Returns the rows, [1024,
-    2048] x [2048, 5632] first."""
+    and summed over a rematerialised step's 309 products (the forward's
+    155, then the 154 of the 22 layers the backward recomputes; the
+    head is not, at one CE chunk).  Returns the rows, [1024, 2048] x
+    [2048, 5632] first."""
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(25)
-    per_step = {(2048, 5632): 44, (2048, 2048): 44, (2048, 256): 44,
-                (5632, 2048): 22, LM_HEAD_KN: 1}
+    per_step = {(2048, 5632): 88, (2048, 2048): 88, (2048, 256): 88,
+                (5632, 2048): 44, LM_HEAD_KN: 1}
     rows = []
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for (k, n), count in per_step.items():
@@ -4556,7 +4611,8 @@ def _profile_lm_step(torch, dev, params):
         print(f"{LM_ARCH} training {what}: card peak allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
               f"{held / 2**30:.2f} GiB held before it")
-        want = train_products(cfg) if what != "AdamW" else _want(0)
+        want = _want(0) if what == "AdamW" else train_products(
+            cfg, backward=what != "forward")
         if {k: counts[k] for k in QMAC_WRAPPERS} != want:
             raise AssertionError(f"training {what}: {counts} launches")
         wall, rows, launches, why = _profiled(torch, fn, 1)
@@ -4583,9 +4639,10 @@ def lm_training(torch, dev, card):
     CLI's defaults (8 x 128 tokens, w8a8, AdamW, warmup-cosine), through
     the host mesh (``train`` always builds it: one NCCL rank here), each
     step timed on the host clock between two waits for the card and its
-    Q-MAC launches counted: exactly 155 ``qmac_i8`` and no fused launch a
-    step, every loss finite and the last at most the first + 1 (the
-    reference's bar of not diverging, ``tests/test_arch_smoke.py``);
+    Q-MAC launches counted: exactly 309 ``qmac_i8`` (``train_products``)
+    and no fused launch a step, every loss finite and the last at most
+    the first + 1 (the reference's bar of not diverging,
+    ``tests/test_arch_smoke.py``);
     tok/s after the warm-up step, from the mean and from the median
     step (one slow step moves the mean), the card's peak allocation,
     then a profile of one step (``_profile_lm_step``).  Returns the
@@ -4795,9 +4852,11 @@ FLEET_COMP_NUMEL = 4 * 2 ** 20
 
 
 def _trees_bitwise(torch, a, b) -> bool:
+    """``a`` and ``b`` bitwise equal, each leaf compared on ``a``'s
+    device."""
     la, lb = _leaves(a), _leaves(b)
     return len(la) == len(lb) and all(
-        bits_equal(torch, x.cpu(), y.cpu()) for x, y in zip(la, lb))
+        bits_equal(torch, x, y.to(x.device)) for x, y in zip(la, lb))
 
 
 def _plain_collect_trainer(torch, kernels, base):
@@ -5073,7 +5132,7 @@ def lm_layout(torch, dev, card, params):
     batch ``place``'d) and as many of ``make_train_step(cfg, None,
     ...)``, one run after the other, the first run's trees waiting on
     the host: the params, ``mu``, ``nu``, ``count``, every loss and
-    grad norm bitwise equal, 155 ``qmac_i8`` a step in each.
+    grad norm bitwise equal, 309 ``qmac_i8`` a step in each.
 
     (b) One qwen3-moe layer at its published widths (d_model 2048, 128
     experts, top-8, d_ff_expert 768; fp32 weights drawn from seed 19,
@@ -5276,7 +5335,7 @@ def analysis_gate(card):
 # phase 21: the dry run's forecasts against the card
 # ---------------------------------------------------------------------------
 
-# phase 21's own limit, seconds
+# phase 21's own limit, seconds: its three TinyLlama cells
 DRY_RUN_LIMIT_S = 90
 # the cells phases 13 and 17 run: (name, seq_len, batch, kind, policy)
 DRY_RUN_CELLS = (("prefill_8x512", 512, 8, "prefill", "w8a8kv8"),
@@ -5286,7 +5345,13 @@ DRY_RUN_CELLS = (("prefill_8x512", 512, 8, "prefill", "w8a8kv8"),
 # peak) over the forecast (arguments + temps): PERF.md section 6 gives
 # the bar's reason
 DRY_RUN_MEMORY_BAR = (0.999, 1.001)
+# one production cell, traced on the card machine's CPU in a process of
+# its own while phases 21 and 22 run on the card, and its limit from
+# its start, seconds.  Rematerialised, its step records each layer's
+# forward again in the backward (80 layers, 80% more records): 127.2 s
+# on that CPU against 52.8 s without remat (PERF.md section 6)
 DRY_RUN_CELL = ("qwen2-72b", "train_4k")
+DRY_RUN_CELL_LIMIT_S = 180
 
 
 def _first_difference(a, b):
@@ -5296,14 +5361,70 @@ def _first_difference(a, b):
     return f"{len(a)} meta records, {len(b)} on the card"
 
 
+def start_production_cell():
+    """Start ``python -m repro_torch.launch.dryrun`` on ``DRY_RUN_CELL``
+    in a process of its own with no card, its output in files under
+    ``build/chip_smoke/phase21``.  Returns (the process, its start,
+    the output directory); ``finish_production_cell`` collects it."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "phase21")
+    os.makedirs(out_dir, exist_ok=True)
+    arch, shape_name = DRY_RUN_CELL
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(out_dir, "production_cell.out"), "w") as out, \
+            open(os.path.join(out_dir, "production_cell.err"), "w") as err:
+        cell = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape_name, "--json",
+             os.path.join(out_dir, "production_cell.json")],
+            stdout=out, stderr=err, env=env, cwd=ROOT)
+    return cell, time.perf_counter(), out_dir
+
+
+def stop(cell):
+    """Kill ``cell`` if it still runs, and wait for it."""
+    if cell.poll() is None:
+        cell.kill()
+    cell.wait()
+
+
+def finish_production_cell(cell, t0, out_dir):
+    """Wait for the production cell up to ``DRY_RUN_CELL_LIMIT_S`` from
+    its start ``t0``: exit 0 and its roofline line."""
+    arch, shape_name = DRY_RUN_CELL
+    try:
+        cell.wait(timeout=max(1.0, DRY_RUN_CELL_LIMIT_S
+                              - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop(cell)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "production_cell.out")) as f:
+        lines = f.read().splitlines()
+    with open(os.path.join(out_dir, "production_cell.err")) as f:
+        err = f.read()
+    print(f"phase 21 {arch} x {shape_name} on this machine's CPU, no card "
+          f"(exit {cell.returncode}, {secs:.1f} s of its "
+          f"{DRY_RUN_CELL_LIMIT_S} s limit, beside phases 21 and 22):")
+    for line in lines:
+        if line.strip():
+            print(f"  {line}")
+    if secs > DRY_RUN_CELL_LIMIT_S:
+        raise AssertionError(f"the production cell took {secs:.1f} s, "
+                             f"past its {DRY_RUN_CELL_LIMIT_S} s limit")
+    if cell.returncode != 0 or not any("roofline:" in ln for ln in lines):
+        raise AssertionError(f"the production cell failed: {err[-2000:]}")
+
+
 def dry_run_gate(torch, dev, card):
     """Phase 21: each TinyLlama cell of ``DRY_RUN_CELLS`` traced on the
     meta device and on the card under one recorder, the traces equal,
     the busy time at least the roofline's floor, the memory forecast
-    within its bar; one production cell on the card machine's CPU in a
-    subprocess started first.  Returns the phase's launches: each
-    cell's warm-up and traced steps, counted from 0 (its profile resets
-    the counters, as every ``_profiled`` does)."""
+    within its bar (``start_production_cell`` runs beside it).  Returns
+    the phase's launches: each cell's warm-up and traced steps, counted
+    from 0 (its profile resets the counters, as every ``_profiled``
+    does)."""
     from repro_torch import kernels
     from repro_torch.configs.registry import get_arch
     from repro_torch.configs.shapes import ShapeConfig
@@ -5311,41 +5432,15 @@ def dry_run_gate(torch, dev, card):
     from repro_torch.launch.mesh import make_host_mesh
 
     t0 = time.perf_counter()
-    out_dir = os.path.join(ROOT, "build", "chip_smoke", "phase21")
-    os.makedirs(out_dir, exist_ok=True)
-    arch, shape_name = DRY_RUN_CELL
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               CUDA_VISIBLE_DEVICES="")
-    cell = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape_name, "--json",
-         os.path.join(out_dir, "production_cell.json")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
-    try:
-        cfg = get_arch(LM_ARCH)
-        mesh = make_host_mesh(device=dev)
-        launches = dict.fromkeys(kernels.launch_counts(), 0)
-        for name, seq, batch, kind, pol_name in DRY_RUN_CELLS:
-            ran = _dry_run_cell(torch, dev, card, cfg, mesh,
-                                ShapeConfig(name, seq, batch, kind),
-                                get_policy(pol_name))
-            for k, v in ran.items():
-                launches[k] += v
-        out, err = cell.communicate(
-            timeout=max(1.0, DRY_RUN_LIMIT_S - (time.perf_counter() - t0)))
-    finally:
-        if cell.poll() is None:
-            cell.kill()
-            cell.communicate()
-    lines = out.splitlines()
-    print(f"phase 21 {arch} x {shape_name} on this machine's CPU, no card "
-          f"(exit {cell.returncode}):")
-    for line in lines:
-        if line.strip():
-            print(f"  {line}")
-    if cell.returncode != 0 or not any("roofline:" in ln for ln in lines):
-        raise AssertionError(f"the production cell failed: {err[-2000:]}")
+    cfg = get_arch(LM_ARCH)
+    mesh = make_host_mesh(device=dev)
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+    for name, seq, batch, kind, pol_name in DRY_RUN_CELLS:
+        ran = _dry_run_cell(torch, dev, card, cfg, mesh,
+                            ShapeConfig(name, seq, batch, kind),
+                            get_policy(pol_name))
+        for k, v in ran.items():
+            launches[k] += v
     secs = time.perf_counter() - t0
     print(f"phase 21 took {secs:.1f} s of its {DRY_RUN_LIMIT_S} s limit")
     assert secs <= DRY_RUN_LIMIT_S, (
@@ -5396,7 +5491,9 @@ def _dry_run_cell(torch, dev, card, cfg, mesh, shape, policy):
     if cost_m != cost_c or hist != H.op_histogram(on_card):
         raise AssertionError(f"{what}: costs {cost_m} on meta, {cost_c} on "
                              "the card")
-    if qmac != counted or sum(qmac.values()) != LM_PER_FORWARD:
+    want = sum(train_products(cfg, shape.seq_len).values()) \
+        if shape.kind == "train" else LM_PER_FORWARD
+    if qmac != counted or sum(qmac.values()) != want:
         raise AssertionError(f"{what}: Q-MAC records {qmac}, launches "
                              f"{counted}")
     roof = roofline_terms(cfg, shape, mesh, cost_m)
@@ -5434,6 +5531,314 @@ def _dry_run_cell(torch, dev, card, cfg, mesh, shape, policy):
     if not lo <= ratio <= hi:
         raise AssertionError(f"{what}: memory measured / forecast {ratio}")
     return after
+
+
+# ---------------------------------------------------------------------------
+# phase 22: rematerialisation — the rematerialised training step against
+# the plain one, and a step at train_4k's sequence length
+# ---------------------------------------------------------------------------
+
+# phase 22's own limit, seconds
+REMAT_LIMIT_S = 150
+# train_4k's sequence and its batch a rank (256 over the 16 data slots
+# of the (16, 16) mesh), then the smaller batches tried when its
+# forecast does not fit
+REMAT_SEQ = 4096
+REMAT_BATCHES = (16, 8, 4, 2)
+# the share of the card's memory the forecast (arguments + temps) must
+# leave free
+REMAT_FREE = 0.10
+
+
+def _profiled_once(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` (the device's activity
+    alone): (its result, host wall s, device busy ms or None when the
+    trace came back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "device_time_total", None)
+        busy_us += ev.cuda_time_total if dev_us is None else dev_us
+    return out, wall, busy_us / 1e3 if busy_us else None
+
+
+def remat_against_plain(torch, dev, card, params):
+    """Phase 22 (a): from ``params`` (phase 17's trained TinyLlama, all 22
+    layers at full width), a fresh AdamW state and the run's first
+    batch (8 x 128, w8a8), one ``make_train_step`` step with
+    ``cfg.remat`` on (the config's default) and one with it off: the new
+    params, ``mu``, ``nu``, ``count``, the loss and the grad norm
+    bitwise equal; ``train_products`` Q-MAC launches each (309 and 155
+    ``qmac_i8``); each step's card peak allocation beyond what was held
+    before it and its device busy ms (``_profiled``) printed beside the
+    other's, and the peak of its forward and backward alone (the loss's
+    gradient: the step's own peak comes later, in AdamW, which holds the
+    gradient tree and the new params, ``mu`` and ``nu`` at once).
+    Returns the launches of the rematerialised step, counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8")
+    if not cfg.remat:
+        raise AssertionError(f"{LM_ARCH}'s config does not ask for remat")
+    ocfg = AdamWConfig(weight_decay=0.0)
+    sched = warmup_cosine(3e-4, 1, TRAIN_STEPS)
+    batch = {k: v.to(dev) for k, v in batch_at(
+        DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, 0), 0).items()}
+    opt = adamw_init(params)
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+    runs = {}
+    def peak_of(fn):
+        """The card's peak allocation over ``fn()`` beyond what was held
+        before it, and what was held."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, before
+
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+
+        def forward_backward():
+            xs = [p.detach().requires_grad_(True) for p in
+                  tree_leaves(params)]
+            with torch.enable_grad():
+                torch.autograd.grad(transformer.loss_fn(
+                    tree_unflatten(params, xs), batch, c, pol), xs)
+
+        fb_peak, _ = peak_of(forward_backward)
+        step = make_train_step(c, None, pol, ocfg, sched)
+        kernels.reset_launch_counts()
+        out = []
+        peak, held = peak_of(lambda: out.append(step(params, opt, batch)))
+        counts = kernels.launch_counts()
+        out = out[0]
+        if remat:
+            for k, v in counts.items():
+                launches[k] += v
+
+        def run():
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+
+        wall, rows, _, _ = _profiled(torch, run, 1)
+        runs[remat] = dict(out=out, peak=peak, held=held, wall=wall,
+                           fb_peak=fb_peak,
+                           busy=sum(r[0] for r in rows),
+                           got={k: counts[k] for k in QMAC_WRAPPERS},
+                           want=train_products(c))
+    on, off = runs[True], runs[False]
+    for name, r in (("on", on), ("off", off)):
+        st = r["out"][2]
+        print(f"phase 22 (a) {LM_ARCH} w8a8 training step, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, remat {name}: loss {float(st['loss']):.6f}, "
+              f"grad norm {float(st['grad_norm']):.6f}; card peak allocated "
+              f"{r['peak'] / 2**30:.4f} GiB beyond "
+              f"{r['held'] / 2**30:.4f} GiB held (its forward and "
+              f"backward alone {r['fb_peak'] / 2**30:.4f} GiB); device busy "
+              f"{r['busy']:.4f} ms, wall {r['wall']:.4f} ms; Q-MAC "
+              f"launches {r['got']} (want {r['want']})")
+    same = _trees_bitwise(torch, on["out"][:2], off["out"][:2])
+    stats = all(bits_equal(torch, on["out"][2][k], off["out"][2][k])
+                for k in ("loss", "grad_norm"))
+    print(f"phase 22 (a) remat on vs off on {card}: params, mu, nu, count "
+          f"{'bitwise equal' if same else 'DIFFERENT'}, loss and grad norm "
+          f"{'bitwise equal' if stats else 'DIFFERENT'}; peak "
+          f"{on['peak'] / 2**30:.4f} / {off['peak'] / 2**30:.4f} GiB "
+          f"({on['peak'] / off['peak']:.4f}), forward and backward "
+          f"{on['fb_peak'] / 2**30:.4f} / {off['fb_peak'] / 2**30:.4f} GiB "
+          f"({on['fb_peak'] / off['fb_peak']:.4f}), busy {on['busy']:.4f} / "
+          f"{off['busy']:.4f} ms ({on['busy'] / off['busy']:.4f})")
+    for r in (on, off):
+        if r["got"] != r["want"]:
+            raise AssertionError(f"remat step launched {r['got']}, not "
+                                 f"{r['want']}")
+    if not (same and stats):
+        raise AssertionError("the rematerialised step differs from the "
+                             "plain step")
+    del runs, on, off, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_forecasts(total, out):
+    """Phase 22 (b)'s forecasts, on the CPU with no card: TinyLlama's
+    train step at ``REMAT_SEQ`` on a one-rank mesh (``lower_cell`` on the
+    meta device, w8a8) with remat, at each batch of ``REMAT_BATCHES`` in
+    turn until its arguments + temps leave ``REMAT_FREE`` of ``total``
+    bytes free, then without remat at that batch.  Writes the rows
+    (batch, remat, arguments, temps, seconds) as JSON to ``out``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8")
+    mesh = MeshShape(("data", "model"), (1, 1))
+    rows = []
+
+    def forecast(c, b):
+        t0 = time.perf_counter()
+        prog, _ = steps.lower_cell(
+            c, ShapeConfig("train_4k", REMAT_SEQ, b, "train"), mesh, pol)
+        mem = H.memory_stats(prog)
+        rows.append(dict(batch=b, remat=c.remat,
+                         args=mem["argument_size_in_bytes"],
+                         temps=mem["temp_size_in_bytes"],
+                         secs=time.perf_counter() - t0))
+        return rows[-1]["args"] + rows[-1]["temps"]
+
+    for b in REMAT_BATCHES:
+        if forecast(cfg, b) <= (1 - REMAT_FREE) * total:
+            forecast(cfg.replace(remat=False), b)
+            break
+    with open(out, "w") as f:
+        json.dump(rows, f)
+
+
+def start_remat_forecasts(torch, dev):
+    """Start ``remat_forecasts`` for this card's memory in a process of
+    its own with no card, beside phases 21 and 22 (a).  Returns (the
+    process, its start, its JSON's path)."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "phase22")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "forecasts.json")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    code = (f"import sys; sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, "
+            f"{ROOT!r}]; import chip_smoke; "
+            f"chip_smoke.remat_forecasts({total}, {out!r})")
+    with open(os.path.join(out_dir, "forecasts.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                                stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return proc, time.perf_counter(), out
+
+
+def train_4k_step(torch, dev, card, launches, t0, forecasts):
+    """Phase 22 (b): one full-width TinyLlama step at train_4k's sequence
+    length (``REMAT_SEQ``) on the one-rank NCCL mesh, with the remat
+    its config asks for: the step of ``launch.steps.cell_step`` on
+    ``cell_inputs`` drawn on the card, at the first batch of
+    ``REMAT_BATCHES`` whose dry-run forecast (``forecasts``, from
+    ``start_remat_forecasts``: arguments + temps) leaves ``REMAT_FREE``
+    of the card's memory free; the forecast without remat at that batch
+    printed beside it (the reason for the phase: it does not fit).  The
+    step runs once under the profiler: its wall and busy time, the
+    card's peak allocation beyond what was held (the arguments) against
+    the forecast within ``DRY_RUN_MEMORY_BAR``, a finite loss,
+    ``train_products`` Q-MAC launches (added to ``launches``, counted
+    from 0), and phase 22 within ``REMAT_LIMIT_S`` of ``t0``."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8")
+    mesh = make_host_mesh(device=dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = (1 - REMAT_FREE) * total
+    proc, started, path = forecasts
+    try:
+        proc.wait(timeout=max(1.0, REMAT_LIMIT_S
+                              - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"the forecasts failed (exit {proc.returncode}"
+                             f"), {os.path.dirname(path)}/forecasts.log")
+    with open(path) as f:
+        rows = json.load(f)
+    for r in rows:
+        print(f"phase 22 (b) forecast, {LM_ARCH} train {r['batch']} x "
+              f"{REMAT_SEQ} w8a8, remat {'on' if r['remat'] else 'off'}: "
+              f"arguments {r['args'] / 2**30:.4f} GiB + temps "
+              f"{r['temps'] / 2**30:.4f} GiB = "
+              f"{(r['args'] + r['temps']) / 2**30:.4f} GiB of the card's "
+              f"{total / 2**30:.4f} GiB (room {room / 2**30:.4f} GiB); "
+              f"traced on meta in {r['secs']:.1f} s on this machine's CPU")
+    fits = [r for r in rows if r["remat"] and r["args"] + r["temps"] <= room]
+    plain = [r for r in rows if not r["remat"]]
+    if not fits or not plain:
+        raise AssertionError(f"no batch of {REMAT_BATCHES} fits at "
+                             f"{REMAT_SEQ} with remat")
+    batch, args_b, temps = (fits[0]["batch"], fits[0]["args"],
+                            fits[0]["temps"])
+    plain_args, plain_temps = plain[0]["args"], plain[0]["temps"]
+    print(f"phase 22 (b) the forecasts took "
+          f"{time.perf_counter() - started:.1f} s beside phases 21 and 22 "
+          f"(a)")
+    shape = ShapeConfig("train_4k", REMAT_SEQ, batch, "train")
+    step = steps.cell_step(cfg, shape, mesh, pol)
+    args, _ = steps.cell_inputs(cfg, shape, mesh, pol)
+    args = steps.materialize(args, torch.Generator(device=dev).manual_seed(22),
+                             cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, wall, busy = _profiled_once(torch, lambda: step(*args))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    for k, v in counts.items():
+        launches[k] += v
+    got = {k: counts[k] for k in QMAC_WRAPPERS}
+    want = train_products(cfg, REMAT_SEQ)
+    loss = float(out[2]["loss"])
+    ratio = (args_b + peak) / (args_b + temps)
+    tokens = batch * REMAT_SEQ
+    busy_s = "not measured (the trace came back empty)" if busy is None \
+        else f"{busy:.4f} ms"
+    print(f"phase 22 (b) {LM_ARCH} w8a8 training step at {batch} x "
+          f"{REMAT_SEQ} ({tokens} tokens), remat on, one NCCL rank, on "
+          f"{card}: loss {loss:.6f}; wall {wall:.4f} s (under the "
+          f"profiler), device busy {busy_s}; {tokens / wall:.1f} tok/s; "
+          f"card peak {peak / 2**30:.4f} GiB beyond the {held / 2**30:.4f} "
+          f"GiB held, arguments + peak {(args_b + peak) / 2**30:.4f} GiB "
+          f"against the forecast {(args_b + temps) / 2**30:.4f} GiB: "
+          f"{ratio:.6f} (bar {DRY_RUN_MEMORY_BAR}); without remat the "
+          f"forecast is {(plain_args + plain_temps) / 2**30:.4f} GiB; Q-MAC "
+          f"launches {got} (want {want})")
+    del out, args
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 22 took {secs:.1f} s of its {REMAT_LIMIT_S} s limit")
+    if got != want:
+        raise AssertionError(f"the train_4k step launched {got}, not {want}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"the train_4k step's loss is {loss}")
+    lo, hi = DRY_RUN_MEMORY_BAR
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"the train_4k step's memory measured / "
+                             f"forecast {ratio}")
+    if secs > REMAT_LIMIT_S:
+        raise AssertionError(f"phase 22 took {secs:.1f} s, past its "
+                             f"{REMAT_LIMIT_S} s limit")
+    return launches
 
 
 def main() -> int:
@@ -5549,13 +5954,25 @@ def main() -> int:
     fleet_launches = sharded_fleet(torch, dev, card)
     lap("phase 18 (the sharded actor-learner fleet)")
     layout_launches = lm_layout(torch, dev, card, trained)
-    del trained
     lap("phase 19 (the LM layout: the mesh's training step, the MoE "
         "dispatch)")
     audit_launches = analysis_gate(card)
     lap("phase 20 (the static analysis: lint and trace audit)")
-    dry_run_launches = dry_run_gate(torch, dev, card)
-    lap("phase 21 (the dry run against the card)")
+    cell = start_production_cell()
+    forecasts = start_remat_forecasts(torch, dev)
+    try:
+        dry_run_launches = dry_run_gate(torch, dev, card)
+        lap("phase 21 (the dry run against the card)")
+        t22 = time.perf_counter()
+        remat_launches = remat_against_plain(torch, dev, card, trained)
+        del trained
+        train_4k_step(torch, dev, card, remat_launches, t22, forecasts)
+        lap("phase 22 (remat: on against off, a train_4k-length step)")
+        finish_production_cell(*cell)
+        lap("phase 21's production cell, after phase 22")
+    finally:
+        stop(cell[0])
+        stop(forecasts[0])
 
     kdir = "src/repro_torch/kernels"
     source = {"qmac_i8": f"{kdir}/qmac/csrc/qmac.cu",
@@ -5591,7 +6008,8 @@ def main() -> int:
                    "sharded_fleet": fleet_launches[name],
                    "lm_layout": layout_launches[name],
                    "trace_audit": audit_launches[name],
-                   "dry_run": dry_run_launches[name]}
+                   "dry_run": dry_run_launches[name],
+                   "remat": remat_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -5609,7 +6027,8 @@ def main() -> int:
                      "sharded_fleet": fleet_launches,
                      "lm_layout": layout_launches,
                      "trace_audit": audit_launches,
-                     "dry_run": dry_run_launches}
+                     "dry_run": dry_run_launches,
+                     "remat": remat_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

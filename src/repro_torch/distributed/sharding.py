@@ -509,6 +509,25 @@ def manual():
         _ctx.manual = prev
 
 
+def context():
+    """This thread's mesh context (``mesh_rules``' and ``manual``'s), to
+    run other work under with :func:`restored`."""
+    return getattr(_ctx, "state", None), getattr(_ctx, "manual", False)
+
+
+@contextlib.contextmanager
+def restored(saved):
+    """Within the block, this thread's mesh context is ``saved`` (a
+    :func:`context`): a rematerialised forward recomputed on autograd's
+    own thread sees the context its forward saw."""
+    prev = context()
+    _ctx.state, _ctx.manual = saved
+    try:
+        yield
+    finally:
+        _ctx.state, _ctx.manual = prev
+
+
 def across_slots() -> bool:
     """Whether a tensor-wide statistic here spans the data slots: under
     a mesh of more than one slot, outside ``manual``.  The reference's

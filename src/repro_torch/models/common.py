@@ -1,5 +1,5 @@
 """Shared model plumbing: stacked layer init and axes, the LM head,
-losses (port of ``repro.models.common``, forward only).
+losses (port of ``repro.models.common``).
 
 The reference's ``distributed.sharding.constrain`` layout hints stand
 at its sites; on a rank's plain tensors they return their input.
@@ -16,6 +16,7 @@ from repro_torch.core.qmatmul import q_matmul
 from repro_torch.distributed.sharding import constrain
 from repro_torch.nn.linear import embedding_attend
 from repro_torch.nn.module import is_axes
+from repro_torch.nn.remat import checkpoint
 from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 
 Tensor = torch.Tensor
@@ -62,22 +63,30 @@ def chunked_ce(head_fn: Callable, x: Tensor, labels: Tensor,
                mask: Optional[Tensor] = None, chunk: int = 1024) -> Tensor:
     """Head + CE a token chunk at a time, so the [B, S, vocab] logits are
     never whole; the sums run over the chunks in order, as the
-    reference's scan carries them."""
+    reference's scan carries them.  Each chunk's head, logsumexp and
+    label gather are rematerialised (the reference's ``@jax.checkpoint``
+    on its scan body, whatever ``cfg.remat`` says): the backward
+    recomputes a chunk's logits, so at most one chunk's are live."""
     B, S, _ = x.shape
     x = constrain(x, ("batch", None, None))        # gather seq under SP
     if chunk is None or S <= chunk or S % chunk != 0:
         return cross_entropy(head_fn(x), labels, mask)
+
+    @checkpoint
+    def body(x_c, l_c, m_c):
+        logits = head_fn(x_c).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+        return ((lse - lab) * m_c).sum(), m_c.sum()
+
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = x.new_zeros((), dtype=torch.float32)
     for i in range(0, S, chunk):
-        logits = head_fn(x[:, i:i + chunk]).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1,
-                           labels[:, i:i + chunk, None].long())[..., 0]
         m_c = mask[:, i:i + chunk] if mask is not None \
-            else torch.ones_like(lse)
-        tot = tot + ((lse - lab) * m_c).sum()
-        cnt = cnt + m_c.sum()
+            else x.new_ones((B, chunk), dtype=torch.float32)
+        nll, n = body(x[:, i:i + chunk], labels[:, i:i + chunk], m_c)
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp_min(cnt, 1)
 
 

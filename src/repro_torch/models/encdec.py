@@ -6,8 +6,9 @@ The audio frontend is a stub, as in the reference: the encoder takes
 frame embeddings ``[B, S_enc, d_model]``.  Positions are sinusoidal
 (any length).  Block params are stacked ``[L, ...]`` (``enc_blocks``,
 ``dec_blocks``) and walked in a Python loop, as
-``models.transformer`` walks its blocks; ``cfg.remat`` is a compile
-knob and changes nothing here.
+``models.transformer`` walks its blocks; under ``cfg.remat`` the
+training forward rematerialises each encoder block and each decoder
+block in the backward.
 
 Reproduced from the reference, as it behaves:
 
@@ -46,6 +47,7 @@ from repro_torch.nn.linear import (embedding_apply, embedding_axes,
 from repro_torch.nn.mlp import mlp_apply, mlp_axes, mlp_init
 from repro_torch.nn.norm import (layernorm_apply, layernorm_axes,
                                  layernorm_init)
+from repro_torch.nn.remat import checkpoint
 
 Tensor = torch.Tensor
 
@@ -138,10 +140,16 @@ def encode(params, frames: Tensor, cfg: ArchConfig,
     x = frames + _positions(S, cfg.d_model, frames.device)[None].to(
         frames.dtype)
     acfg = _acfg(cfg, causal=False)
-    for p in layers(params["enc_blocks"], cfg.n_layers):
-        x = x + attention_apply(p["attn"], layernorm_apply(p["ln1"], x),
+
+    def body(p, h):
+        h = h + attention_apply(p["attn"], layernorm_apply(p["ln1"], h),
                                 acfg, policy)
-        x = x + _mlp(p, x, cfg, policy)
+        return h + _mlp(p, h, cfg, policy)
+
+    if cfg.remat:
+        body = checkpoint(body)
+    for p in layers(params["enc_blocks"], cfg.n_layers):
+        x = body(p, x)
     return layernorm_apply(params["ln_enc"], x)
 
 
@@ -159,12 +167,18 @@ def decode_train(params, tokens: Tensor, enc_out: Tensor, cfg: ArchConfig,
     blocks = layers(params["dec_blocks"], cfg.n_layers)
     x = _embed_tokens(params, tokens, enc_out.dtype, cfg)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False, True)
-    for p in blocks:
-        x = x + attention_apply(p["self"], layernorm_apply(p["ln1"], x),
+
+    def body(p, h):
+        h = h + attention_apply(p["self"], layernorm_apply(p["ln1"], h),
                                 self_cfg, policy)
-        x = x + attention_apply(p["cross"], layernorm_apply(p["ln_x"], x),
+        h = h + attention_apply(p["cross"], layernorm_apply(p["ln_x"], h),
                                 cross_cfg, policy, encoder_out=enc_out)
-        x = x + _mlp(p, x, cfg, policy)
+        return h + _mlp(p, h, cfg, policy)
+
+    if cfg.remat:
+        body = checkpoint(body)
+    for p in blocks:
+        x = body(p, x)
     x = layernorm_apply(params["ln_dec"], x)
     if return_hidden:
         return x

@@ -4,12 +4,13 @@ CUDA tensor, Q-MAC): ``in_proj`` and ``out_proj`` in each block, then
 the head.
 
 Block params are stacked ``[L, ...]`` and walked in a Python loop, as
-``models.transformer`` walks its blocks; ``cfg.remat`` is a compile knob
-and changes nothing here.  The serving caches are each layer's recurrent
-state, stacked: the SSD state ``[L, B, H, P, N]`` and the raw pre-conv
-``xBC`` tail ``[L, B, W-1, C]``; a decode step writes each layer's new
-state into them in place.  A prefill's prompt must be a whole number of
-SSD chunks (``cfg.ssm_chunk``), as in the reference.
+``models.transformer`` walks its blocks; under ``cfg.remat`` the
+training forward rematerialises each SSD block in the backward.  The
+serving caches are each layer's recurrent state, stacked: the SSD
+state ``[L, B, H, P, N]`` and the raw pre-conv ``xBC`` tail ``[L, B,
+W-1, C]``; a decode step writes each layer's new state into them in
+place.  A prefill's prompt must be a whole number of SSD chunks
+(``cfg.ssm_chunk``), as in the reference.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.models.transformer import (_embed, _head, layers,
 from repro_torch.nn.linear import (embedding_axes, embedding_init,
                                    linear_axes, linear_init)
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
+from repro_torch.nn.remat import checkpoint
 from repro_torch.nn.ssm import (SSMConfig, ssm_apply, ssm_axes, ssm_init,
                                 ssm_init_state)
 
@@ -75,12 +77,19 @@ def param_axes(cfg: ArchConfig):
 def forward(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None,
             return_hidden: bool = False) -> Tensor:
-    """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
+    """Training/scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
     scfg = ssm_config(cfg)
     blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
+
+    def body(p, h):
+        return h + ssm_apply(p["ssm"], rmsnorm_apply(p["ln"], h), scfg,
+                             policy)
+
+    if cfg.remat:
+        body = checkpoint(body)
     for p in blocks:
-        x = x + ssm_apply(p["ssm"], rmsnorm_apply(p["ln"], x), scfg, policy)
+        x = body(p, x)
     x = rmsnorm_apply(params["ln_f"], x)
     if return_hidden:
         return x

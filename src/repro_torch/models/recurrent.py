@@ -5,8 +5,9 @@ R = RG-LRU recurrent block, A = local (sliding-window) MQA attention;
 each followed by a GeGLU MLP (``swiglu_apply(..., act="gelu")``).  The
 repeating pattern's params are stacked ``[n_super, ...]`` under
 ``supers`` and walked in a Python loop; the remainder layers (38 = 12 x
-3 + 2) are the ``tail`` list, as in the reference.  Every product routes
-through q_matmul (on a CUDA tensor, Q-MAC).
+3 + 2) are the ``tail`` list, as in the reference.  Under ``cfg.remat``
+the training forward rematerialises each super-block, not the tail.
+Every product routes through q_matmul (on a CUDA tensor, Q-MAC).
 
 Serving caches: an R layer keeps its conv tail (the raw pre-conv input)
 and its RG-LRU state, written in place by a decode step; an A layer
@@ -35,6 +36,7 @@ from repro_torch.nn.linear import (embedding_axes, embedding_init,
                                    linear_apply, linear_axes, linear_init)
 from repro_torch.nn.mlp import swiglu_apply, swiglu_axes, swiglu_init
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
+from repro_torch.nn.remat import checkpoint
 from repro_torch.nn.rglru import (recurrent_block_apply,
                                   recurrent_block_axes,
                                   recurrent_block_init,
@@ -166,10 +168,25 @@ def _layers(params, cfg):
 def forward(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None,
             return_hidden: bool = False) -> Tensor:
-    """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
+    """Training/scoring forward: tokens [B, S] -> fp32 logits [B, S, V].
+    Under ``cfg.remat`` each super-block (the pattern's layers) is
+    rematerialised in the backward; the tail's layers are not, as in the
+    reference."""
+    pat, n_super, tail = _layout(cfg)
     x = _embed(params, tokens, policy)
     positions = _positions(tokens)
-    for kind, p in _layers(params, cfg):
+
+    def super_body(sp, h):
+        for i, kind in enumerate(pat):
+            h = _sub_apply(sp[f"b{i}_{kind}"], h, kind, cfg, policy,
+                           positions)
+        return h
+
+    if cfg.remat:
+        super_body = checkpoint(super_body)
+    for sp in layers(params["supers"], n_super):
+        x = super_body(sp, x)
+    for kind, p in zip(tail, params.get("tail", []), strict=True):
         x = _sub_apply(p, x, kind, cfg, policy, positions)
     x = rmsnorm_apply(params["ln_f"], x)
     if return_hidden:

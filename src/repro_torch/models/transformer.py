@@ -9,13 +9,17 @@ layers are walked in a Python loop over the stacked leaves in place of
 its ``lax.scan`` (:func:`layers`): a layer's weights are views ``w[i]``
 (a QTensor's ``qvalue[i]``, ``scale[i]``), taken by one ``unbind`` a
 leaf.  Like the scan, the walk refuses a tree whose stacked leaves do
-not all lead with the layer count.  ``cfg.remat`` and
-``cfg.scan_layers`` are compile knobs and change nothing here.  The
+not all lead with the layer count.  Under ``cfg.remat`` (every config's
+default) the training forward checkpoints each block's body
+(``nn.remat.checkpoint``, the reference's ``jax.checkpoint`` with
+nothing saveable): the backward recomputes it from the block's input.
+``cfg.scan_layers`` is a compile knob and changes nothing here.  The
 reference's ``distributed.sharding.constrain`` layout hints stand at
 its sites; on a rank's plain tensors they return their input.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,6 +39,7 @@ from repro_torch.nn.linear import (embedding_apply, embedding_axes,
 from repro_torch.nn.mlp import swiglu_apply, swiglu_axes, swiglu_init
 from repro_torch.nn.moe import moe_apply, moe_axes, moe_init
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_axes, rmsnorm_init
+from repro_torch.nn.remat import checkpoint
 from repro_torch.tree import leaves_with_path, map_with_path, path_str
 
 Tensor = torch.Tensor
@@ -198,12 +203,16 @@ def _positions(tokens: Tensor) -> Tensor:
 def forward(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None,
             return_hidden: bool = False) -> Tensor:
-    """Scoring forward: tokens [B, S] -> fp32 logits [B, S, V]."""
+    """Training/scoring forward: tokens [B, S] -> fp32 logits [B, S, V].
+    Under ``cfg.remat`` each block is rematerialised in the backward."""
     blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, tokens, policy)
-    positions = _positions(tokens)
+    body = functools.partial(_block_apply, cfg=cfg, policy=policy,
+                             positions=_positions(tokens))
+    if cfg.remat:
+        body = checkpoint(body)
     for p in blocks:
-        x = _block_apply(p, x, cfg, policy, positions)
+        x = body(p, x)
     x = rmsnorm_apply(params["ln_f"], x)
     if return_hidden:
         return x

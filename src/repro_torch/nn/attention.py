@@ -21,8 +21,11 @@ Differences from the reference, none of them in a result:
 * a cache update writes the new positions into the cache's tensors in
   place and returns the cache (a decode step would otherwise copy every
   layer's whole cache); callers hand each cache to one update;
-* the q-chunked path loops over chunks in Python (no remat: serving
-  keeps no activations for a backward).
+* the q-chunked path loops over chunks in Python.  Under autograd each
+  chunk is rematerialised (``nn.remat.checkpoint``, the reference's
+  ``jax.checkpoint(block)``): the backward recomputes its scores rather
+  than keeping every chunk's softmax weights.  Serving runs under
+  ``no_grad`` and checkpoints nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.distributed.sharding import constrain
 from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import ones_init
 from repro_torch.nn.norm import rmsnorm_apply
+from repro_torch.nn.remat import checkpoint
 from repro_torch.nn.rotary import apply_rope
 
 Tensor = torch.Tensor
@@ -267,7 +271,10 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 
     if q_chunk is None or S <= q_chunk or S % q_chunk != 0:
         return block(q, q_pos)
-    return torch.cat([block(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+    # remat each chunk: the backward recomputes its scores instead of
+    # keeping every chunk's [B, H, q_chunk, T] softmax weights
+    blk = checkpoint(block)
+    return torch.cat([blk(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
                       for i in range(0, S, q_chunk)], dim=1)
 
 

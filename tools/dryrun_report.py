@@ -12,6 +12,9 @@ root:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape all --both-meshes --json sweep.json
     PYTHONPATH=src python tools/dryrun_report.py sweep.json
+
+Several JSON files (a sweep split over processes, an arch each) are
+read as one sweep, in the order given.
 """
 import json
 import os
@@ -51,11 +54,13 @@ def memory_table(ok) -> str:
 
 
 def main(argv) -> int:
-    if len(argv) != 1:
+    if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    with open(argv[0]) as f:
-        results = json.load(f)
+    results = []
+    for path in argv:
+        with open(path) as f:
+            results += json.load(f)
     ok = [r for r in results if r["status"] == "ok"]
     print(summarize(ok))
     print()
