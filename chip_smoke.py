@@ -48,6 +48,9 @@ non-zero:
    at C = 4, 10 and 320, at ragged C, K and N, over a split K's slice
    edges and at one expert against ``qmac_i8_deq``, and both Q-MAC
    products at qwen3-moe's attention and head, with w8 and w4 codes;
+   both Q-MAC products at the shards of TinyLlama's laid-out step on
+   rank 0 of the (16, 16) mesh (``LAID_OUT_KN``: (2048, 128), (128,
+   2048), (2048, 352), (352, 2048), (2048, 2000)) at M = 1,024;
 4. time each kernel beside its plain version and, where one exists, a
    single PyTorch call computing the same function (CUDA events, median
    of 60 launches queued behind a device sleep so host overhead does not
@@ -71,6 +74,8 @@ non-zero:
    beside a yardstick of ``torch._int_mm`` and the scale multiplies
    once an expert (128 calls timed as one host loop, not a single
    call; rows padded to 32 at C = 4), summed over a forward's 12;
+   ``qmac_i8`` at each shard of the laid-out step (``LAID_OUT_KN``) at
+   M = 1,024 beside ``torch._int_mm``, as TinyLlama's training rows;
 5. the serving path: build a conv DQN for keydoor at full width (seed
    0), save it as a checkpoint, and serve it through
    ``repro_torch.launch.serve_policy`` at w8 and at w4 with parity
@@ -281,7 +286,7 @@ non-zero:
    (``_profiled``) at least the roofline's ``t_step``, and the card's
    peak allocation over the step against the forecast (arguments +
    temps) within ``DRY_RUN_MEMORY_BAR``; meanwhile, beside phases 21
-   and 22, one production cell, ``python -m repro_torch.launch.dryrun
+   to 23, one production cell, ``python -m repro_torch.launch.dryrun
    --arch qwen2-72b --shape train_4k``, in a process of its own with no
    card: exit 0 and its roofline line within ``DRY_RUN_CELL_LIMIT_S``;
 22. rematerialisation (``repro_torch.nn.remat``, within
@@ -300,7 +305,21 @@ non-zero:
    time, a finite loss, 316 ``qmac_i8`` launches (the head twice a CE
    chunk) and the card's peak against the forecast within
    ``DRY_RUN_MEMORY_BAR``;
-23. print the kernels' JSON line (the batched launches in
+23. the laid-out training step (``make_train_step(...,
+   shardings=p_shard)``: the dense family on params laid out by
+   ``make_shardings``, FSDP over "data", products split over "model",
+   gradients reduce-scattered in slot order; within
+   ``LAYOUT_LIMIT_S``): (a) from phase 17's trained TinyLlama params, 2
+   steps on the one NCCL rank's blocks bitwise 2 unsharded steps
+   (params, ``mu``, ``nu``, ``count``, losses, grad norms), 309
+   ``qmac_i8`` a step; (b) rank 0 of the (16, 16) production mesh (a
+   ``MeshShape``) at train_4k, 16 rows of 4,096 tokens, remat on:
+   ``lower_cell``'s meta trace and the same step run once on the card
+   under the same recorder equal call by call, the Q-MAC records equal
+   the counters, busy >= the roofline's ``t_step``, a finite loss, the
+   card's peak within ``DRY_RUN_MEMORY_BAR`` of arguments + temps; the
+   arguments a rank, the temps, wall and busy time printed;
+24. print the kernels' JSON line (the batched launches in
    ``qmac_i8_deq``'s row, by path), then the device line last.
 
 Every trace (``_profiled``) records the device's activity alone.
@@ -1995,8 +2014,8 @@ def _recorded_codes(torch, fn, experts=None, flat=False):
             experts.append(idx.to(torch.int32))
         return dispatch(idx, n_experts, capacity)
 
-    def record_rowwise(x, bits):
-        q, scale = rowwise(x, bits)
+    def record_rowwise(x, bits, *split):
+        q, scale = rowwise(x, bits, *split)
         rec.append(q)
         return q, scale
 
@@ -4503,11 +4522,21 @@ def train_products(cfg, seq=None, backward=True):
     return out
 
 
+# the products of TinyLlama's laid-out step on rank 0 of the (16, 16)
+# mesh (phase 23), (K, N) a shard: wq's 2 heads of 64, wo's
+# contraction over them, w_gate / w_up's 352 d_ff columns, w_down's
+# contraction over them, the head's 2,000 vocabulary columns (wk and wv
+# stay whole, at LM_KN's (2048, 256): 4 kv heads against 16 ranks)
+LAID_OUT_KN = ((2048, 128), (128, 2048), (2048, 352), (352, 2048),
+               (2048, 2000))
+
+
 def check_lm_train_kernels(torch, dev, worst):
     """Phase 3, TinyLlama's training products: ``qmac_i8`` (and the
-    fused product) at every (K, N) of ``TRAIN_KN`` at M = 1,024, with w8
-    and w4 codes, bitwise equal to the plain version."""
-    cases = [(TRAIN_M, k, n) for k, n in TRAIN_KN]
+    fused product) at every (K, N) of ``TRAIN_KN`` and of the laid-out
+    step's shards (``LAID_OUT_KN``) at M = 1,024, with w8 and w4 codes,
+    bitwise equal to the plain version."""
+    cases = [(TRAIN_M, k, n) for k, n in TRAIN_KN + LAID_OUT_KN]
     return _check_lm_products(torch, dev, worst, "TinyLlama training",
                               cases, 24)
 
@@ -4517,8 +4546,9 @@ def time_lm_train_kernels(torch, dev):
     M = 1,024 beside its bound, its plain version and ``torch._int_mm``,
     and summed over a rematerialised step's 309 products (the forward's
     155, then the 154 of the 22 layers the backward recomputes; the
-    head is not, at one CE chunk).  Returns the rows, [1024, 2048] x
-    [2048, 5632] first."""
+    head is not, at one CE chunk), then at each shard of the laid-out
+    step (``LAID_OUT_KN``).  Returns the rows, [1024, 2048] x [2048,
+    5632] first."""
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(25)
     per_step = {(2048, 5632): 88, (2048, 2048): 88, (2048, 256): 88,
@@ -4536,6 +4566,10 @@ def time_lm_train_kernels(torch, dev):
           f"torch._int_mm {tot['library_ms']:.4f} ms, bound "
           f"{tot['bound_ms']:.4f} ms; timed in "
           f"{time.perf_counter() - t0:.1f} s")
+    # the laid-out step's shards on rank 0 of the (16, 16) mesh, each a
+    # row of its own at M = 1,024 (phase 23 runs them at 65,536 rows)
+    for k, n in LAID_OUT_KN:
+        rows.append(_time_qmac(torch, g, dev, TRAIN_M, k, n)[0])
     return rows
 
 
@@ -5043,12 +5077,12 @@ LAYOUT_STEPS = 2
 LAYOUT_MOE_TOKENS = (8, 512)
 
 
-def _layout_steps(torch, dev, cfg, params, mesh, launches):
-    """``LAYOUT_STEPS`` steps of ``make_train_step(cfg, mesh, ...)`` from
-    ``params`` and a fresh AdamW state on the first batches at phase 17's
-    settings, each step's Q-MAC launches counted (with a mesh, added to
-    ``launches``): (params, state, [(loss, grad_norm)], launches a step,
-    step seconds)."""
+def _layout_steps(torch, dev, cfg, params, mesh, launches, shardings=None):
+    """``LAYOUT_STEPS`` steps of ``make_train_step(cfg, mesh, ...,
+    shardings=shardings)`` from ``params`` and a fresh AdamW state on the
+    first batches at phase 17's settings, each step's Q-MAC launches
+    counted (with a mesh, added to ``launches``): (params, state,
+    [(loss, grad_norm)], launches a step, step seconds)."""
     from repro_torch import kernels
     from repro_torch.core.policy import get_policy
     from repro_torch.data import DataConfig, batch_at, place
@@ -5057,7 +5091,8 @@ def _layout_steps(torch, dev, cfg, params, mesh, launches):
 
     step = make_train_step(cfg, mesh, get_policy("w8a8"),
                            AdamWConfig(weight_decay=0.0),
-                           warmup_cosine(3e-4, 1, TRAIN_STEPS))
+                           warmup_cosine(3e-4, 1, TRAIN_STEPS),
+                           shardings=shardings)
     dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, 0)
     p, o = params, adamw_init(params)
     stats, per_step, dts = [], [], []
@@ -5104,8 +5139,8 @@ def _recording_dispatch(torch):
         rec["keep"].append(keep.cpu())
         return pos, keep
 
-    def rowwise(x, bits):
-        q, scale = orig[2](x, bits)
+    def rowwise(x, bits, *split):
+        q, scale = orig[2](x, bits, *split)
         rec["codes"].append(q.cpu())
         return q, scale
 
@@ -5346,7 +5381,7 @@ DRY_RUN_CELLS = (("prefill_8x512", 512, 8, "prefill", "w8a8kv8"),
 # the bar's reason
 DRY_RUN_MEMORY_BAR = (0.999, 1.001)
 # one production cell, traced on the card machine's CPU in a process of
-# its own while phases 21 and 22 run on the card, and its limit from
+# its own while phases 21 to 23 run on the card, and its limit from
 # its start, seconds.  Rematerialised, its step records each layer's
 # forward again in the backward (80 layers, 80% more records): 127.2 s
 # on that CPU against 52.8 s without remat (PERF.md section 6)
@@ -5406,7 +5441,7 @@ def finish_production_cell(cell, t0, out_dir):
         err = f.read()
     print(f"phase 21 {arch} x {shape_name} on this machine's CPU, no card "
           f"(exit {cell.returncode}, {secs:.1f} s of its "
-          f"{DRY_RUN_CELL_LIMIT_S} s limit, beside phases 21 and 22):")
+          f"{DRY_RUN_CELL_LIMIT_S} s limit, beside phases 21 to 23):")
     for line in lines:
         if line.strip():
             print(f"  {line}")
@@ -5841,6 +5876,199 @@ def train_4k_step(torch, dev, card, launches, t0, forecasts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the laid-out training step (the dense family on params laid
+# out by make_shardings)
+# ---------------------------------------------------------------------------
+
+# phase 23's own limit, seconds
+LAYOUT_LIMIT_S = 120
+# (b)'s cell: rank 0 of the (16, 16) production mesh at train_4k
+LAID_OUT_MESH = (16, 16)
+LAID_OUT_SHAPE = "train_4k"
+
+
+def laid_out_gate(torch, dev, card, params):
+    """Phase 23: the laid-out training step on the card.
+
+    (a) From ``params`` (phase 17's trained TinyLlama, all 22 layers at
+    full width, on the host), ``LAYOUT_STEPS`` steps of
+    ``make_train_step(cfg, make_host_mesh(), ..., shardings=p_shard)``
+    on the one NCCL rank's blocks (``local_shards``: the whole params at
+    one rank) and as many of ``make_train_step(cfg, None, ...)``: the
+    params, ``mu``, ``nu``, ``count``, every loss and grad norm bitwise
+    equal, 309 ``qmac_i8`` a step in each.
+
+    (b) Rank 0 of the (16, 16) production mesh (a ``MeshShape``: each
+    peer's piece a copy of rank 0's, so the values are no training
+    result) at train_4k (16 rows of 4,096 tokens a rank, remat on):
+    ``lower_cell`` traces it on the meta device, then the same step runs
+    once on the card from ``materialize``d inputs under the same
+    recorder: the traces equal call by call, the Q-MAC records equal the
+    counters, the device busy time at least the roofline's ``t_step``, a
+    finite loss, and the card's peak within ``DRY_RUN_MEMORY_BAR`` of
+    the forecast (arguments + temps).  The rotary table is built on
+    both devices first (once a device), so neither trace holds it.
+    Returns the path's launches: (a)'s laid-out steps and (b)'s traced
+    step, each counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import SHAPES, ShapeConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.sharding import MeshShape, local_shards
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.nn.rotary import apply_rope
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8")
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+
+    # (a) one NCCL rank: the laid-out steps against today's
+    mesh = make_host_mesh(device=dev)
+    p_shard = steps.abstract_params(cfg, mesh)[1]
+    want = train_products(cfg)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    runs = {}
+    for name, m, sh in (("laid out", mesh, p_shard),
+                        ("unsharded", None, None)):
+        p0 = local_shards(on_card, sh, m) if sh is not None else on_card
+        p, o, stats, per_step, dts = _layout_steps(torch, dev, cfg, p0, m,
+                                                   launches, shardings=sh)
+        runs[name] = (tree_map(lambda t: t.cpu(), (p, o)), stats)
+        del p, o, p0
+        how = f"on {describe(m)}, laid out" if m is not None else \
+            "with no mesh"
+        print(f"phase 23 (a) {LM_ARCH} {LAYOUT_STEPS} training steps, "
+              f"make_train_step {how}: losses "
+              f"{[float(st[0]) for st in stats]}, grad norms "
+              f"{[float(st[1]) for st in stats]}, step seconds "
+              f"{[round(d, 4) for d in dts]}, Q-MAC launches a step "
+              f"{per_step}")
+        if per_step != [want] * LAYOUT_STEPS:
+            raise AssertionError(f"{name} steps launched {per_step}, not "
+                                 f"{want} each")
+    del on_card
+    torch.cuda.empty_cache()
+    (ta, sa), (tb, sb) = runs["laid out"], runs["unsharded"]
+    same = _trees_bitwise(torch, ta, tb) and all(
+        bits_equal(torch, x, y) for a, b in zip(sa, sb) for x, y in zip(a, b))
+    print(f"phase 23 (a) the laid-out steps vs the unsharded steps: params, "
+          f"mu, nu, count, losses and grad norms bitwise "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the laid-out training steps differ from the "
+                             "unsharded steps")
+    del runs, ta, tb
+
+    # (b) rank 0 of the production mesh at train_4k
+    for where in ("meta", dev):
+        apply_rope(torch.zeros((1, 1, 1, cfg.hd), device=where),
+                   torch.zeros((1, 1), dtype=torch.long, device=where),
+                   cfg.rope_theta)
+    ms = MeshShape(("data", "model"), LAID_OUT_MESH)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    shape = SHAPES[LAID_OUT_SHAPE]
+    t1 = time.perf_counter()
+    meta, info = steps.lower_cell(cfg, shape, ms, pol)
+    mem = H.memory_stats(meta)
+    forecast = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    while forecast > (1 - REMAT_FREE) * total and shape.global_batch > 16:
+        print(f"phase 23 (b) {shape.name} at {shape.global_batch} rows: "
+              f"forecast {forecast / 2**30:.4f} GiB does not fit the card's "
+              f"{total / 2**30:.4f} GiB; halving the batch")
+        shape = ShapeConfig(shape.name, shape.seq_len,
+                            shape.global_batch // 2, "train")
+        meta, info = steps.lower_cell(cfg, shape, ms, pol)
+        mem = H.memory_stats(meta)
+        forecast = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    lower_s = time.perf_counter() - t1
+    rows = shape.global_batch // LAID_OUT_MESH[0]
+    step = steps.cell_step(cfg, shape, ms, pol)
+    args, _ = steps.cell_inputs(cfg, shape, ms, pol)
+    args = steps.materialize(args, torch.Generator(device=dev).manual_seed(23),
+                             cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t2 = time.perf_counter()
+    traced = H.trace(step, args)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = kernels.launch_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    what = (f"{LM_ARCH} train_step {shape.name} ({rows} x {shape.seq_len} "
+            f"a rank) at w8a8 on rank 0 of {ms.shape}, laid out")
+    same = [r[:5] for r in meta.ops] == [r[:5] for r in traced.ops]
+    cost_m, cost_c = H.cost_terms(meta), H.cost_terms(traced)
+    hist = H.op_histogram(meta)
+    qmac = {k: hist.get(k, 0) for k in QMAC_WRAPPERS}
+    counted = {k: counts[k] for k in QMAC_WRAPPERS}
+    print(f"phase 23 (b) {what}: {len(meta.ops)} records on meta (traced "
+          f"in {lower_s:.1f} s), {len(traced.ops)} on the card ({traced_s:.1f}"
+          f" s under the recorder), equal {same}; Q-MAC records {qmac}, "
+          f"launch counters {counted}; flops {cost_m['flops']:.6e}, int_ops "
+          f"{cost_m['int_ops']:.6e}, bytes {cost_m['bytes']:.6e}, "
+          f"collective bytes {cost_m['collective_bytes']:.6e} "
+          f"{H.collective_bytes(meta)}")
+    if not info["laid_out"]:
+        raise AssertionError(f"{what}: lower_cell did not lay it out")
+    if not same:
+        raise AssertionError(f"{what}: the traces differ, "
+                             f"{_first_difference(meta.ops, traced.ops)}")
+    if cost_m != cost_c or hist != H.op_histogram(traced):
+        raise AssertionError(f"{what}: costs {cost_m} on meta, {cost_c} on "
+                             "the card")
+    if qmac != counted or qmac != train_products(cfg, shape.seq_len):
+        raise AssertionError(f"{what}: Q-MAC records {qmac}, launches "
+                             f"{counted}")
+    roof = roofline_terms(cfg, shape, ms, cost_m)
+    out, wall, busy = _profiled_once(torch, lambda: step(*args))
+    loss = float(out[2]["loss"])
+    del out
+    measured = mem["argument_size_in_bytes"] + peak
+    ratio = measured / forecast
+    busy_s = None if busy is None else busy / 1e3
+    print(f"phase 23 (b) {what} on {card}: arguments a rank "
+          f"{mem['argument_size_in_bytes'] / 2**30:.4f} GiB (the layout's "
+          f"{mem['layout_argument_bytes'] / 2**30:.4f} GiB), temps forecast "
+          f"{mem['temp_size_in_bytes'] / 2**30:.4f} GiB, the card's peak "
+          f"{peak / 2**30:.4f} GiB beyond {held / 2**30:.4f} GiB held: "
+          f"measured / forecast {ratio:.6f} (bar {DRY_RUN_MEMORY_BAR}); loss "
+          f"{loss:.6f}; wall {wall:.4f} s (under the profiler), device busy "
+          + ("not measured (the trace came back empty)" if busy_s is None
+             else f"{busy_s:.4f} s") + f"; roofline at H100 data-sheet "
+          f"peaks: compute {roof['t_compute']:.6e} s, memory "
+          f"{roof['t_memory']:.6e} s, collective {roof['t_collective']:.6e} "
+          f"s, t_step {roof['t_step']:.6e} s")
+    del args, step
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 23 launches: {launches}; {secs:.1f} s of its "
+          f"{LAYOUT_LIMIT_S} s limit")
+    if mem["argument_size_in_bytes"] != mem["layout_argument_bytes"]:
+        raise AssertionError(f"{what}: arguments {mem} are not the layout's")
+    if not math.isfinite(loss):
+        raise AssertionError(f"{what}: loss {loss}")
+    if busy_s is None or busy_s < roof["t_step"]:
+        raise AssertionError(f"{what}: busy {busy_s} s under the floor "
+                             f"{roof['t_step']} s")
+    lo, hi = DRY_RUN_MEMORY_BAR
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{what}: memory measured / forecast {ratio}")
+    if secs > LAYOUT_LIMIT_S:
+        raise AssertionError(f"phase 23 took {secs:.1f} s, past its "
+                             f"{LAYOUT_LIMIT_S} s limit")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5871,6 +6099,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from repro_torch.kernels import _build
+    from repro_torch.tree import tree_map
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {[os.path.basename(p) for p in libs]} in "
@@ -5965,11 +6194,16 @@ def main() -> int:
         lap("phase 21 (the dry run against the card)")
         t22 = time.perf_counter()
         remat_launches = remat_against_plain(torch, dev, card, trained)
-        del trained
+        # phase 23 starts from them again; the card is phase 22's
+        trained = tree_map(lambda t: t.cpu(), trained)
         train_4k_step(torch, dev, card, remat_launches, t22, forecasts)
         lap("phase 22 (remat: on against off, a train_4k-length step)")
+        stop(forecasts[0])
+        laid_out_launches = laid_out_gate(torch, dev, card, trained)
+        del trained
+        lap("phase 23 (the laid-out training step)")
         finish_production_cell(*cell)
-        lap("phase 21's production cell, after phase 22")
+        lap("phase 21's production cell, after phase 23")
     finally:
         stop(cell[0])
         stop(forecasts[0])
@@ -6009,7 +6243,8 @@ def main() -> int:
                    "lm_layout": layout_launches[name],
                    "trace_audit": audit_launches[name],
                    "dry_run": dry_run_launches[name],
-                   "remat": remat_launches[name]}
+                   "remat": remat_launches[name],
+                   "lm_laid_out": laid_out_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -6028,7 +6263,8 @@ def main() -> int:
                      "lm_layout": layout_launches,
                      "trace_audit": audit_launches,
                      "dry_run": dry_run_launches,
-                     "remat": remat_launches}
+                     "remat": remat_launches,
+                     "lm_laid_out": laid_out_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

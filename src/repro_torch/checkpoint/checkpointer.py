@@ -142,3 +142,23 @@ def from_numpy_tree(tree: Any, device) -> Any:
         return _as_tensor(np.asarray(leaf), "", None, device)
 
     return map_with_path(convert, tree, is_leaf=is_q)
+
+
+def shards_from_numpy(tree: Any, shardings, mesh, device) -> Any:
+    """The reference's whole tree (numpy, as :func:`from_numpy_tree`
+    takes it) as this rank's blocks under ``shardings``
+    (``make_shardings``' tree on ``mesh``), on ``device``: each rank's
+    blocks equal the reference's addressable shard of the device at its
+    coordinate.  The whole tree is made on the CPU, one leaf's blocks
+    cut from it, and only the blocks reach ``device``."""
+    from repro_torch.distributed.sharding import local_shards
+
+    blocks = local_shards(from_numpy_tree(tree, "cpu"), shardings, mesh)
+
+    def put(_p, leaf):
+        if isinstance(leaf, QTensor):
+            return QTensor(leaf.qvalue.to(device), leaf.scale.to(device),
+                           leaf.bits)
+        return leaf.to(device)
+
+    return map_with_path(put, blocks, is_leaf=is_qtensor)

@@ -22,6 +22,17 @@ straight-through estimator ``dx = g @ w^T``, ``dw = x^T @ g`` in the
 compute dtype at the *unquantized* operands (plain PyTorch; the
 reference's backward is an fp ``dot_general``, not a kernel).
 
+On a laid-out step (``distributed.sharding.layout``) a product may be
+split over the model axis (:class:`Split`).  Column-parallel (the
+output's columns split): the rank's columns, bit for bit the unsplit
+product's.  Row-parallel (the contraction split): a row's activation
+scale and a weight column's scale are maxima over the model axis
+(``pmax``), so the codes are the unsplit ones; the int32 accumulators
+are summed over the model axis before the dequant, exactly, so the
+output is the unsplit one bit for bit (with ``scatter``, only this
+rank's piece of it along that dimension: sequence parallelism).  The
+fp and fake-quantized branches sum their fp partials in rank order.
+
 ``q_batched_matmul`` is MoE's per-expert product, ``x [E, C, K] @ w [E,
 K, N]``.  Its int8 program (per-row activation codes, per-(expert,
 out-channel) weight codes quantized at each call, exact int32
@@ -31,7 +42,8 @@ branches are fp products, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -39,15 +51,35 @@ from repro_torch.core.fxp import (QTensor, div_scalar, fake_quant,
                                   fake_quant_rowwise, fxp_dtype, fxp_qmax,
                                   quantize)
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.distributed.sharding import (axes_index, gather_over, pmax,
+                                              psum_pieces, psum_scatter,
+                                              summed)
 from repro_torch.kernels.qmac import ops as qmac_ops
 
 Tensor = torch.Tensor
 
 
-def quantize_rowwise(x: Tensor, bits: int):
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A product's operands laid over a mesh: ``k`` the axes its
+    contraction is split over (row-parallel: ``x``'s last dimension and
+    ``w``'s first), ``n`` those its output columns are split over
+    (column-parallel), ``scatter`` the output dimension a row-parallel
+    product's sum is reduce-scattered along (sequence parallelism)."""
+
+    mesh: object
+    k: Tuple[str, ...] = ()
+    n: Tuple[str, ...] = ()
+    scatter: Optional[int] = None
+
+
+def quantize_rowwise(x: Tensor, bits: int, split: Optional[Split] = None):
     """Per-row (last-axis) symmetric quantization for activations:
-    (int codes, fp32 scale [..., 1])."""
+    (int codes, fp32 scale [..., 1]).  A row split over ``split.k``
+    takes its absmax over the peers there."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if split is not None and split.k:
+        amax = pmax(amax, split.mesh, split.k)
     scale = div_scalar(torch.clamp_min(amax.to(torch.float32), 1e-12),
                        fxp_qmax(bits))
     q = torch.clamp(torch.round(x / scale.to(x.dtype)),
@@ -64,47 +96,97 @@ def _rows(t: Tensor) -> Tensor:
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
-def _fwd_quantized(policy: QuantPolicy, x: Tensor, w: Tensor) -> Tensor:
-    """Quantized forward product with fp weights."""
+def _weight_scale(w: Tensor, bits: int, per_channel: bool,
+                  split: Split) -> Tensor:
+    """``absmax_scale`` of a split weight ``[K, N]``: a column's absmax
+    (per channel) over the peers its rows are split over, the tensor's
+    (per tensor) over every peer of its blocks."""
+    amax = w.abs().amax(dim=0 if per_channel else (0, 1), keepdim=True)
+    over = split.k if per_channel else split.k + split.n
+    if over:
+        amax = pmax(amax, split.mesh, over)
+    return div_scalar(torch.clamp_min(amax, 1e-12), fxp_qmax(bits))
+
+
+def _fake_quant_operands(policy: QuantPolicy, x: Tensor, w: Tensor,
+                         split: Optional[Split]):
+    w_ch = 1 if policy.per_channel else None
+    if split is None:
+        xq = fake_quant_rowwise(x, policy.a_bits) \
+            if policy.quantized_a else x
+        wq = fake_quant(w, policy.w_bits, w_ch) if policy.quantized_w else w
+        return xq, wq
+    xq = fake_quant(x, policy.a_bits, scale=quantize_rowwise(
+        x, policy.a_bits, split)[1].to(x.dtype)) \
+        if policy.quantized_a else x
+    wq = fake_quant(w, policy.w_bits, w_ch, scale=_weight_scale(
+        w, policy.w_bits, policy.per_channel, split)) \
+        if policy.quantized_w else w
+    return xq, wq
+
+
+def _reduced(y: Tensor, split: Optional[Split]) -> Tensor:
+    """A row-parallel product's partials summed over ``split.k`` (or
+    reduce-scattered along ``split.scatter``); as it is otherwise."""
+    if split is None or not split.k:
+        return y
+    if split.scatter is None:
+        return psum_pieces(y, split.mesh, split.k)
+    return psum_scatter(y, split.mesh, split.k, split.scatter)
+
+
+def _fwd_quantized(policy: QuantPolicy, x: Tensor, w: Tensor,
+                   split: Optional[Split] = None) -> Tensor:
+    """Quantized forward product with fp weights (this rank's blocks of
+    a ``split`` product)."""
     cdt = policy.compute_dtype
     w_ch = 1 if policy.per_channel else None
-    if policy.backend == "ref":
-        xq = fake_quant_rowwise(x, policy.a_bits) \
-            if policy.quantized_a else x
-        wq = fake_quant(w, policy.w_bits, w_ch) if policy.quantized_w else w
-        return _fp_dot(xq, wq, cdt)
-    if policy.backend in ("xla", "pallas"):
-        # the integer path only at <= 8 bits: 16-bit products could
-        # overflow the int32 accumulator
-        if policy.quantized_a and policy.quantized_w \
-                and policy.a_bits <= 8 and policy.w_bits <= 8:
-            qx, sx = quantize_rowwise(x, policy.a_bits)
+    if policy.backend not in ("ref", "xla", "pallas"):
+        raise ValueError(f"unknown backend {policy.backend!r}")
+    # the integer path only at <= 8 bits under xla/pallas: 16-bit
+    # products could overflow the int32 accumulator
+    if policy.backend != "ref" and policy.quantized_a \
+            and policy.quantized_w and policy.a_bits <= 8 \
+            and policy.w_bits <= 8:
+        qx, sx = quantize_rowwise(x, policy.a_bits, split)
+        if split is None:
             qw, sw = quantize(w, policy.w_bits, channel_axis=w_ch)
-            acc = qmac_ops.qmac_i8(_rows(qx), qw.contiguous())
-            acc = acc.reshape(x.shape[:-1] + (w.shape[-1],))
-            sw_bc = sw.reshape((1,) * (acc.ndim - 1) + (-1,)) \
-                if policy.per_channel else sw.reshape((1,) * acc.ndim)
-            return (acc.to(torch.float32) * sx * sw_bc).to(cdt)
-        xq = fake_quant_rowwise(x, policy.a_bits) \
-            if policy.quantized_a else x
-        wq = fake_quant(w, policy.w_bits, w_ch) if policy.quantized_w else w
-        return _fp_dot(xq, wq, cdt)
-    raise ValueError(f"unknown backend {policy.backend!r}")
+        else:
+            qw, sw = quantize(w, policy.w_bits, channel_axis=w_ch,
+                              scale=_weight_scale(w, policy.w_bits,
+                                                  policy.per_channel, split))
+        acc = qmac_ops.qmac_i8(_rows(qx), qw.contiguous())
+        acc = _reduced(acc.reshape(x.shape[:-1] + (w.shape[-1],)), split)
+        if split is not None and split.k and split.scatter is not None:
+            d, n = split.scatter, acc.shape[split.scatter]
+            sx = sx.narrow(d, axes_index(split.mesh, split.k) * n, n)
+        sw_bc = sw.reshape((1,) * (acc.ndim - 1) + (-1,)) \
+            if policy.per_channel else sw.reshape((1,) * acc.ndim)
+        return (acc.to(torch.float32) * sx * sw_bc).to(cdt)
+    xq, wq = _fake_quant_operands(policy, x, w, split)
+    return _reduced(_fp_dot(xq, wq, cdt), split)
 
 
 class _QMM(torch.autograd.Function):
-    """The quantized forward with the STE backward (``_qmm_bwd``)."""
+    """The quantized forward with the STE backward (``_qmm_bwd``); a
+    scattered row-parallel product gathers its output's cotangent along
+    the scattered dimension first."""
 
     @staticmethod
-    def forward(ctx, policy: QuantPolicy, x: Tensor, w: Tensor):
-        ctx.policy = policy
+    def forward(ctx, policy: QuantPolicy, x: Tensor, w: Tensor,
+                split: Optional[Split]):
+        ctx.policy, ctx.split = policy, split
         ctx.save_for_backward(x, w)
-        return _fwd_quantized(policy, x, w)
+        return _fwd_quantized(policy, x, w, split)
 
     @staticmethod
     def backward(ctx, g: Tensor):
         x, w = ctx.saved_tensors
         cdt = ctx.policy.compute_dtype
+        split = ctx.split
+        if split is not None and split.k and split.scatter is not None:
+            g = torch.cat(gather_over(g.contiguous(), split.mesh, split.k),
+                          dim=split.scatter)
         g = g.to(cdt)
         dx = dw = None
         if ctx.needs_input_grad[1]:
@@ -114,7 +196,7 @@ class _QMM(torch.autograd.Function):
             # contract every batch axis of x with g's
             dw = torch.matmul(_rows(x.to(cdt)).transpose(0, 1),
                               g.reshape(-1, g.shape[-1])).to(w.dtype)
-        return None, dx, dw
+        return None, dx, dw, None
 
 
 def _serve_quantized(policy: QuantPolicy, x: Tensor, w: QTensor) -> Tensor:
@@ -130,16 +212,23 @@ def _serve_quantized(policy: QuantPolicy, x: Tensor, w: QTensor) -> Tensor:
 
 
 def q_matmul(x: Tensor, w: Union[Tensor, QTensor],
-             policy: Optional[QuantPolicy] = None) -> Tensor:
+             policy: Optional[QuantPolicy] = None,
+             split: Optional[Split] = None) -> Tensor:
     """Contract ``x``'s last axis with ``w``'s first axis under
-    ``policy`` (w is ``[d_in, d_out]``)."""
+    ``policy`` (w is ``[d_in, d_out]``); ``split``: the operands are
+    this rank's blocks of a product laid over a mesh."""
     if policy is None:
         policy = QuantPolicy()
     if isinstance(w, QTensor):
+        if split is not None:
+            raise ValueError("a packed weight's product is not split")
         return _serve_quantized(policy, x, w)
     if not (policy.quantized_w or policy.quantized_a):
-        return _fp_dot(x, w, policy.compute_dtype)
-    return _QMM.apply(policy, x, w)
+        y = _fp_dot(x, w, policy.compute_dtype)
+        if split is None or not split.k:
+            return y
+        return summed(y, split.mesh, split.k, split.scatter)
+    return _QMM.apply(policy, x, w, split)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,9 @@ import torch
 from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fake_quant, fxp_qmax
 from repro_torch.core.policy import QuantPolicy, cordic_iterations
-from repro_torch.distributed.sharding import across_slots, current_mesh, pmax
+from repro_torch.distributed.sharding import (across_slots, axes_size,
+                                              current_mesh, data_axes,
+                                              mesh_shape, pmax)
 
 Tensor = torch.Tensor
 
@@ -157,10 +159,11 @@ VACT_KINDS = ("relu", "sigmoid", "tanh", "softmax")
 
 
 def activation(x: Tensor, kind: str, policy: Optional[QuantPolicy] = None,
-               axis: int = -1) -> Tensor:
+               axis: int = -1, split: Sequence[str] = ()) -> Tensor:
     """Evaluate an activation under the policy's act_backend, then
     requantize when the policy quantizes activations (softmax
-    excepted)."""
+    excepted).  ``split``: the mesh axes beside the data axes that ``x``
+    is split over (a laid-out step's column-parallel output)."""
     if policy is None or policy.act_backend == "native" \
             or kind not in VACT_KINDS:
         if kind == "softmax":
@@ -179,18 +182,24 @@ def activation(x: Tensor, kind: str, policy: Optional[QuantPolicy] = None,
         else:
             out = vact_ops.vact(x, kind, n)
     if policy is not None and policy.quantized_a and kind != "softmax":
-        out = _requantize(out, policy.a_bits)
+        out = _requantize(out, policy.a_bits, split)
     return out.to(x.dtype)
 
 
-def _requantize(x: Tensor, bits: int) -> Tensor:
+def _requantize(x: Tensor, bits: int, split: Sequence[str] = ()) -> Tensor:
     """``fake_quant`` on the tensor-wide grid.  Where the ranks of a mesh
     each hold their rows of the batch, the grid's absmax is the whole
     batch's (the max over the data slots), as the reference's global
-    program takes it; inside a per-slot body (``sharding.manual``) and
-    off a mesh it is the tensor's own."""
-    if not across_slots():
+    program takes it, and over ``split`` too where the tensor is split
+    there; inside a per-slot body (``sharding.manual``) and off a mesh
+    it is the tensor's own."""
+    mesh = current_mesh()
+    over = data_axes(mesh) if across_slots() else ()
+    if split:
+        order = mesh_shape(mesh).axis_names
+        over = tuple(sorted(set(over) | set(split), key=order.index))
+    if not over or axes_size(mesh, over) == 1:
         return fake_quant(x, bits)
-    amax = pmax(x.abs().amax(), current_mesh())
+    amax = pmax(x.abs().amax(), mesh, over)
     scale = div_scalar(torch.clamp_min(amax, 1e-12), fxp_qmax(bits))
     return fake_quant(x, bits, scale=scale.reshape((1,) * x.ndim))

@@ -7,7 +7,8 @@ to hold against a reference.  The RL fleet's: the sharded collects, the
 compressed gradient mean, and one sharded value update.  The LM
 layout's: the training step on the host mesh, the MoE dispatch on a
 (data, model) mesh, the batch placement and a tree's layout, and
-``launch.train`` fed given batches.  Inputs come in as numpy or as the
+``launch.train`` fed given batches; the laid-out training step on a
+(data, model) mesh and its trace.  Inputs come in as numpy or as the
 port's tensors on the CPU; the mesh is the host mesh over every rank
 unless a body says otherwise.
 """
@@ -148,8 +149,8 @@ def recorded_codes(seq_len: int):
     capacity), appended to the list it yields."""
     rec, orig = [], qmatmul.quantize_rowwise
 
-    def record(x, bits):
-        q, scale = orig(x, bits)
+    def record(x, bits, *split):
+        q, scale = orig(x, bits, *split)
         if x.ndim == 3 and x.shape[1] == seq_len:
             rec.append(q)
         return q, scale
@@ -198,6 +199,101 @@ def train_steps(cases: Dict[str, dict]) -> dict:
                        grads=grads[0])
         out[name] = as_numpy(res)
     return out
+
+
+def _recording_grads(step, *args):
+    """``step(*args)`` with the gradient ``adamw_update`` is handed:
+    (its result, the gradient)."""
+    grads = []
+    update = lsteps.adamw_update
+    lsteps.adamw_update = lambda g, *a, **kw: (grads.append(g),
+                                               update(g, *a, **kw))[1]
+    try:
+        out = step(*args)
+    finally:
+        lsteps.adamw_update = update
+    return out, grads[0]
+
+
+def laid_out_steps(cases: Dict[str, dict]) -> dict:
+    """For each case (``arch``, its reduced config's overrides
+    ``extra``, the (data, model) mesh ``shape``, ``policy``, reference
+    ``params`` and ``opt`` whole, the global ``batch``, the schedule's
+    ``lr``, ``warmup`` and ``total``, ``q_chunk``): this rank's blocks
+    of the reference's init (``checkpoint.shards_from_numpy``), then on
+    the mesh the data-parallel step on the whole params and the laid-out
+    step (``make_train_step(..., shardings=...)``) on the blocks, each
+    from the placed batch: the int8 codes of each one's forward on this
+    rank's rows, their losses, and the gradients ``adamw_update`` was
+    handed (the data-parallel one cut to this rank's blocks), and the
+    laid-out step's new blocks of the params and the state and its
+    stats."""
+    from repro_torch.checkpoint.checkpointer import shards_from_numpy
+
+    out = {}
+    for name, c in cases.items():
+        cfg = get_arch(c["arch"]).reduced().replace(q_chunk=c["q_chunk"],
+                                                   **c["extra"])
+        pol = get_policy(c["policy"])
+        mesh = make_mesh(tuple(c["shape"]), ("data", "model"), device="cpu")
+        _, p_shard = lsteps.abstract_params(cfg, mesh)
+        params, opt = from_numpy_tree((c["params"], c["opt"]), "cpu")
+        blocks = shards_from_numpy(c["params"], p_shard, mesh, "cpu")
+        state = {"mu": shards_from_numpy(c["opt"]["mu"], p_shard, mesh,
+                                         "cpu"),
+                 "nu": shards_from_numpy(c["opt"]["nu"], p_shard, mesh,
+                                         "cpu"),
+                 "count": opt["count"]}
+        batch = place(c["batch"], mesh)
+        seq = batch["tokens"].shape[1]
+        rules = sharding_rules(cfg, c["shape"][1])
+        codes = {}
+        for kind, tree, lay in (("dp", params, False), ("laid", blocks,
+                                                        True)):
+            with recorded_codes(seq) as rec, torch.no_grad(), \
+                    sharding.mesh_rules(mesh, rules, laid_out=lay):
+                model_for(cfg).loss_fn(tree, batch, cfg, pol)
+            codes[kind] = rec
+        sched = warmup_cosine(c["lr"], c["warmup"], c["total"])
+        (_, _, dp_stats), dp_grads = _recording_grads(
+            lsteps.make_train_step(cfg, mesh, pol, schedule=sched),
+            params, opt, batch)
+        (new_p, new_o, stats), grads = _recording_grads(
+            lsteps.make_train_step(cfg, mesh, pol, schedule=sched,
+                                   shardings=p_shard),
+            blocks, state, batch)
+        out[name] = as_numpy({
+            "init": blocks, "codes": codes["laid"], "dp_codes": codes["dp"],
+            "dp_loss": dp_stats["loss"], "dp_grad_norm":
+                dp_stats["grad_norm"],
+            "grads": grads, "dp_grads": sharding.local_shards(
+                dp_grads, p_shard, mesh),
+            "params": new_p, "opt": new_o, "stats": stats})
+    return out
+
+
+def laid_out_trace(arch: str, shape: Sequence[int], seq: int, batch: int,
+                   policy: str) -> Optional[list]:
+    """One laid-out training step of the reduced ``arch`` on a ``shape``
+    (data, model) mesh over every rank, at ``batch`` rows of ``seq``
+    tokens: ``launch.steps.cell_step`` on ``cell_inputs`` drawn on the
+    CPU (each rank its own draw, at rank 0's shapes), traced by the
+    costing recorder.  Rank 0 returns its records (kind, name, operand
+    and output specs, view flag), the others None."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import hlo_analysis
+
+    cfg = get_arch(arch).reduced()
+    pol = get_policy(policy)
+    mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
+    cell = ShapeConfig("laid_out", seq, batch, "train")
+    args, _ = lsteps.cell_inputs(cfg, cell, mesh, pol)
+    rank = torch.distributed.get_rank()
+    args = lsteps.materialize(args, torch.Generator().manual_seed(rank),
+                              cfg.vocab)
+    program = hlo_analysis.trace(lsteps.cell_step(cfg, cell, mesh, pol),
+                                 args)
+    return [tuple(r[:5]) for r in program.ops] if rank == 0 else None
 
 
 def moe_dispatch(cases: Dict[str, dict], shape: Sequence[int]) -> dict:

@@ -40,11 +40,29 @@ op recorder (``repro_torch.record``) each call is one transfer, filed
 under the reference's kind (``psum`` and ``pmax`` as ``all-reduce``,
 the rest, the MoE exchange included, as ``all-gather``), of the bytes
 this rank receives: ``n - 1`` copies of its input.
+
+**The laid-out step.**  ``mesh_rules(..., laid_out=True)`` tells the
+model code that each rank holds its blocks of the params as
+``make_shardings`` lays them out (``local_shards``), as plain tensors.
+:func:`layout` then gives the mesh and rules, and the model computes on
+its blocks with the primitives below, each an ``autograd.Function``
+whose backward is its transpose, every sum in rank order:
+:func:`gathered` (the FSDP all-gather of a weight over the data axes,
+whose transpose is a reduce-scatter in slot order, and the sequence
+gather of sequence parallelism), :func:`summed` (a sum over the model
+axis, or a reduce-scatter along a dimension; its transpose hands the
+cotangent back, or gathers it) and :func:`copied` (the identity, whose
+transpose sums over the model axis: Megatron's pair).  A reduce-scatter
+sends each peer only its piece (:func:`exchange_over`), and a large sum
+over peers runs as a reduce-scatter then an all-gather of the summed
+pieces (:func:`psum_pieces`), so no rank gathers a whole tensor from
+every peer.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -177,14 +195,25 @@ def _coordinate(mesh):
     return coord
 
 
-def slot_index(mesh) -> int:
-    """This rank's slot: its coordinate over the data axes, row-major."""
+def axes_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's coordinate over ``axes``, row-major."""
     coord, ms = _coordinate(mesh), mesh_shape(mesh)
     idx = 0
-    for a in data_axes(mesh):
+    for a in axes:
         i = ms.axis_names.index(a)
         idx = idx * ms.sizes[i] + coord[i]
     return idx
+
+
+def axes_size(mesh, axes: Sequence[str]) -> int:
+    """The number of peers over ``axes`` (this rank among them)."""
+    shape = mesh_shape(mesh).shape
+    return math.prod(shape[a] for a in axes)
+
+
+def slot_index(mesh) -> int:
+    """This rank's slot: its coordinate over the data axes, row-major."""
+    return axes_index(mesh, data_axes(mesh))
 
 
 def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
@@ -233,7 +262,9 @@ def _gather(x: Tensor, mesh, axes: Sequence[str]) -> List[Tensor]:
         n = 1
         for a in axes:
             n *= mesh.shape[a]
-        return [wire.clone().reshape(shape) for _ in range(n)]
+        # received, as a backend's gather gives them: outside autograd
+        with torch.no_grad():
+            return [wire.clone().reshape(shape) for _ in range(n)]
     group = axes_group(mesh, axes)
     n = dist.get_world_size(group)
     if dtype == torch.int16:
@@ -252,26 +283,118 @@ def gather_slots(x: Tensor, mesh, kind: str = "all-gather") -> List[Tensor]:
     return gather_over(x, mesh, data_axes(mesh), kind)
 
 
+def _exact_sum(parts: Sequence[Tensor]) -> Tensor:
+    """The sum of integer ``parts``, exact in any order: one reduction."""
+    return torch.stack(parts).sum(0, dtype=parts[0].dtype)
+
+
 def ordered_sum(parts: Sequence[Tensor]) -> Tensor:
-    """``parts[0] + parts[1] + ...``, added in that order."""
+    """``parts[0] + parts[1] + ...``, added in that order (integers, whose
+    sum is exact in any order, in one reduction)."""
+    if not torch.is_floating_point(parts[0]):
+        return _exact_sum(parts)
     total = parts[0]
     for p in parts[1:]:
         total = total + p
     return total
 
 
-def psum(x: Tensor, mesh) -> Tensor:
-    """Sum over the slots, added in slot order on the device."""
-    return ordered_sum(gather_slots(x, mesh, "all-reduce"))
+def _peer_parts(x: Tensor, mesh, axes) -> List[Tensor]:
+    if axes is None:
+        return gather_slots(x, mesh, "all-reduce")
+    return gather_over(x, mesh, axes, "all-reduce")
 
 
-def pmax(x: Tensor, mesh) -> Tensor:
-    """Elementwise max over the slots."""
-    parts = gather_slots(x, mesh, "all-reduce")
+def psum(x: Tensor, mesh, axes: Optional[Sequence[str]] = None) -> Tensor:
+    """Sum over the slots (or the peers over ``axes``), added in their
+    order on the device."""
+    return ordered_sum(_peer_parts(x, mesh, axes))
+
+
+def pmax(x: Tensor, mesh, axes: Optional[Sequence[str]] = None) -> Tensor:
+    """Elementwise max over the slots (or the peers over ``axes``): exact
+    in any order, so one reduction over more than two peers."""
+    parts = _peer_parts(x, mesh, axes)
+    if len(parts) > 2:
+        return torch.stack(parts).amax(0)
     total = parts[0]
     for p in parts[1:]:
         total = torch.maximum(total, p)
     return total
+
+
+def exchange_over(pieces: Sequence[Tensor], mesh, axes: Sequence[str],
+                  kind: str) -> List[Tensor]:
+    """This rank sends ``pieces[j]`` to its ``j``-th peer over ``axes``
+    (all of one shape and dtype) and receives each peer's piece for it,
+    in the peers' order.  Over a ``MeshShape`` every peer's piece is a
+    copy of this rank's own (``pieces[0]`` for rank 0).  An active op
+    recorder files the call under ``kind``, one piece from each peer."""
+    rec = record.active()
+    if rec is None or rec.in_kernel:
+        return _exchange(pieces, mesh, axes)
+    with rec.inside_kernel():
+        parts = _exchange(pieces, mesh, axes)
+    rec.collective(kind, pieces[0], parts)
+    return parts
+
+
+def _exchange(pieces: Sequence[Tensor], mesh, axes) -> List[Tensor]:
+    shape, dtype = pieces[0].shape, pieces[0].dtype
+    if isinstance(mesh, MeshShape):
+        mine = pieces[axes_index(mesh, axes)].reshape(-1).contiguous()
+        with torch.no_grad():
+            return [mine.clone().reshape(shape) for _ in pieces]
+    wires = [p.reshape(-1).contiguous() for p in pieces]
+    if dtype == torch.int16:
+        wires = [w.view(torch.uint8) for w in wires]
+    parts = [torch.empty_like(w) for w in wires]
+    dist.all_to_all(parts, wires, group=axes_group(mesh, axes))
+    if dtype == torch.int16:
+        parts = [p.view(torch.int16) for p in parts]
+    return [p.reshape(shape) for p in parts]
+
+
+def _sub_index(mesh, axes: Sequence[str], sub: Sequence[str],
+               peer: int) -> int:
+    """The coordinate over ``sub`` (some of ``axes``) of the ``peer``-th
+    rank over ``axes``, each row-major."""
+    shape = mesh_shape(mesh).shape
+    coord = {}
+    for a in reversed(tuple(axes)):
+        peer, coord[a] = divmod(peer, shape[a])
+    idx = 0
+    for a in sub:
+        idx = idx * shape[a] + coord[a]
+    return idx
+
+
+def psum_scatter(x: Tensor, mesh, axes: Sequence[str], dim: int) -> Tensor:
+    """This rank's piece along ``dim`` of the sum of ``x`` over the
+    peers over ``axes``: ``x`` cut into one equal piece a peer, each
+    peer sent its own, the pieces this rank receives added in peer order
+    (a reduce-scatter)."""
+    n = axes_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"into {n} pieces")
+    return ordered_sum(exchange_over(x.chunk(n, dim), mesh, axes,
+                                     "reduce-scatter"))
+
+
+def psum_pieces(x: Tensor, mesh, axes: Sequence[str]) -> Tensor:
+    """``psum(x, mesh, axes)`` as a reduce-scatter of the flat tensor (cut
+    into one piece a peer, zero-padded to a whole number) then an
+    all-gather of the summed pieces: every element added in peer order,
+    as ``psum`` adds it, with no peer's whole tensor received."""
+    n = axes_size(mesh, axes)
+    flat = x.reshape(-1)
+    pad = -flat.numel() % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mine = psum_scatter(flat, mesh, axes, 0)
+    out = torch.cat(gather_over(mine, mesh, axes))
+    return out[:x.numel()].reshape(x.shape)
 
 
 def psum_tree(tree, mesh: DeviceMesh):
@@ -353,6 +476,151 @@ def fence(mesh: DeviceMesh, device: torch.device) -> None:
     dist.barrier(group=data_group(mesh))
 
 
+# ---------------------------------------------------------------------------
+# the layout's primitives: each an autograd.Function, its backward its
+# transpose
+# ---------------------------------------------------------------------------
+
+class _Summed(torch.autograd.Function):
+    """The sum of ``x`` over the peers over ``axes`` (or, with ``dim``,
+    this rank's piece of it along ``dim``); the transpose hands every
+    peer the cotangent (or gathers the pieces' cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        if dim is None:
+            return psum_pieces(x, mesh, axes)
+        return psum_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        if dim is not None:
+            g = torch.cat(gather_over(g.contiguous(), mesh, axes), dim=dim)
+        return g, None, None, None
+
+
+def _parted(flat: Tensor, shapes) -> List[Tensor]:
+    """The tensors of ``shapes`` laid end to end along ``flat``'s last
+    dimension, as views (its leading dimensions kept)."""
+    out, start = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[..., start:start + n].reshape(
+            flat.shape[:-1] + tuple(shape)))
+        start += n
+    return out
+
+
+def _joined(k: int, xs: Sequence[Tensor], dims: Sequence[int]) -> Tensor:
+    """``[k, F]``: row ``c`` holds piece ``c`` (along its dimension) of
+    every ``x``, flat, laid end to end."""
+    rows = []
+    for x, d in zip(xs, dims, strict=True):
+        s = tuple(x.shape)
+        y = x.reshape(s[:d] + (k, s[d] // k) + s[d + 1:]).movedim(d, 0)
+        rows.append(y.reshape(k, -1))
+    return torch.cat(rows, dim=1)
+
+
+class _GatheredMany(torch.autograd.Function):
+    """Several tensors' blocks over ``axes``, laid end to end and
+    gathered in one all-gather, each whole along its ``dims`` entry; the
+    transpose reduce-scatters their cotangents over ``sum_axes`` in one
+    exchange (a flat buffer a layer, as FSDP gathers and reduces)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, sum_axes, dims, *xs):
+        shapes = [tuple(x.shape) for x in xs]
+        ctx.args = (mesh, axes, sum_axes, dims, shapes)
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        parts = torch.stack(gather_over(flat, mesh, axes))
+        outs = []
+        for y, shape, d in zip(_parted(parts, shapes), shapes, dims):
+            outs.append(y.movedim(0, d).reshape(
+                shape[:d] + (-1,) + shape[d + 1:]))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, sum_axes, dims, shapes = ctx.args
+        joined = _joined(axes_size(mesh, axes), gs, dims)
+        pieces = [joined[_sub_index(mesh, sum_axes, axes, j)]
+                  for j in range(axes_size(mesh, sum_axes))]
+        total = ordered_sum(exchange_over(pieces, mesh, sum_axes,
+                                          "reduce-scatter"))
+        return (None, None, None, None) + tuple(_parted(total, shapes))
+
+
+class _CopiedMany(torch.autograd.Function):
+    """Several tensors as they are; the transpose sums their cotangents
+    over ``axes``, laid end to end, in one :func:`psum_pieces`."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.args = (mesh, axes, [tuple(x.shape) for x in xs])
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, shapes = ctx.args
+        flat = psum_pieces(torch.cat([g.reshape(-1) for g in gs]), mesh,
+                           axes)
+        return (None, None) + tuple(_parted(flat, shapes))
+
+
+def gathered_many(xs: Sequence[Tensor], mesh, axes: Sequence[str],
+                  dims: Sequence[int], sum_axes: Sequence[str]
+                  ) -> List[Tensor]:
+    """:func:`gathered` of several tensors at once (each along its
+    ``dims`` entry): one all-gather forward, one reduce-scatter back."""
+    axes, sum_axes = tuple(axes), tuple(sum_axes)
+    if axes_size(mesh, sum_axes) == 1:
+        return list(xs)
+    return list(_GatheredMany.apply(mesh, axes, sum_axes, tuple(dims), *xs))
+
+
+def copied_many(xs: Sequence[Tensor], mesh, axes: Sequence[str]
+                ) -> List[Tensor]:
+    """:func:`copied` of several tensors at once: one sum back."""
+    axes = tuple(axes)
+    if axes_size(mesh, axes) == 1:
+        return list(xs)
+    return list(_CopiedMany.apply(mesh, axes, *xs))
+
+
+def gathered(x: Tensor, mesh, axes: Sequence[str], dim: int,
+             sum_axes: Optional[Sequence[str]] = None) -> Tensor:
+    """The all-gather of ``x``'s blocks over ``axes`` along ``dim``.  Its
+    gradient reaches this rank as its block of the cotangent summed over
+    ``sum_axes`` (default ``axes``) in rank order: a weight's FSDP
+    gather over "data" (``sum_axes`` every data axis, so the gradient is
+    reduce-scattered over the slots), or the sequence gather of
+    sequence parallelism over "model".  Over no peers, ``x``."""
+    return gathered_many([x], mesh, axes, [dim],
+                         axes if sum_axes is None else sum_axes)[0]
+
+
+def summed(x: Tensor, mesh, axes: Sequence[str],
+           dim: Optional[int] = None) -> Tensor:
+    """The sum of the peers' ``x`` over ``axes`` in rank order (with
+    ``dim``, this rank's piece along ``dim``: sequence parallelism's
+    reduce-scatter), every peer's cotangent its own (gathered along
+    ``dim``).  Over no peers, ``x``."""
+    axes = tuple(axes)
+    if axes_size(mesh, axes) == 1:
+        return x
+    return _Summed.apply(x, mesh, axes, dim)
+
+
+def copied(x: Tensor, mesh, axes: Sequence[str]) -> Tensor:
+    """``x`` as it is, its gradient summed over the peers over ``axes``
+    in rank order: a tensor every peer holds whole, read by each for its
+    own part of a split product.  Over no peers, ``x``."""
+    return copied_many([x], mesh, axes)[0]
+
+
 
 # ---------------------------------------------------------------------------
 # logical-axis layout
@@ -412,6 +680,36 @@ def make_shardings(params_like, axes_tree, mesh,
         return NamedSharding(mesh, spec)
 
     return map_with_path(one, params_like, is_leaf=is_qtensor)
+
+
+def spec_axes(spec: PartitionSpec) -> Tuple[Tuple[str, ...], ...]:
+    """The mesh axes of each entry of ``spec``, as tuples."""
+    return tuple(e if isinstance(e, tuple) else (e,) if e else ()
+                 for e in spec)
+
+
+def local_block(t: Tensor, sharding: NamedSharding, mesh) -> Tensor:
+    """This rank's block of the whole tensor ``t`` under ``sharding``:
+    each dimension cut into one piece a peer over the axes its spec
+    names, the piece of this rank's coordinate there, as a tensor of its
+    own."""
+    for d, axes in enumerate(spec_axes(sharding.spec)):
+        if axes:
+            k = axes_size(mesh, axes)
+            if t.shape[d] % k:
+                raise ValueError(f"dim {d} of size {t.shape[d]} does not "
+                                 f"split evenly over {axes}")
+            per = t.shape[d] // k
+            t = t.narrow(d, axes_index(mesh, axes) * per, per)
+    return t.clone()
+
+
+def local_shards(tree, shardings, mesh):
+    """This rank's block of every leaf of a whole ``tree`` under its
+    :class:`NamedSharding` (``make_shardings``'), a QTensor's payload and
+    scale each under its own: the reference's addressable shard of the
+    device at this rank's coordinate."""
+    return _sharded(lambda t, s: local_block(t, s, mesh), tree, shardings)
 
 
 def placements(spec: PartitionSpec, mesh: DeviceMesh):
@@ -480,12 +778,15 @@ _ctx = threading.local()
 
 
 @contextlib.contextmanager
-def mesh_rules(mesh, rules: Optional[Dict[str, AxisName]] = None):
+def mesh_rules(mesh, rules: Optional[Dict[str, AxisName]] = None,
+               laid_out: bool = False):
     """Within the block, ``current_mesh()`` is ``mesh`` and ``constrain``
-    reads ``rules`` over the base rules (no mesh: no context)."""
+    reads ``rules`` over the base rules (no mesh: no context).  With
+    ``laid_out``, the rank holds its blocks of the params as the rules
+    lay them out, and :func:`layout` gives them to the model code."""
     prev = getattr(_ctx, "state", None)
-    _ctx.state = (mesh, dict(BASE_RULES, **(rules or {}))) if mesh \
-        else None
+    _ctx.state = (mesh, dict(BASE_RULES, **(rules or {})), laid_out) \
+        if mesh else None
     try:
         yield
     finally:
@@ -495,6 +796,85 @@ def mesh_rules(mesh, rules: Optional[Dict[str, AxisName]] = None):
 def current_mesh():
     state = getattr(_ctx, "state", None)
     return state[0] if state else None
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The mesh and rules of a laid-out step, as the model code reads
+    them: where each logical axis of a weight or activation lies."""
+
+    mesh: object
+    rules: Dict[str, AxisName]
+
+    def split(self, name: Optional[str]) -> Tuple[str, ...]:
+        """The axes other than the data axes that ``name`` lies over, of
+        more than one peer: those a weight stays split over once the
+        data axes' blocks are gathered (tensor and sequence
+        parallelism)."""
+        r = resolve(self.rules, name, self.mesh)
+        dax = data_axes(self.mesh)
+        ax = tuple(a for a in (r if isinstance(r, tuple) else (r,) if r
+                               else ()) if a not in dax)
+        return ax if axes_size(self.mesh, ax) > 1 else ()
+
+    @property
+    def model(self) -> Tuple[str, ...]:
+        """The mesh's axes beside the data axes, where they hold more
+        than one peer (the model axis)."""
+        dax = data_axes(self.mesh)
+        ax = tuple(a for a in _axis_names(self.mesh) if a not in dax)
+        return ax if axes_size(self.mesh, ax) > 1 else ()
+
+    def gather(self, tree, axes_tree, model_summed: Sequence = ()):
+        """Every leaf of ``tree`` (this rank's blocks) gathered whole
+        over the data axes, along the dimension whose logical axis the
+        rules lay there, all in one buffer (:func:`gathered_many`: the
+        gradients come back reduce-scattered over the slots in one
+        exchange).  The leaves whose paths are in ``model_summed`` are
+        first :func:`copied_many` over the model axis, where each model
+        rank reads them for its own heads (or sequence piece) alone."""
+        at = dict(leaves_with_path(axes_tree, is_leaf=is_axes))
+        dax = data_axes(self.mesh)
+        xs = dict(leaves_with_path(tree))
+        wanted = {tuple(p) for p in model_summed}
+        summed_paths = [p for p in xs if p in wanted]
+        xs.update(zip(summed_paths, copied_many(
+            [xs[p] for p in summed_paths], self.mesh, self.model)))
+        # the leaves over each set of data axes, gathered as one buffer
+        groups: Dict[Tuple[str, ...], list] = {}
+        for path in list(xs):
+            spec = spec_for(at.get(path), self.rules, self.mesh)
+            dims = [(d, tuple(a for a in axes if a in dax))
+                    for d, axes in enumerate(spec_axes(spec))]
+            dims = [(d, over) for d, over in dims if over]
+            if len(dims) > 1:
+                raise ValueError(f"{path} lies over the data axes twice")
+            if dims:
+                groups.setdefault(dims[0][1], []).append((path, dims[0][0]))
+        for over, members in groups.items():
+            paths = [p for p, _ in members]
+            xs.update(zip(paths, gathered_many(
+                [xs[p] for p in paths], self.mesh, over,
+                [d for _, d in members], dax)))
+        return map_with_path(lambda path, _t: xs[path], tree)
+
+    def enter(self, x: Tensor, seq_dim: Optional[int]) -> Tensor:
+        """``x`` (whole over the model axis, or, with ``seq_dim``, this
+        rank's piece of the sequence) as the split products read it:
+        :func:`copied` over the model axis, or gathered along the
+        sequence (its transpose the sequence's reduce-scatter)."""
+        if seq_dim is None:
+            return copied(x, self.mesh, self.model)
+        return gathered(x, self.mesh, self.model, seq_dim)
+
+
+def layout() -> Optional[Layout]:
+    """The :class:`Layout` of a laid-out step (``mesh_rules(...,
+    laid_out=True)``), else None."""
+    state = getattr(_ctx, "state", None)
+    if not state or not state[2]:
+        return None
+    return Layout(state[0], state[1])
 
 
 @contextlib.contextmanager
@@ -549,6 +929,6 @@ def constrain(x, axes: Tuple[Optional[str], ...]):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    mesh, rules = state
+    mesh, rules, _ = state
     spec = spec_for(axes, rules, mesh)
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))

@@ -68,13 +68,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "arch": arch, "shape": shape_name, "status": "ok",
         "mesh": mesh.shape,
         "step": meta["step"], "policy": policy_name,
+        "laid_out": meta["laid_out"],
         "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
         "memory": mem, "cost": cost, "roofline": roof,
         "hlo_ops": hlo_analysis.op_histogram(program),
     }
     if verbose:
         print(f"== {arch} x {shape_name} on {describe(mesh)} "
-              f"[{meta['step']}, {policy_name}] ==")
+              f"[{meta['step']}, {policy_name}"
+              f"{', laid out' if meta['laid_out'] else ''}] ==")
         print(f"   lower {t_lower:.1f}s  compile {t_compile:.1f}s")
         print(f"   memory/device: "
               f"args {mem['argument_size_in_bytes']/2**30:.2f} GiB  "

@@ -15,6 +15,15 @@ At one rank every collective hands back its input, and a step computes
 the unsharded program bit for bit.  Prefill and decode return this
 rank's rows of the logits and the caches.
 
+``make_train_step(..., shardings=p_shard)`` is the reference's step
+jitted with ``in_shardings=(p_shard, ...)`` (the dense family): each
+rank holds its blocks of the params and AdamW's state under ``p_shard``
+(``distributed.sharding.local_shards``) and the model computes on them
+laid out (``models.transformer``).  A gradient split over the data axes
+reaches its rank reduce-scattered over the slots in slot order; one
+whole on every slot is summed over them as a reduce-scatter and an
+all-gather of its pieces.  No rank gathers a whole leaf.
+
 ``cache_shardings`` and ``batch_shardings`` give the reference's specs
 of the serving caches and the inputs.  ``abstract_params``,
 ``abstract_opt_state`` and ``abstract_caches`` give the trees as
@@ -34,11 +43,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.fxp import QTensor, div_scalar, is_qtensor
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.distributed.sharding import (NamedSharding, P, batch_spec,
-                                              data_axes, data_axis_size,
-                                              gather_rows, local_rows,
-                                              make_shardings, mesh_rules,
-                                              mesh_shape, psum)
+from repro_torch.distributed.sharding import (NamedSharding, P, axes_size,
+                                              batch_spec, data_axes,
+                                              data_axis_size, gather_rows,
+                                              local_rows, make_shardings,
+                                              mesh_rules, mesh_shape, psum,
+                                              psum_pieces, spec_axes)
 from repro_torch.models.registry import (input_specs, model_for,
                                          sharding_rules)
 from repro_torch.nn.module import eval_shape
@@ -140,18 +150,48 @@ def _slot_microbatches(batch, mesh, k: int):
     return local_rows(_microbatches(gather_rows(batch, mesh), k), mesh, 1)
 
 
+def laid_out(cfg: ArchConfig) -> bool:
+    """Whether ``make_train_step`` takes ``shardings`` for ``cfg``: the
+    dense decoders.  The other families keep the whole-param step."""
+    return cfg.family == "dense"
+
+
+def _split_axes(shardings, mesh):
+    """Each leaf's mesh axes of more than one peer, in leaf order, and
+    whether it is split over the data axes."""
+    dax, names = data_axes(mesh), mesh_shape(mesh).axis_names
+    out = []
+    for _, s in leaves_with_path(
+            shardings, is_leaf=lambda x: isinstance(x, NamedSharding)):
+        axes = sorted((a for e in spec_axes(s.spec) for a in e),
+                      key=names.index)
+        out.append((tuple(a for a in axes if axes_size(mesh, (a,)) > 1),
+                    any(a in dax for a in axes)))
+    return out
+
+
 def make_train_step(cfg: ArchConfig, mesh,
                     policy: Optional[QuantPolicy],
                     ocfg: AdamWConfig = AdamWConfig(),
-                    schedule: Optional[Callable] = None) -> Callable:
+                    schedule: Optional[Callable] = None,
+                    shardings=None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr", "nonfinite"})``: the loss and its
     gradient by autograd (on a mesh, each rank on its rows of ``batch``,
     then the means over the slots), then :func:`adamw_update`.  New
-    trees are returned; the caller rebinds its names to them."""
+    trees are returned; the caller rebinds its names to them.
+
+    ``shardings`` (``make_shardings``' tree of the params, on ``mesh``):
+    the params and the moments are this rank's blocks under it, and the
+    step runs laid out (a dense decoder, :func:`laid_out`)."""
     model = model_for(cfg)
     rules = _rules(cfg, mesh)
     sched = schedule or warmup_cosine(3e-4, 100, 10_000)
+    if shardings is not None:
+        if mesh is None or not laid_out(cfg):
+            raise ValueError(f"{cfg.name}: a laid-out step takes a mesh "
+                             "and a dense decoder")
+        split = _split_axes(shardings, mesh)
 
     def _compute_cast(params):
         """Under a bf16 compute policy, the fp32 matrices (two or more
@@ -198,20 +238,45 @@ def make_train_step(cfg: ArchConfig, mesh,
                                                  grads)
         return value_and_grad(params, batch)
 
+    def slot_means(grads):
+        """The laid-out gradient's means over the slots: the leaves split
+        over the data axes came back summed (reduce-scattered); those
+        whole on every slot are summed here, laid end to end, as one
+        reduce-scatter and all-gather in slot order."""
+        n = data_axis_size(mesh)
+        leaves = tree_leaves(grads)
+        whole = [i for i, (_, on_data) in enumerate(split) if not on_data]
+        if whole and n > 1:
+            flat = torch.cat([leaves[i].reshape(-1) for i in whole])
+            flat = psum_pieces(flat, mesh, data_axes(mesh))
+            start = 0
+            for i in whole:
+                leaves[i] = flat[start:start + leaves[i].numel()].reshape(
+                    leaves[i].shape)
+                start += leaves[i].numel()
+        return tree_unflatten(grads, [div_scalar(g, n) for g in leaves])
+
     def train_step(params, opt_state, batch):
-        with mesh_rules(mesh, rules):
+        with mesh_rules(mesh, rules, laid_out=shardings is not None):
             if mesh is not None and "mask" in batch:
                 raise ValueError("a masked batch's loss is not the mean of "
                                  "the slots' losses")
             loss, grads = local_step(params, batch)
+        kw = {}
         if mesh is not None:
             # the means over the slots, summed in slot order
             n = data_axis_size(mesh)
             loss = div_scalar(psum(loss, mesh), n)
-            grads = tree_map(lambda g: div_scalar(psum(g, mesh), n), grads)
+            if shardings is None:
+                grads = tree_map(lambda g: div_scalar(psum(g, mesh), n),
+                                 grads)
+            else:
+                grads = slot_means(grads)
+                kw = dict(mesh=mesh, split=[a for a, _ in split])
         with torch.no_grad():
             params, opt_state, stats = adamw_update(grads, opt_state,
-                                                    params, sched, ocfg)
+                                                    params, sched, ocfg,
+                                                    **kw)
         return params, opt_state, dict(loss=loss, **stats)
 
     return train_step
@@ -333,15 +398,22 @@ def layout_bytes(tree, shardings) -> int:
                for t, s in _sharded_pairs(tree, shardings))
 
 
+def rank_blocks(tree, shardings, axes=None):
+    """``tree`` (meta tensors, whole) as a rank holds its blocks under
+    ``shardings``: every dimension divided by the mesh axes its spec
+    names (of ``axes`` only, when given)."""
+    at = dict(leaves_with_path(
+        shardings, is_leaf=lambda x: isinstance(x, NamedSharding)))
+    return map_with_path(lambda path, t: torch.empty(
+        _shard_shape(t.shape, at[path], axes), dtype=t.dtype,
+        device="meta"), tree)
+
+
 def rank_rows(tree, shardings, mesh):
     """``tree`` (meta tensors of the whole batch) as this rank holds it:
     the dimensions its shardings lay over the data axes divided among
     the slots (``data.place``'s rows), the rest whole."""
-    at = dict(leaves_with_path(shardings))
-    dax = data_axes(mesh)
-    return map_with_path(lambda path, t: torch.empty(
-        _shard_shape(t.shape, at[path], dax), dtype=t.dtype, device="meta"),
-        tree)
+    return rank_blocks(tree, shardings, data_axes(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -356,13 +428,15 @@ def cell_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
               policy: Optional[QuantPolicy] = None) -> Callable:
     """The step a cell runs, with the reference's choices: a training
     cell at ``seq_len <= 8192`` with two or more microbatches attends
-    unchunked (``q_chunk=None``), serving steps quantize the KV cache at
-    the policy's ``kv_bits``."""
+    unchunked (``q_chunk=None``), a dense decoder's training step runs
+    laid out on the params' shardings, serving steps quantize the KV
+    cache at the policy's ``kv_bits``."""
     kv_bits = policy.kv_bits if policy else 32
     if shape.kind == "train":
         if shape.seq_len <= 8192 and cfg.microbatches >= 2:
             cfg = cfg.replace(q_chunk=None)
-        return make_train_step(cfg, mesh, policy)
+        p_shard = abstract_params(cfg, mesh)[1] if laid_out(cfg) else None
+        return make_train_step(cfg, mesh, policy, shardings=p_shard)
     if shape.kind == "prefill":
         return make_prefill_step(cfg, mesh, policy, kv_bits)
     return make_decode_step(cfg, mesh, policy, kv_bits)
@@ -374,8 +448,11 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     tensors; their bytes a device under the reference's layout).
 
     The inputs are ``input_specs`` laid out as ``data.place`` lays them
-    on the rank (its rows over the data axes); the params (and AdamW's
-    state) are whole on the rank, as the port's steps hold them.
+    on the rank (its rows over the data axes).  A dense decoder's
+    training step holds the rank's blocks of the params and AdamW's
+    state under their shardings, as the reference lays them out (so the
+    traced arguments are the layout's bytes); every other step holds
+    them whole, as the port's steps do.
     Serving steps take PTQ'd weights, but an MoE's: its packed experts'
     scales do not lead with the layer count, and neither package's layer
     walk takes them (the reference's dry run fails there), so an MoE
@@ -393,7 +470,10 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     batch = rank_rows(specs, in_shard, ms)
     if shape.kind == "train":
         abs_opt, o_shard = abstract_opt_state(abs_params, p_shard, ms)
-        return (abs_params, abs_opt, batch), layout_bytes(
+        args = (abs_params, abs_opt)
+        if laid_out(cfg):
+            args = rank_blocks(args, (p_shard, o_shard))
+        return args + (batch,), layout_bytes(
             (abs_params, abs_opt, specs), (p_shard, o_shard, in_shard))
     if shape.kind == "prefill":
         return (abs_params, batch), layout_bytes((abs_params, specs),
@@ -415,7 +495,9 @@ def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
 
     The mesh is taken by its names and sizes alone (a ``MeshShape``):
     this process is the mesh's rank 0 and no process group is touched.
-    The step is :func:`cell_step`'s, its inputs :func:`cell_inputs`'.
+    The step is :func:`cell_step`'s, its inputs :func:`cell_inputs`'
+    (``meta["laid_out"]``: the step runs on rank 0's blocks of the
+    params, a dense decoder's training step).
     ``donate`` is the reference's; the port donates nothing."""
     del donate
     from repro_torch.launch import hlo_analysis
@@ -425,7 +507,8 @@ def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
     program = hlo_analysis.trace(cell_step(cfg, shape, ms, policy), args,
                                  layout)
     return program, {"step": STEP_NAMES[shape.kind],
-                     "inputs": input_specs(cfg, shape)}
+                     "inputs": input_specs(cfg, shape),
+                     "laid_out": shape.kind == "train" and laid_out(cfg)}
 
 
 def materialize(tree, gen: torch.Generator, vocab: int):

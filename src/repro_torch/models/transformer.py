@@ -16,6 +16,18 @@ nothing saveable): the backward recomputes it from the block's input.
 ``cfg.scan_layers`` is a compile knob and changes nothing here.  The
 reference's ``distributed.sharding.constrain`` layout hints stand at
 its sites; on a rank's plain tensors they return their input.
+
+A laid-out training step (``distributed.sharding.layout``; the dense
+family) holds this rank's blocks of the params as ``make_shardings``
+lays them out, and computes on them as the reference's partitioned
+program does: each layer's weights are gathered over the data axes
+inside its (rematerialised) body, so the recompute gathers them again
+and each gradient is reduce-scattered over the slots; the attention
+runs on the rank's heads and the MLP on its ``d_ff`` columns
+(column-parallel in, row-parallel out), the embedding and the head are
+vocab-parallel, and under ``cfg.seq_shard`` the residual stream holds
+the rank's piece of the sequence, gathered before each sub-block and
+reduce-scattered after it (the reference's ``constrain`` sites).
 """
 from __future__ import annotations
 
@@ -28,12 +40,13 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.fxp import QTensor, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import Layout, constrain, layout
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
                                        stack_axes, stack_init)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
                                       attention_axes, attention_decode,
-                                      attention_init, init_cache)
+                                      attention_init, init_cache,
+                                      model_summed)
 from repro_torch.nn.linear import (embedding_apply, embedding_axes,
                                    embedding_init, linear_axes, linear_init)
 from repro_torch.nn.mlp import swiglu_apply, swiglu_axes, swiglu_init
@@ -68,26 +81,58 @@ def _block_init(gen, cfg: ArchConfig, dtype):
     return p
 
 
-def _ffn(p, h, cfg: ArchConfig, policy):
+def _ffn(p, h, cfg: ArchConfig, policy, scatter: Optional[int] = None):
     """The block's FFN: the experts (MoE) or the SwiGLU MLP."""
     if cfg.is_moe:
         return moe_apply(p["moe"], h, top_k=cfg.top_k, policy=policy,
                          capacity_factor=cfg.capacity_factor, act=cfg.act)
-    return swiglu_apply(p["mlp"], h, policy, act=cfg.act)
+    return swiglu_apply(p["mlp"], h, policy, act=cfg.act, scatter=scatter)
 
 
-def _block_apply(p, x, cfg: ArchConfig, policy, positions):
+def _seq(lay: Optional[Layout]) -> Optional[int]:
+    """The dimension a laid-out step splits the residual stream along
+    over the model axis (sequence parallelism), else None."""
+    return 1 if lay is not None and lay.split("seq") else None
+
+
+def _seq_norms(lay: Layout, *names: str):
+    """The paths of the norm scales ``names`` where each model rank reads
+    them for its own piece of the sequence (sequence parallelism): their
+    gradients are its partials, summed over the model axis."""
+    return [(n, "scale") for n in names] if _seq(lay) else []
+
+
+def _whole(h: Tensor, lay: Optional[Layout], seq: Optional[int]) -> Tensor:
+    """``h`` whole over the sequence, as the attention and the FFN read
+    it: the reference's layout hint, or on a laid-out step
+    :meth:`Layout.enter`."""
+    if lay is None:
+        return constrain(h, ("batch", None, None))
+    return lay.enter(h, seq)
+
+
+def _block_apply(p, x, cfg: ArchConfig, policy, positions,
+                 lay: Optional[Layout] = None):
     # the reference's layout: the residual stream over "seq" (sequence
-    # parallelism), gathered before the attention and the FFN
+    # parallelism), gathered before the attention and the FFN.  On a
+    # laid-out step ``p`` is this rank's blocks of the layer, gathered
+    # over the data axes first; the attention and the MLP split over the
+    # model axis, their row-parallel sums reduce-scattered along ``seq``
+    acfg = attn_config(cfg)
+    seq = _seq(lay)
+    if lay is not None:
+        p = lay.gather(p, _block_axes(cfg), _seq_norms(lay, "ln1", "ln2") + [
+            ("attn",) + path for path in model_summed(acfg, lay)])
     x = constrain(x, ("batch", "seq", None))
-    h = rmsnorm_apply(p["ln1"], x)
-    h = constrain(h, ("batch", None, None))
-    a = attention_apply(p["attn"], h, attn_config(cfg), policy,
-                        positions=positions)
-    x = x + constrain(a, ("batch", "seq", None))
-    h = rmsnorm_apply(p["ln2"], x)
-    h = constrain(h, ("batch", None, None))
-    return x + constrain(_ffn(p, h, cfg, policy), ("batch", "seq", None))
+    h = _whole(rmsnorm_apply(p["ln1"], x), lay, seq)
+    # no name holds the attention's output past the sum: it is freed
+    # before the FFN runs
+    x = x + constrain(attention_apply(p["attn"], h, acfg, policy,
+                                      positions=positions, scatter=seq),
+                      ("batch", "seq", None))
+    h = _whole(rmsnorm_apply(p["ln2"], x), lay, seq)
+    return x + constrain(_ffn(p, h, cfg, policy, seq),
+                         ("batch", "seq", None))
 
 
 def _block_prefill(p, x, cfg, policy, positions, kv_bits):
@@ -168,17 +213,22 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     return params
 
 
-def param_axes(cfg: ArchConfig):
-    """The reference's logical axes of :func:`init`'s tree (its boxed
-    init's ``axes_of``)."""
+def _block_axes(cfg: ArchConfig):
+    """The logical axes of one layer's params (no layer axis)."""
     block = {"ln1": rmsnorm_axes(), "attn": attention_axes(attn_config(cfg)),
              "ln2": rmsnorm_axes()}
     if cfg.is_moe:
         block["moe"] = moe_axes()
     else:
         block["mlp"] = swiglu_axes()
+    return block
+
+
+def param_axes(cfg: ArchConfig):
+    """The reference's logical axes of :func:`init`'s tree (its boxed
+    init's ``axes_of``)."""
     axes = {"embed": embedding_axes(("vocab", "d_model")),
-            "blocks": stack_axes(block), "ln_f": rmsnorm_axes()}
+            "blocks": stack_axes(_block_axes(cfg)), "ln_f": rmsnorm_axes()}
     if not cfg.tie_embeddings:
         axes["lm_head"] = linear_axes(("d_model", "vocab"), False)
     return axes
@@ -187,11 +237,15 @@ def param_axes(cfg: ArchConfig):
 def _head(params, x, cfg, policy):
     tie = params["embed"] if cfg.tie_embeddings else None
     head = None if cfg.tie_embeddings else params["lm_head"]["w"]
-    return logits_from_hidden(x, head, tie, policy, n_valid=cfg.vocab)
+    axes = None if cfg.tie_embeddings else \
+        linear_axes(("d_model", "vocab"), False)["w"]
+    return logits_from_hidden(x, head, tie, policy, n_valid=cfg.vocab,
+                              axes=axes)
 
 
-def _embed(params, tokens, policy):
-    x = embedding_apply(params["embed"], tokens, policy)
+def _embed(params, tokens, policy, scatter: Optional[int] = None):
+    x = embedding_apply(params["embed"], tokens, policy,
+                        embedding_axes(("vocab", "d_model"))["emb"], scatter)
     return x.to(policy.compute_dtype if policy else torch.float32)
 
 
@@ -200,20 +254,43 @@ def _positions(tokens: Tensor) -> Tensor:
     return torch.arange(S, device=tokens.device)[None].expand(B, S)
 
 
+def _gather_top(params, cfg: ArchConfig, lay: Optional[Layout]):
+    """On a laid-out step, ``params`` with the leaves outside the layer
+    stack (embedding, final norm, head) gathered over the data axes in
+    one buffer; the stack stays this rank's blocks, gathered a layer at
+    a time inside :func:`_block_apply`.  Else ``params`` as they are."""
+    if lay is None:
+        return params
+    if cfg.is_moe or cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: the laid-out step takes an untied "
+                         "dense decoder")
+    axes = param_axes(cfg)
+    top = lay.gather({k: v for k, v in params.items() if k != "blocks"},
+                     {k: v for k, v in axes.items() if k != "blocks"},
+                     _seq_norms(lay, "ln_f"))
+    return dict(top, blocks=params["blocks"])
+
+
 def forward(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None,
-            return_hidden: bool = False) -> Tensor:
+            return_hidden: bool = False,
+            lay: Optional[Layout] = None) -> Tensor:
     """Training/scoring forward: tokens [B, S] -> fp32 logits [B, S, V].
-    Under ``cfg.remat`` each block is rematerialised in the backward."""
+    Under ``cfg.remat`` each block is rematerialised in the backward.
+    ``lay``: a laid-out step's layout, under which ``params`` come from
+    :func:`_gather_top` and the logits are this rank's vocab columns."""
+    seq = _seq(lay)
     blocks = layers(params["blocks"], cfg.n_layers)
-    x = _embed(params, tokens, policy)
+    x = _embed(params, tokens, policy, seq)
     body = functools.partial(_block_apply, cfg=cfg, policy=policy,
-                             positions=_positions(tokens))
+                             positions=_positions(tokens), lay=lay)
     if cfg.remat:
         body = checkpoint(body)
     for p in blocks:
         x = body(p, x)
     x = rmsnorm_apply(params["ln_f"], x)
+    if lay is not None:
+        x = lay.enter(x, seq)
     if return_hidden:
         return x
     return _head(params, x, cfg, policy)
@@ -221,9 +298,17 @@ def forward(params, tokens: Tensor, cfg: ArchConfig,
 
 def loss_fn(params, batch, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None) -> Tensor:
-    x = forward(params, batch["tokens"], cfg, policy, return_hidden=True)
+    """Mean next-token CE of ``batch``; on a laid-out step, of this
+    rank's rows from its blocks of the params (the same on each model
+    rank), the head and the loss vocab-parallel."""
+    lay = layout()
+    params = _gather_top(params, cfg, lay)
+    x = forward(params, batch["tokens"], cfg, policy, return_hidden=True,
+                lay=lay)
+    vocab = lay.split("vocab") if lay is not None else ()
     return chunked_ce(lambda h: _head(params, h, cfg, policy), x,
-                      batch["labels"], batch.get("mask"))
+                      batch["labels"], batch.get("mask"),
+                      vocab=(lay.mesh, vocab) if vocab else None)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,12 @@ Differences from the reference, none of them in a result:
 * a cache update writes the new positions into the cache's tensors in
   place and returns the cache (a decode step would otherwise copy every
   layer's whole cache); callers hand each cache to one update;
+* on a laid-out step (``distributed.sharding.layout``) the rank
+  attends with its own heads: the q, k and v projections are
+  column-parallel over the heads and ``wo`` row-parallel.  Where the kv
+  heads stay whole on every model rank (their count does not divide the
+  model axis), the rank projects them all and keeps the kv groups of its
+  own q heads (:func:`kv_groups`);
 * the q-chunked path loops over chunks in Python.  Under autograd each
   chunk is rematerialised (``nn.remat.checkpoint``, the reference's
   ``jax.checkpoint(block)``): the backward recomputes its scores rather
@@ -38,7 +44,8 @@ import torch
 from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fxp_dtype, fxp_qmax
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (Layout, axes_index, axes_size,
+                                              constrain, layout)
 from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import ones_init
 from repro_torch.nn.norm import rmsnorm_apply
@@ -278,10 +285,41 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                       for i in range(0, S, q_chunk)], dim=1)
 
 
+def kv_groups(cfg: AttnConfig, lay: Layout) -> Optional[Tuple[int, int]]:
+    """On a laid-out step whose q heads lie over the model axis and kv
+    heads do not: the kv heads ``[lo, hi)`` this rank's q heads read;
+    None where the kv heads are split with the q heads, or nothing is."""
+    tp = lay.split("heads")
+    if not tp or lay.split("kv_heads"):
+        return None
+    per = cfg.n_heads // axes_size(lay.mesh, tp)
+    first = axes_index(lay.mesh, tp) * per
+    group = cfg.n_heads // cfg.n_kv_heads
+    return first // group, (first + per - 1) // group + 1
+
+
+def model_summed(cfg: AttnConfig, lay: Layout):
+    """The paths of the attention params whose gradient a laid-out step
+    sums over the model axis: those every model rank holds whole but
+    reads for its own heads alone (the kv projections of
+    :func:`kv_groups`, the qk-norm scales)."""
+    if not lay.split("heads"):
+        return []
+    out = []
+    if kv_groups(cfg, lay) is not None:
+        for name in ("wk", "wv"):
+            out += [(name, "w")] + ([(name, "b")] if cfg.qkv_bias else [])
+    if cfg.qk_norm:
+        out += [("q_norm", "scale"), ("k_norm", "scale")]
+    return out
+
+
 def project_q(p, x: Tensor, cfg: AttnConfig, policy) -> Tensor:
-    """The queries [B, S, H, D] (qk-normed if the config says so)."""
-    q = linear_apply(p["wq"], x, policy).reshape(
-        x.shape[0], -1, cfg.n_heads, cfg.head_dim)
+    """The queries [B, S, H, D] (qk-normed if the config says so); on a
+    laid-out step, this rank's heads."""
+    ax = attention_axes(cfg)["wq"]["w"]
+    q = linear_apply(p["wq"], x, policy, ax).reshape(
+        x.shape[0], x.shape[1], -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q)
     return q
@@ -290,10 +328,16 @@ def project_q(p, x: Tensor, cfg: AttnConfig, policy) -> Tensor:
 def project_kv(p, kv_src: Tensor, cfg: AttnConfig,
                policy) -> Tuple[Tensor, Tensor]:
     """The keys and values [B, T, Hk, D] of ``kv_src`` (the keys
-    qk-normed if the config says so)."""
-    B, Hk, D = kv_src.shape[0], cfg.n_kv_heads, cfg.head_dim
-    k = linear_apply(p["wk"], kv_src, policy).reshape(B, -1, Hk, D)
-    v = linear_apply(p["wv"], kv_src, policy).reshape(B, -1, Hk, D)
+    qk-normed if the config says so); on a laid-out step, the kv heads
+    this rank's q heads read."""
+    B, T, D = kv_src.shape[0], kv_src.shape[1], cfg.head_dim
+    ax = attention_axes(cfg)["wk"]["w"]
+    k = linear_apply(p["wk"], kv_src, policy, ax).reshape(B, T, -1, D)
+    v = linear_apply(p["wv"], kv_src, policy, ax).reshape(B, T, -1, D)
+    lay = layout()
+    groups = kv_groups(cfg, lay) if lay is not None else None
+    if groups is not None:
+        k, v = k[:, :, groups[0]:groups[1]], v[:, :, groups[0]:groups[1]]
     if cfg.qk_norm:
         k = rmsnorm_apply(p["k_norm"], k)
     return k, v
@@ -309,14 +353,17 @@ def attention_apply(p, x: Tensor, cfg: AttnConfig,
                     encoder_out: Optional[Tensor] = None,
                     cache=None, kv_bits: int = 32,
                     return_cache: bool = False,
-                    kv: Optional[Tuple[Tensor, Tensor]] = None):
+                    kv: Optional[Tuple[Tensor, Tensor]] = None,
+                    scatter: Optional[int] = None):
     """Full-sequence attention (train / prefill).
 
     If ``return_cache`` and not cross-attention, also returns the filled
     KV cache (quantized per kv_bits) for later decode steps.  ``kv``:
     the keys and values ``project_kv`` gave already (an enc-dec prefill
     projects the encoder's once for its cross cache and its attention),
-    in place of projecting them here.
+    in place of projecting them here.  ``scatter``: on a laid-out step,
+    the dimension ``wo``'s sum is reduce-scattered along (sequence
+    parallelism).
     """
     B, S, _ = x.shape
     kv_src = encoder_out if cfg.cross else x
@@ -334,7 +381,8 @@ def attention_apply(p, x: Tensor, cfg: AttnConfig,
                       causal=cfg.causal and not cfg.cross,
                       window=cfg.window, compute_dtype=_compute_dtype(policy),
                       q_chunk=cfg.q_chunk)
-    out = linear_apply(p["wo"], out.reshape(B, S, -1), policy)
+    out = linear_apply(p["wo"], out.reshape(B, S, -1), policy,
+                       attention_axes(cfg)["wo"]["w"], scatter)
     if return_cache and not cfg.cross:
         if cache is None:
             cache = init_cache(B, T, cfg.n_kv_heads, cfg.head_dim, kv_bits,

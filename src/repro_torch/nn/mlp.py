@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.vact import activation
+from repro_torch.distributed.sharding import layout
 from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 
 
@@ -31,11 +32,19 @@ def swiglu_axes():
 
 
 def swiglu_apply(p, x: torch.Tensor, policy: Optional[QuantPolicy] = None,
-                 act: str = "silu"):
-    g = linear_apply(p["w_gate"], x, policy)
-    u = linear_apply(p["w_up"], x, policy)
-    h = activation(g, act, policy) * u
-    return linear_apply(p["w_down"], h, policy)
+                 act: str = "silu", scatter: Optional[int] = None):
+    """On a laid-out step: ``w_gate`` and ``w_up`` column-parallel over
+    ``d_ff``, the gate's requantization grid over every rank's columns,
+    ``w_down`` row-parallel (its sum reduce-scattered along
+    ``scatter`` when given)."""
+    ax = swiglu_axes()
+    lay = layout()
+    g = linear_apply(p["w_gate"], x, policy, ax["w_gate"]["w"])
+    u = linear_apply(p["w_up"], x, policy, ax["w_up"]["w"])
+    h = activation(g, act, policy,
+                   split=lay.split("d_ff") if lay is not None else ())
+    h = h * u
+    return linear_apply(p["w_down"], h, policy, ax["w_down"]["w"], scatter)
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,

@@ -12,7 +12,10 @@ Every step is the reference's, in its order: non-finite gradients
 zeroed, then the global-norm clip; the count incremented before the
 schedule reads it; bias corrections ``1 - b ** count`` as fp32 powers of
 the count; ``eps`` outside the square root.  Call it under
-``torch.no_grad()``.
+``torch.no_grad()``.  On a laid-out step it runs on this rank's blocks
+of the params, the gradient and the moments (``mesh`` and ``split``:
+see ``optim.clip``); only the norm and the non-finite flag span the
+ranks.
 """
 from __future__ import annotations
 
@@ -45,13 +48,14 @@ def adamw_init(params):
 
 
 def adamw_update(grads, state, params, schedule: Callable,
-                 cfg: AdamWConfig = AdamWConfig()):
+                 cfg: AdamWConfig = AdamWConfig(), mesh=None, split=None):
     """One AdamW step.  Returns (new_params, new_state, stats)."""
-    grads, nonfinite = zero_nonfinite(grads)
+    grads, nonfinite = zero_nonfinite(grads, mesh)
     if cfg.max_grad_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm, mesh,
+                                           split)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh, split)
 
     count = state["count"] + 1
     lr = schedule(count)

@@ -157,7 +157,9 @@ def test_meta_trace_equals_a_cpu_trace(arch, kinds):
     calls, costs and memory as the same step run on the CPU (plain
     kernels) on a (2, 2) mesh of one process.  Each device runs the
     first step once before (a table the rope builds once a device,
-    ``nn.rotary``)."""
+    ``nn.rotary``).  The dense training step runs laid out, on rank 0's
+    blocks of the params and AdamW's state: its traced arguments are
+    the layout's bytes."""
     cfg = treg.get_arch(arch).reduced()
     mesh = tsh.MeshShape(("data", "model"), (2, 2))
     pol = get_policy("w8a8kv8")
@@ -177,6 +179,9 @@ def test_meta_trace_equals_a_cpu_trace(arch, kinds):
         assert H.cost_terms(meta) == H.cost_terms(cpu)
         assert H.op_histogram(meta) == H.op_histogram(cpu)
         m, c = H.memory_stats(meta), H.memory_stats(cpu)
+        assert info["laid_out"] == (kind == "train" and not cfg.is_moe)
+        if info["laid_out"]:
+            assert m["argument_size_in_bytes"] == m["layout_argument_bytes"]
         assert m.pop("layout_argument_bytes") > 0
         c.pop("layout_argument_bytes")
         assert m == c, kind

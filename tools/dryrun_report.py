@@ -5,7 +5,9 @@ prints, of the cells that ran (the skipped ones are counted below), then
 one row an (arch, shape) of the memory a device holds on each mesh (the
 step's inputs as the port's rank holds them, the same inputs under the
 reference's layout, the temps' peak) beside the useful share of the
-counted work and the collective bytes.  Every figure is a forecast at an
+counted work and the collective bytes, and whether the port's step ran
+laid out (on the rank's blocks of the params: a dense decoder's
+training step) or on whole params.  Every figure is a forecast at an
 H100's data-sheet peaks; nothing here runs on a device.  From the repo
 root:
 
@@ -36,6 +38,7 @@ COLUMNS = (
     ("useful/HLO",
      lambda r: f"{100 * r['roofline']['useful_flops_frac']:.1f}%"),
     ("collective GB", lambda r: f"{r['cost']['collective_bytes'] / 1e9:.2f}"),
+    ("laid out", lambda r: "yes" if r.get("laid_out") else "no"),
 )
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Phases 17, 19, 21 and 22 of ``chip_smoke.py`` alone, with phases
-3-4's training rows: build the kernels, hold ``qmac_i8`` at TinyLlama's
+"""Phases 17, 19, 21, 22 and 23 of ``chip_smoke.py`` alone, with phases
+3-4's training rows (and the laid-out step's shards): build the kernels, hold ``qmac_i8`` at TinyLlama's
 training products (M = 1,024) against its plain version and time them,
 train TinyLlama-1.1B at full width through ``repro_torch.launch.train``
 (on the one-rank host mesh) and profile a step, then one training step
@@ -9,13 +9,16 @@ then phase 19: the mesh's training steps against the unsharded ones and
 one full-width qwen3-moe layer through ``moe_shard_map``; phase 21: the
 dry run's traces and forecasts against the card; phase 22: the
 rematerialised step against the plain one, and a step at train_4k's
-sequence length.  Needs one CUDA card; run from the repo root:
+sequence length; phase 23: the laid-out step on one rank against the
+unsharded one, and rank 0 of the (16, 16) mesh at train_4k.  Needs one
+CUDA card; run from the repo root:
 
     python3 tools/lm_train_probe.py [PHASE ...] [--no-limits]
 
-Given phases (of 17, 19, 21, 22) run alone; phases 19 and 22 then
-start from TinyLlama's params drawn from seed 0 on the card.
-``--no-limits`` lifts phases 21 and 22's time limits, to measure them.
+Given phases (of 17, 19, 21, 22, 23) run alone; phases 19, 22 and 23
+then start from TinyLlama's params drawn from seed 0 on the card.
+``--no-limits`` lifts phases 21, 22 and 23's time limits, to measure
+them.
 """
 import os
 import sys
@@ -27,8 +30,9 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
-PHASES = ("17", "19", "21", "22")
+PHASES = ("17", "19", "21", "22", "23")
 
 
 def main() -> int:
@@ -39,7 +43,7 @@ def main() -> int:
     if "--no-limits" in args:
         args.remove("--no-limits")
         cs.DRY_RUN_LIMIT_S = cs.REMAT_LIMIT_S = 3600
-        cs.DRY_RUN_CELL_LIMIT_S = 3600
+        cs.DRY_RUN_CELL_LIMIT_S = cs.LAYOUT_LIMIT_S = 3600
     phases = args or PHASES
     if set(phases) - set(PHASES):
         print(f"lm_train_probe: phases are {PHASES}", file=sys.stderr)
@@ -54,11 +58,12 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
     params = None
-    if "17" in phases:
+    if "17" in phases or "23" in phases:
         worst = {"qmac_i8": 0.0, "qmac_i8_deq": 0.0}
         print(cs.check_lm_train_kernels(torch, dev, worst), flush=True)
         for r in cs.time_lm_train_kernels(torch, dev):
             cs.print_row("qmac_i8", r)
+    if "17" in phases:
         t0 = time.perf_counter()
         launches, params = cs.lm_training(torch, dev, card)
         print(launches, flush=True)
@@ -66,7 +71,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cs.lm_train_card_vs_cpu(torch, dev)
         print(f"card vs CPU {time.perf_counter() - t0:.1f} s", flush=True)
-    elif "19" in phases or "22" in phases:
+    elif {"19", "22", "23"} & set(phases):
         from repro_torch.configs.registry import get_arch
         from repro_torch.models import transformer
         params = transformer.init(torch.Generator().manual_seed(0),
@@ -87,7 +92,7 @@ def main() -> int:
         if "22" in phases:
             t0 = time.perf_counter()
             launches = cs.remat_against_plain(torch, dev, card, params)
-            params = None
+            params = tree_map(lambda t: t.cpu(), params)
             print(cs.train_4k_step(torch, dev, card, launches, t0,
                                    forecasts), flush=True)
             print(f"remat phase {time.perf_counter() - t0:.1f} s",
@@ -98,6 +103,11 @@ def main() -> int:
         for proc in (cell, forecasts):
             if proc is not None:
                 cs.stop(proc[0])
+    if "23" in phases:
+        t0 = time.perf_counter()
+        print(cs.laid_out_gate(torch, dev, card, tree_map(
+            lambda t: t.cpu(), params)), flush=True)
+        print(f"laid-out phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"probe wall {time.perf_counter() - t_all:.1f} s")
     return 0
 
