@@ -4541,6 +4541,22 @@ def check_lm_train_kernels(torch, dev, worst):
                               cases, 24)
 
 
+# the rows a rank's serving products take on the (16, 16) mesh (phase
+# 24): a decode step's 8 and a prefill_32k's 2 x 32,768, at the same
+# shards as the laid-out step (LAID_OUT_KN)
+SERVE_LAYOUT_ROWS = (8, 65536)
+
+
+def check_serving_layout_kernels(torch, dev, worst):
+    """Phase 3, the laid-out serving steps' products: ``qmac_i8_deq``
+    (column-parallel) and ``qmac_i8`` (row-parallel) at every shard of
+    ``LAID_OUT_KN`` at ``SERVE_LAYOUT_ROWS``, with w8 and w4 codes,
+    bitwise equal to the plain version."""
+    cases = [(m, k, n) for k, n in LAID_OUT_KN for m in SERVE_LAYOUT_ROWS]
+    return _check_lm_products(torch, dev, worst,
+                              "the laid-out serving step", cases, 31)
+
+
 def time_lm_train_kernels(torch, dev):
     """Phase 4: ``qmac_i8`` at each of TinyLlama's training products at
     M = 1,024 beside its bound, its plain version and ``torch._int_mm``,
@@ -6069,6 +6085,318 @@ def laid_out_gate(torch, dev, card, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dense family's serving layout (a prefill on the FSDP+TP
+# rules, decode steps on the serve rules and the cache shardings)
+# ---------------------------------------------------------------------------
+
+# phase 24's own limit, seconds
+SERVE_LAYOUT_LIMIT_S = 150
+# (a)'s prompt (rows, tokens) and its decode steps at one NCCL rank
+SERVE_LAYOUT_PROMPT = (8, 512)
+SERVE_LAYOUT_STEPS = 8
+# (b)'s cells on rank 0 of the (16, 16) mesh, and the decode cell's
+# indices: its last position (rank 15's) and one of rank 0's positions
+SERVE_LAYOUT_CELLS = ("decode_32k", "prefill_32k")
+SERVE_LAYOUT_INDICES = (32767, 1000)
+
+
+def _serve_laid_out(torch, dev, cfg, packed, prompts, fed, mesh):
+    """A prefill of ``prompts`` and ``len(fed)`` decode steps fed ``fed``
+    through ``launch.steps``' serving steps: laid out on the one-rank
+    ``mesh``'s blocks of ``packed`` (the caches grown by
+    ``pad_cache_blocks``), or with no mesh (``pad_caches``).  Returns
+    (every logit, the caches after the prefill and after the last step,
+    every int8 code, each forward's Q-MAC launches)."""
+    from repro_torch import kernels
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.checks import recorded_codes
+    from repro_torch.distributed.sharding import local_shards
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import pad_caches
+
+    pol = get_policy("w8a8kv8")
+    B, S = prompts.shape
+    G = len(fed)
+    if mesh is None:
+        pre_step = steps.make_prefill_step(cfg, None, pol, pol.kv_bits)
+        dec_step = steps.make_decode_step(cfg, None, pol, pol.kv_bits)
+        pre = dec = packed
+    else:
+        p_pre = steps.abstract_params(cfg, mesh, weight_ptq=pol)[1]
+        p_dec = steps.abstract_params(cfg, mesh, weight_ptq=pol,
+                                      serve=True)[1]
+        c_shard = steps.abstract_caches(
+            cfg, ShapeConfig("grown", S + G, B, "decode"), mesh,
+            pol.kv_bits)[1]
+        pre_step = steps.make_prefill_step(cfg, mesh, pol, pol.kv_bits,
+                                           shardings=p_pre)
+        dec_step = steps.make_decode_step(cfg, mesh, pol, pol.kv_bits,
+                                          shardings=p_dec,
+                                          cache_shardings=c_shard)
+        pre = local_shards(packed, p_pre, mesh)
+        dec = local_shards(packed, p_dec, mesh)
+    launches = []
+
+    def counted(fn, seq_len):
+        """``fn()``, its Q-MAC launches and the int8 codes of its dense
+        products' inputs of ``seq_len`` positions (kept on the card)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with recorded_codes(seq_len) as codes:
+            out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches.append({k: counts[k] for k in QMAC_WRAPPERS})
+        return out, list(codes)
+
+    (logits, caches), codes = counted(
+        lambda: pre_step(pre, {"tokens": prompts}), S)
+    out_logits, out_codes = [logits], list(codes)
+    after_prefill = {k: v.clone() for k, v in caches.items()}
+    caches = pad_caches(caches, G) if mesh is None else \
+        steps.pad_cache_blocks(caches, S, G, cfg, mesh)
+    for i in range(G):
+        (logits, caches), codes = counted(
+            lambda i=i, c=caches: dec_step(dec, c, fed[i], S + i), 1)
+        out_logits.append(logits)
+        out_codes += codes
+    return out_logits, (after_prefill, caches), out_codes, launches
+
+
+def _warm_qmac(torch, dev, program):
+    """Each Q-MAC product of ``program`` (its kernel records' operand
+    shapes and dtypes) once on zeros on the card: the kernel's split-K
+    workspace, made once a stream and grown on demand, then holds what
+    the step will ask of it before the step's peak is read (it is not in
+    the trace).  The caller resets the launch counters after."""
+    from repro_torch import kernels
+
+    seen = set()
+    for r in program.ops:
+        if r.kind != "kernel" or r.name not in ("qmac_i8", "qmac_i8_deq"):
+            continue
+        key = (r.name, tuple((s, dt) for s, dt, _ in r.ins))
+        if key not in seen:
+            seen.add(key)
+            kernels.WRAPPERS[r.name](*(torch.zeros(s, dtype=dt, device=dev)
+                                       for s, dt, _ in r.ins))
+    torch.cuda.synchronize()
+
+
+def _serving_cell(torch, dev, card, cfg, ms, shape, pol, index):
+    """(b): one serving cell of rank 0 of ``ms`` (a ``MeshShape``)
+    traced on meta and run on the card from ``materialize``d inputs
+    under the same recorder (a decode cell at ``index``): the traces
+    equal, the Q-MAC records equal to the counters, busy at least the
+    roofline's ``t_step``, finite logits, the card's peak within
+    ``DRY_RUN_MEMORY_BAR`` of arguments + temps.  Returns (the traced
+    step's launches, a line of figures)."""
+    from repro_torch import kernels
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import steps
+    from repro_torch.launch.roofline import roofline_terms
+
+    t0 = time.perf_counter()
+    step = steps.cell_step(cfg, shape, ms, pol)
+    args, layout = steps.cell_inputs(cfg, shape, ms, pol)
+    if index is not None:
+        args = args[:3] + (index,)
+    meta = H.trace(step, args, layout)
+    lower_s = time.perf_counter() - t0
+    mem = H.memory_stats(meta)
+    forecast = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    args = steps.materialize(args, torch.Generator(device=dev).manual_seed(
+        24), cfg.vocab)
+    _warm_qmac(torch, dev, meta)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    held_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    # one run on the card: traced by the recorder (a host-side record a
+    # call) under the profiler (the device's activity alone)
+    outs = []
+    traced, wall, busy = _profiled_once(torch, lambda: H.trace(
+        lambda *a: outs.append(step(*a)) or outs[-1], args))
+    # the bytes the step's tensors asked for at the peak, as the trace
+    # counts them; the allocator's own peak rounds each block up to 512
+    # bytes, which thousands of small tensors of a decode step add up
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - held_req
+    peak_alloc = torch.cuda.max_memory_allocated() - held
+    counts = kernels.launch_counts()
+    rows = args[1]["tokens"].shape[0] if shape.kind == "prefill" \
+        else args[2].shape[0]
+    what = (f"{LM_ARCH} {steps.STEP_NAMES[shape.kind]} {shape.name} "
+            f"({rows} rows a rank"
+            f"{'' if index is None else f', index {index}'}) at "
+            f"{pol.name} on rank 0 of {ms.shape}, laid out")
+    same = [r[:5] for r in meta.ops] == [r[:5] for r in traced.ops]
+    cost_m, cost_c = H.cost_terms(meta), H.cost_terms(traced)
+    hist = H.op_histogram(meta)
+    qmac = {k: hist.get(k, 0) for k in QMAC_WRAPPERS}
+    counted = {k: counts[k] for k in QMAC_WRAPPERS}
+    roof = roofline_terms(cfg, shape, ms, cost_m)
+    finite = bool(torch.isfinite(outs[0][0]).all())
+    busy_s = None if busy is None else busy / 1e3
+    ratio = (mem["argument_size_in_bytes"] + peak) / forecast
+    ratio_alloc = (mem["argument_size_in_bytes"] + peak_alloc) / forecast
+    del outs, args, step
+    torch.cuda.empty_cache()
+    line = (f"phase 24 (b) {what}: {len(meta.ops)} records on meta (traced "
+            f"in {lower_s:.1f} s), {len(traced.ops)} on the card, equal "
+            f"{same}; Q-MAC "
+            f"records {qmac}, launch counters {counted}; arguments a rank "
+            f"{mem['argument_size_in_bytes'] / 2**30:.4f} GiB (the layout's "
+            f"{mem['layout_argument_bytes'] / 2**30:.4f} GiB), temps "
+            f"forecast {mem['temp_size_in_bytes'] / 2**30:.4f} GiB, the "
+            f"card's peak of requested bytes {peak / 2**30:.6f} GiB beyond "
+            f"{held_req / 2**30:.4f} GiB held: measured / forecast "
+            f"{ratio:.6f} (bar {DRY_RUN_MEMORY_BAR}); the allocator's peak "
+            f"{peak_alloc / 2**30:.6f} GiB beyond {held / 2**30:.4f} GiB "
+            f"({ratio_alloc:.6f}); logits finite {finite}; wall "
+            f"{wall:.4f} s (under the recorder and the profiler), device "
+            f"busy "
+            + ("not measured (the trace came back empty)" if busy_s is None
+               else f"{busy_s:.4f} s") + f" on {card}; roofline at H100 "
+            f"data-sheet peaks: compute {roof['t_compute']:.6e} s, memory "
+            f"{roof['t_memory']:.6e} s, collective "
+            f"{roof['t_collective']:.6e} s, t_step {roof['t_step']:.6e} s"
+            + ("" if busy_s is None else
+               f", busy / t_step {busy_s / roof['t_step']:.4f}"))
+    print(line, flush=True)
+    if not same:
+        raise AssertionError(f"{what}: the traces differ, "
+                             f"{_first_difference(meta.ops, traced.ops)}")
+    if cost_m != cost_c or hist != H.op_histogram(traced):
+        raise AssertionError(f"{what}: costs {cost_m} on meta, {cost_c} on "
+                             "the card")
+    want = {"qmac_i8_deq": 5 * cfg.n_layers + 1, "qmac_i8": 2 * cfg.n_layers,
+            "qmac_i8_deq_bmm": 0}
+    if qmac != counted or qmac != want:
+        raise AssertionError(f"{what}: Q-MAC records {qmac}, launches "
+                             f"{counted}, want {want}")
+    if mem["argument_size_in_bytes"] != mem["layout_argument_bytes"]:
+        raise AssertionError(f"{what}: arguments {mem} are not the layout's")
+    if not finite:
+        raise AssertionError(f"{what}: logits not finite")
+    if busy_s is None or busy_s < roof["t_step"]:
+        raise AssertionError(f"{what}: busy {busy_s} s under the floor "
+                             f"{roof['t_step']} s")
+    lo, hi = DRY_RUN_MEMORY_BAR
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{what}: memory measured / forecast {ratio}")
+    return counts
+
+
+def serving_layout_gate(torch, dev, card, params):
+    """Phase 24: the dense family's serving steps laid out, on the card.
+
+    (a) From ``params`` (phase 17's trained TinyLlama, all 22 layers at
+    full width, on the host), PTQ'd at w8a8kv8 on the card: a prefill of
+    ``SERVE_LAYOUT_PROMPT`` and ``SERVE_LAYOUT_STEPS`` decode steps
+    (fed tokens drawn from seed 24) through ``make_prefill_step`` /
+    ``make_decode_step`` on the one NCCL rank's blocks
+    (``shardings=...``, the caches grown by ``pad_cache_blocks``) and
+    with no mesh (``pad_caches``): the last-position logits, every
+    decode logit, every cache payload and scale (after the prefill and
+    after the last step) and every int8 code bitwise equal, 155 Q-MAC
+    launches a forward in each (by kernel: at one rank every product is
+    whole, so every one is the fused ``qmac_i8_deq``).
+
+    (b) Rank 0 of the (16, 16) production mesh (a ``MeshShape``, its
+    peers' pieces copies of rank 0's) at decode_32k, at an index in
+    rank 0's range of the 32,768-long cache and one outside it, and at
+    prefill_32k (2 rows of 32,768 tokens a rank): each traced on meta
+    and run on the card (``_serving_cell``), 44 ``qmac_i8`` (wo and
+    w_down, row-parallel) and 111 ``qmac_i8_deq`` a forward.
+
+    Returns the path's launches: (a)'s laid-out runs and (b)'s traced
+    steps, each counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantizer import quantize_params
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.nn.rotary import apply_rope
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg, pol = get_arch(LM_ARCH), get_policy("w8a8kv8")
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+
+    # (a) one NCCL rank: the laid-out serving steps against today's
+    mesh = make_host_mesh(device=dev)
+    packed = quantize_params(tree_map(lambda t: t.to(dev), params), pol)
+    g = torch.Generator().manual_seed(24)
+    B, S = SERVE_LAYOUT_PROMPT
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=g).to(dev)
+    fed = torch.randint(0, cfg.vocab, (SERVE_LAYOUT_STEPS, B, 1),
+                        generator=g).to(dev)
+    runs = {}
+    for name, m in (("laid out", mesh), ("unsharded", None)):
+        runs[name] = _serve_laid_out(torch, dev, cfg, packed, prompts, fed,
+                                     m)
+        per = runs[name][3]
+        if m is not None:
+            for c in per:
+                for k, v in c.items():
+                    launches[k] += v
+        how = f"on {describe(m)}, laid out" if m is not None else \
+            "with no mesh"
+        print(f"phase 24 (a) {LM_ARCH} w8a8kv8 prefill {B} x {S} and "
+              f"{SERVE_LAYOUT_STEPS} decode steps {how}: Q-MAC launches "
+              f"the prefill {per[0]}, each decode step {per[1]}; "
+              f"{len(runs[name][2])} int8 activations recorded")
+        want = {"qmac_i8_deq": LM_PER_FORWARD, "qmac_i8": 0,
+                "qmac_i8_deq_bmm": 0}
+        if per != [want] * (1 + SERVE_LAYOUT_STEPS):
+            raise AssertionError(f"{name}: launches {per}, not {want} a "
+                                 "forward")
+    (la, ca, qa, _), (lb, cb, qb, _) = runs["laid out"], runs["unsharded"]
+    same = {
+        "logits": len(la) == len(lb) and all(
+            bits_equal(torch, x, y) for x, y in zip(la, lb)),
+        "caches": all(bits_equal(torch, x[k], y[k])
+                      for x, y in zip(ca, cb) for k in y),
+        "codes": len(qa) == len(qb) > 0 and all(
+            bits_equal(torch, x, y) for x, y in zip(qa, qb))}
+    print(f"phase 24 (a) the laid-out serving steps vs the unsharded ones: "
+          f"{same} (last-position logits and {SERVE_LAYOUT_STEPS} decode "
+          f"logits, every cache payload and scale after the prefill and "
+          f"after the last step, {len(qa)} int8 activations); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(same.values()):
+        raise AssertionError(f"the laid-out serving steps differ: {same}")
+    del runs, la, lb, ca, cb, qa, qb, packed, prompts, fed
+    torch.cuda.empty_cache()
+
+    # (b) rank 0 of the production mesh
+    for where in ("meta", dev):
+        apply_rope(torch.zeros((1, 1, 1, cfg.hd), device=where),
+                   torch.zeros((1, 1), dtype=torch.long, device=where),
+                   cfg.rope_theta)
+    ms = MeshShape(("data", "model"), LAID_OUT_MESH)
+    for name in SERVE_LAYOUT_CELLS:
+        shape = SHAPES[name]
+        for index in (SERVE_LAYOUT_INDICES if shape.kind == "decode"
+                      else (None,)):
+            counts = _serving_cell(torch, dev, card, cfg, ms, shape, pol,
+                                   index)
+            for k, v in counts.items():
+                launches[k] += v
+    secs = time.perf_counter() - t0
+    print(f"phase 24 launches: {launches}; {secs:.1f} s of its "
+          f"{SERVE_LAYOUT_LIMIT_S} s limit")
+    if secs > SERVE_LAYOUT_LIMIT_S:
+        raise AssertionError(f"phase 24 took {secs:.1f} s, past its "
+                             f"{SERVE_LAYOUT_LIMIT_S} s limit")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6111,7 +6439,8 @@ def main() -> int:
                   check_training_kernels, check_pixel_kernels,
                   check_value_kernels, check_lm_kernels,
                   check_whisper_kernels, check_ssm_hybrid_kernels,
-                  check_moe_kernels, check_lm_train_kernels):
+                  check_moe_kernels, check_lm_train_kernels,
+                  check_serving_layout_kernels):
         worst = check(torch, dev, worst)
     lap("phases 1-3 (the build and the kernel checks)")
     rows = time_kernels(torch, dev)
@@ -6200,10 +6529,12 @@ def main() -> int:
         lap("phase 22 (remat: on against off, a train_4k-length step)")
         stop(forecasts[0])
         laid_out_launches = laid_out_gate(torch, dev, card, trained)
-        del trained
         lap("phase 23 (the laid-out training step)")
         finish_production_cell(*cell)
         lap("phase 21's production cell, after phase 23")
+        serving_launches = serving_layout_gate(torch, dev, card, trained)
+        del trained
+        lap("phase 24 (the dense family's serving layout)")
     finally:
         stop(cell[0])
         stop(forecasts[0])
@@ -6244,7 +6575,8 @@ def main() -> int:
                    "trace_audit": audit_launches[name],
                    "dry_run": dry_run_launches[name],
                    "remat": remat_launches[name],
-                   "lm_laid_out": laid_out_launches[name]}
+                   "lm_laid_out": laid_out_launches[name],
+                   "lm_laid_out_serving": serving_launches[name]}
         extra = {}
         if name == "qmac_i8_deq":
             # the batched product is the same kernel with the experts in
@@ -6264,7 +6596,8 @@ def main() -> int:
                      "trace_audit": audit_launches,
                      "dry_run": dry_run_launches,
                      "remat": remat_launches,
-                     "lm_laid_out": laid_out_launches}
+                     "lm_laid_out": laid_out_launches,
+                     "lm_laid_out_serving": serving_launches}
             bmm = {path: c.get("qmac_i8_deq_bmm", 0)
                    for path, c in paths.items()}
             by_path = {path: v + bmm[path] for path, v in by_path.items()}

@@ -31,7 +31,11 @@ scale and a weight column's scale are maxima over the model axis
 are summed over the model axis before the dequant, exactly, so the
 output is the unsplit one bit for bit (with ``scatter``, only this
 rank's piece of it along that dimension: sequence parallelism).  The
-fp and fake-quantized branches sum their fp partials in rank order.
+fp and fake-quantized branches sum their fp partials in rank order.  A
+packed (``QTensor``) weight splits the same two ways, its blocks cut
+from the whole weight's codes and per-column scales: column-parallel
+through the fused kernel, row-parallel through the int32 kernel with
+the accumulators summed over the model axis before the dequant.
 
 ``q_batched_matmul`` is MoE's per-expert product, ``x [E, C, K] @ w [E,
 K, N]``.  Its int8 program (per-row activation codes, per-(expert,
@@ -199,16 +203,37 @@ class _QMM(torch.autograd.Function):
         return None, dx, dw, None
 
 
-def _serve_quantized(policy: QuantPolicy, x: Tensor, w: QTensor) -> Tensor:
-    """Forward with a pre-quantized (QTensor) weight: the serving path."""
+def _serve_quantized(policy: QuantPolicy, x: Tensor, w: QTensor,
+                     split: Optional[Split] = None) -> Tensor:
+    """Forward with a pre-quantized (QTensor) weight: the serving path.
+    ``split``: this rank's block of the packed weight, a block of the
+    whole weight's codes and scales (never quantized on its own).
+    Column-parallel, the rank's columns through the fused kernel (``x``
+    is whole, so its row scales are the unsplit ones).  Row-parallel,
+    the fused kernel cannot serve: the row scales are maxima over the
+    model axis, the rank's int32 accumulator (``qmac_i8``) is summed
+    over it exactly, and only then dequantized, ``(acc * sx) * sw``, as
+    the fused epilogue rounds it (dequantized partials would sum to
+    other fp32 values)."""
     cdt = policy.compute_dtype
     if policy.quantized_a and w.bits <= 8 and policy.a_bits <= 8:
-        qx, sx = quantize_rowwise(x, policy.a_bits)
-        out = qmac_ops.qmac_i8_deq(_rows(qx), _rows(sx),
-                                   w.qvalue.contiguous(),
-                                   w.scale.reshape(-1).contiguous())
-        return out.reshape(x.shape[:-1] + (w.shape[-1],)).to(cdt)
-    return _fp_dot(x, w.deq(cdt), cdt)
+        qx, sx = quantize_rowwise(x, policy.a_bits, split)
+        if split is None or not split.k:
+            out = qmac_ops.qmac_i8_deq(_rows(qx), _rows(sx),
+                                       w.qvalue.contiguous(),
+                                       w.scale.reshape(-1).contiguous())
+            return out.reshape(x.shape[:-1] + (w.shape[-1],)).to(cdt)
+        acc = qmac_ops.qmac_i8(_rows(qx), w.qvalue.contiguous())
+        acc = _reduced(acc.reshape(x.shape[:-1] + (w.shape[-1],)), split)
+        if split.scatter is not None:
+            d, n = split.scatter, acc.shape[split.scatter]
+            sx = sx.narrow(d, axes_index(split.mesh, split.k) * n, n)
+        sw = w.scale.reshape((1,) * (acc.ndim - 1) + (-1,))
+        return (acc.to(torch.float32) * sx * sw).to(cdt)
+    y = _fp_dot(x, w.deq(cdt), cdt)
+    if split is None or not split.k:
+        return y
+    return summed(y, split.mesh, split.k, split.scatter)
 
 
 def q_matmul(x: Tensor, w: Union[Tensor, QTensor],
@@ -220,9 +245,7 @@ def q_matmul(x: Tensor, w: Union[Tensor, QTensor],
     if policy is None:
         policy = QuantPolicy()
     if isinstance(w, QTensor):
-        if split is not None:
-            raise ValueError("a packed weight's product is not split")
-        return _serve_quantized(policy, x, w)
+        return _serve_quantized(policy, x, w, split)
     if not (policy.quantized_w or policy.quantized_a):
         y = _fp_dot(x, w, policy.compute_dtype)
         if split is None or not split.k:

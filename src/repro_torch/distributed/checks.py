@@ -8,7 +8,10 @@ compressed gradient mean, and one sharded value update.  The LM
 layout's: the training step on the host mesh, the MoE dispatch on a
 (data, model) mesh, the batch placement and a tree's layout, and
 ``launch.train`` fed given batches; the laid-out training step on a
-(data, model) mesh and its trace.  Inputs come in as numpy or as the
+(data, model) mesh and its trace; the laid-out serving steps (a prefill
+and decode steps on the PTQ'd blocks and the cache blocks), the split
+packed products and the sequence-split decode attention.  Inputs come
+in as numpy or as the
 port's tensors on the CPU; the mesh is the host mesh over every rank
 unless a body says otherwise.
 """
@@ -49,7 +52,7 @@ from repro_torch.rl.nets import mlp_ac_apply
 from repro_torch.rl.replay import make_replay
 from repro_torch.rl.rollout import init_envs
 from repro_torch.rl.train_steps import ValueDraws, make_sharded_value_iteration
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, path_str, tree_map
 
 
 def fleet_collects(packed, est, obs, noise, value_packed, value_est,
@@ -273,11 +276,12 @@ def laid_out_steps(cases: Dict[str, dict]) -> dict:
 
 
 def laid_out_trace(arch: str, shape: Sequence[int], seq: int, batch: int,
-                   policy: str) -> Optional[list]:
-    """One laid-out training step of the reduced ``arch`` on a ``shape``
-    (data, model) mesh over every rank, at ``batch`` rows of ``seq``
-    tokens: ``launch.steps.cell_step`` on ``cell_inputs`` drawn on the
-    CPU (each rank its own draw, at rank 0's shapes), traced by the
+                   policy: str, kind: str = "train") -> Optional[list]:
+    """One laid-out step of ``kind`` (train, prefill or decode) of the
+    reduced ``arch`` on a ``shape`` (data, model) mesh over every rank,
+    at ``batch`` rows of ``seq`` tokens (a decode step's cache
+    capacity): ``launch.steps.cell_step`` on ``cell_inputs`` drawn on
+    the CPU (each rank its own draw, at rank 0's shapes), traced by the
     costing recorder.  Rank 0 returns its records (kind, name, operand
     and output specs, view flag), the others None."""
     from repro_torch.configs.shapes import ShapeConfig
@@ -286,7 +290,7 @@ def laid_out_trace(arch: str, shape: Sequence[int], seq: int, batch: int,
     cfg = get_arch(arch).reduced()
     pol = get_policy(policy)
     mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
-    cell = ShapeConfig("laid_out", seq, batch, "train")
+    cell = ShapeConfig("laid_out", seq, batch, kind)
     args, _ = lsteps.cell_inputs(cfg, cell, mesh, pol)
     rank = torch.distributed.get_rank()
     args = lsteps.materialize(args, torch.Generator().manual_seed(rank),
@@ -294,6 +298,130 @@ def laid_out_trace(arch: str, shape: Sequence[int], seq: int, batch: int,
     program = hlo_analysis.trace(lsteps.cell_step(cfg, cell, mesh, pol),
                                  args)
     return [tuple(r[:5]) for r in program.ops] if rank == 0 else None
+
+
+def _packed_flat(tree) -> Dict[str, np.ndarray]:
+    """A tree's tensors as numpy by checkpoint key, a QTensor's payload
+    and scale under ``<path>/.qvalue`` and ``<path>/.scale``."""
+    out = {}
+    for path, leaf in leaves_with_path(tree, is_leaf=is_qtensor):
+        key = path_str(path)
+        if isinstance(leaf, QTensor):
+            out[f"{key}/.qvalue"] = as_numpy(leaf.qvalue)
+            out[f"{key}/.scale"] = as_numpy(leaf.scale)
+        else:
+            out[key] = as_numpy(leaf)
+    return out
+
+
+def laid_out_serving(cases: Dict[str, dict]) -> dict:
+    """For each case (``arch``, its reduced config's overrides
+    ``extra``, the (data, model) mesh ``shape``, ``policy``, reference
+    ``params`` whole (fp), the global ``prompts`` [B, S], the tokens
+    each decode step is fed ``fed`` [steps, B, 1], ``q_chunk``, and
+    ``layout_caches``, a whole numpy cache tree): the params PTQ'd
+    whole, this rank's blocks of them under the FSDP+TP rules and under
+    the serve rules; a laid-out prefill of its rows of the prompts, its
+    cache blocks grown by ``steps`` positions
+    (``launch.steps.pad_cache_blocks``) and ``steps`` laid-out decode
+    steps.  Returns the blocks, the prefill's and each step's logits,
+    the cache blocks after the prefill and after the last step, each
+    call's int8 codes of the dense products' inputs, and this rank's
+    blocks of ``layout_caches`` under the decode's cache shardings."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.quantizer import quantize_params
+
+    out = {}
+    for name, c in cases.items():
+        cfg = get_arch(c["arch"]).reduced().replace(q_chunk=c["q_chunk"],
+                                                   **c["extra"])
+        pol = get_policy(c["policy"])
+        mesh = make_mesh(tuple(c["shape"]), ("data", "model"), device="cpu")
+        packed = quantize_params(from_numpy_tree(c["params"], "cpu"), pol)
+        p_pre = lsteps.abstract_params(cfg, mesh, weight_ptq=pol)[1]
+        p_dec = lsteps.abstract_params(cfg, mesh, weight_ptq=pol,
+                                       serve=True)[1]
+        pre = sharding.local_shards(packed, p_pre, mesh)
+        dec = sharding.local_shards(packed, p_dec, mesh)
+        B, S = c["prompts"].shape
+        steps = len(c["fed"])
+        cap = ShapeConfig("decode", S + steps, B, "decode")
+        c_shard = lsteps.abstract_caches(cfg, cap, mesh, pol.kv_bits)[1]
+        res = {"pre": _packed_flat(pre), "dec": _packed_flat(dec),
+               "layout_caches": as_numpy(sharding.local_shards(
+                   from_numpy_tree(c["layout_caches"], "cpu"), c_shard,
+                   mesh))}
+        prefill = lsteps.make_prefill_step(cfg, mesh, pol, pol.kv_bits,
+                                           shardings=p_pre)
+        with recorded_codes(S) as rec:
+            logits, caches = prefill(pre, place({"tokens": c["prompts"]},
+                                                mesh))
+        res.update(prefill_logits=as_numpy(logits), prefill_caches=as_numpy(
+            caches), prefill_codes=as_numpy(list(rec)))
+        caches = lsteps.pad_cache_blocks(caches, S, steps, cfg, mesh)
+        decode = lsteps.make_decode_step(cfg, mesh, pol, pol.kv_bits,
+                                         shardings=p_dec,
+                                         cache_shardings=c_shard)
+        res["decode_logits"], res["decode_codes"] = [], []
+        for i in range(steps):
+            token = place({"t": c["fed"][i]}, mesh)["t"]
+            with recorded_codes(1) as rec:
+                logits, caches = decode(dec, caches, token, S + i)
+            res["decode_logits"].append(as_numpy(logits))
+            res["decode_codes"].append(as_numpy(list(rec)))
+        res["decode_caches"] = as_numpy(caches)
+        out[name] = res
+    return out
+
+
+def split_serving(x: np.ndarray, w: np.ndarray, q: np.ndarray,
+                  k: np.ndarray, v: np.ndarray, index: int,
+                  shapes: Sequence[Sequence[int]]) -> dict:
+    """The serving layout's two new pieces on each (data, model) mesh of
+    ``shapes`` over every rank: the packed product of ``x`` [B, S, K] and
+    ``w`` [K, N] (PTQ'd whole, per column) on this rank's rows,
+    column-parallel (its columns), row-parallel (its slice of the
+    contraction; the sum whole, and reduce-scattered along the
+    sequence), at w8a8; and the sequence-split decode attention of
+    every head's queries ``q`` [B, 1, H, D] on this rank's positions of
+    ``k``, ``v`` [B, T, Hk, D] at ``index`` (every head's output)."""
+    from repro_torch.nn.attention import _attend_positions, _mask_bias
+
+    pol = get_policy("w8a8")
+    packed = QTensor.quant(torch.from_numpy(w), 8, channel_axis=1)
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
+        model = ("model",)
+        m, r = shape[1], sharding.axis_index(mesh, "model")
+        xs = sharding.local_rows(torch.from_numpy(x), mesh)
+        cols = sharding.local_shards(packed, QTensor(
+            sharding.NamedSharding(mesh, sharding.P(None, "model")),
+            sharding.NamedSharding(mesh, sharding.P(None, "model"))), mesh)
+        rows = sharding.local_shards(packed, QTensor(
+            sharding.NamedSharding(mesh, sharding.P("model", None)),
+            sharding.NamedSharding(mesh, sharding.P(None, None))), mesh)
+        kk = xs.shape[-1] // m
+        x_k = xs[..., r * kk:(r + 1) * kk]
+        res = {
+            "column": qmatmul.q_matmul(xs, cols, pol, qmatmul.Split(
+                mesh, n=model)),
+            "row": qmatmul.q_matmul(x_k, rows, pol, qmatmul.Split(
+                mesh, k=model)),
+            "row_scattered": qmatmul.q_matmul(x_k, rows, pol, qmatmul.Split(
+                mesh, k=model, scatter=1))}
+        qs = sharding.local_rows(torch.from_numpy(q), mesh)
+        t = k.shape[1] // m
+        ks, vs = (sharding.local_rows(torch.from_numpy(a), mesh)[
+            :, r * t:(r + 1) * t] for a in (k, v))
+        pos = torch.full((qs.shape[0], 1), index, dtype=torch.int32)
+        k_pos = (r * t + torch.arange(t))[None].expand(qs.shape[0], t)
+        bias = _mask_bias(pos, k_pos, causal=True, window=None,
+                          valid_len=index + 1)
+        res["attend"] = _attend_positions(qs, ks, vs, bias, torch.float32,
+                                          mesh, model)
+        out["x".join(map(str, shape))] = as_numpy(res)
+    return out
 
 
 def moe_dispatch(cases: Dict[str, dict], shape: Sequence[int]) -> dict:

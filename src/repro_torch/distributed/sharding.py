@@ -583,9 +583,11 @@ def gathered_many(xs: Sequence[Tensor], mesh, axes: Sequence[str],
 
 def copied_many(xs: Sequence[Tensor], mesh, axes: Sequence[str]
                 ) -> List[Tensor]:
-    """:func:`copied` of several tensors at once: one sum back."""
+    """:func:`copied` of several tensors at once: one sum back.  A copy
+    exists for its transpose alone, so where no gradient is recorded
+    (serving) the tensors come back as they are."""
     axes = tuple(axes)
-    if axes_size(mesh, axes) == 1:
+    if axes_size(mesh, axes) == 1 or not torch.is_grad_enabled():
         return list(xs)
     return list(_CopiedMany.apply(mesh, axes, *xs))
 
@@ -659,6 +661,14 @@ def spec_for(axes, rules: Dict[str, AxisName], mesh) -> PartitionSpec:
     return P(*resolved)
 
 
+def scale_spec(spec: PartitionSpec, ndim: int) -> PartitionSpec:
+    """The spec of a QTensor's ``ndim``-dimensional scale whose payload
+    has ``spec``: the payload's last entry on its last dimension, its
+    broadcast dimensions whole."""
+    last = spec[-1] if len(spec) else None
+    return P(*([None] * (ndim - 1) + [last])) if ndim else P()
+
+
 def make_shardings(params_like, axes_tree, mesh,
                    rules: Optional[Dict[str, AxisName]] = None):
     """A :class:`NamedSharding` tree matching ``params_like`` (tensors,
@@ -672,11 +682,10 @@ def make_shardings(params_like, axes_tree, mesh,
     def one(path, leaf):
         spec = spec_for(axes_at.get(path), rules, mesh)
         if isinstance(leaf, QTensor):
-            n = leaf.scale.ndim
-            last = spec[-1] if len(spec) else None
-            s_spec = P(*([None] * (n - 1) + [last])) if n else P()
             return QTensor(NamedSharding(mesh, spec),
-                           NamedSharding(mesh, s_spec), leaf.bits)
+                           NamedSharding(mesh, scale_spec(spec,
+                                                          leaf.scale.ndim)),
+                           leaf.bits)
         return NamedSharding(mesh, spec)
 
     return map_with_path(one, params_like, is_leaf=is_qtensor)
@@ -709,7 +718,7 @@ def local_shards(tree, shardings, mesh):
     :class:`NamedSharding` (``make_shardings``'), a QTensor's payload and
     scale each under its own: the reference's addressable shard of the
     device at this rank's coordinate."""
-    return _sharded(lambda t, s: local_block(t, s, mesh), tree, shardings)
+    return map_sharded(lambda t, s: local_block(t, s, mesh), tree, shardings)
 
 
 def placements(spec: PartitionSpec, mesh: DeviceMesh):
@@ -732,7 +741,7 @@ def placements(spec: PartitionSpec, mesh: DeviceMesh):
     return out
 
 
-def _sharded(fn: Callable, tree, shardings):
+def map_sharded(fn: Callable, tree, shardings):
     """``fn(tensor, sharding)`` over the leaves of ``tree``, a QTensor's
     payload and scale each with its own sharding."""
     at = dict(leaves_with_path(shardings, is_leaf=is_qtensor))
@@ -752,7 +761,7 @@ def distribute(tree, shardings):
     :class:`NamedSharding`: each rank keeps its shard of its own copy
     (no data moves)."""
     from torch.distributed.tensor import distribute_tensor
-    return _sharded(lambda t, s: distribute_tensor(
+    return map_sharded(lambda t, s: distribute_tensor(
         t, s.mesh, placements(s.spec, s.mesh), src_data_rank=None), tree,
         shardings)
 
@@ -828,35 +837,58 @@ class Layout:
     def gather(self, tree, axes_tree, model_summed: Sequence = ()):
         """Every leaf of ``tree`` (this rank's blocks) gathered whole
         over the data axes, along the dimension whose logical axis the
-        rules lay there, all in one buffer (:func:`gathered_many`: the
-        gradients come back reduce-scattered over the slots in one
-        exchange).  The leaves whose paths are in ``model_summed`` are
-        first :func:`copied_many` over the model axis, where each model
-        rank reads them for its own heads (or sequence piece) alone."""
+        rules lay there, a buffer for each dtype (:func:`gathered_many`:
+        the gradients come back reduce-scattered over the slots in one
+        exchange).  A packed leaf (QTensor) is gathered as its int8
+        payload and its scale, each along its own spec's dimension
+        (:func:`scale_spec`), beside the other leaves of their dtypes:
+        no packed weight is dequantized to travel.  The leaves whose
+        paths are in ``model_summed`` are first :func:`copied_many` over
+        the model axis, where each model rank reads them for its own
+        heads (or sequence piece) alone."""
         at = dict(leaves_with_path(axes_tree, is_leaf=is_axes))
         dax = data_axes(self.mesh)
-        xs = dict(leaves_with_path(tree))
+        xs = dict(leaves_with_path(tree, is_leaf=is_qtensor))
         wanted = {tuple(p) for p in model_summed}
-        summed_paths = [p for p in xs if p in wanted]
+        summed_paths = [p for p in xs if p in wanted
+                        and not isinstance(xs[p], QTensor)]
         xs.update(zip(summed_paths, copied_many(
             [xs[p] for p in summed_paths], self.mesh, self.model)))
-        # the leaves over each set of data axes, gathered as one buffer
-        groups: Dict[Tuple[str, ...], list] = {}
-        for path in list(xs):
+        # every tensor with its spec, a QTensor's payload and scale apart
+        parts: Dict[tuple, Tuple[Tensor, PartitionSpec]] = {}
+        for path, x in xs.items():
             spec = spec_for(at.get(path), self.rules, self.mesh)
+            if isinstance(x, QTensor):
+                parts[path + (".qvalue",)] = (x.qvalue, spec)
+                parts[path + (".scale",)] = (
+                    x.scale, scale_spec(spec, x.scale.ndim))
+            else:
+                parts[path] = (x, spec)
+        # the tensors over each set of data axes, one buffer a dtype
+        groups: Dict[tuple, list] = {}
+        for key, (x, spec) in parts.items():
             dims = [(d, tuple(a for a in axes if a in dax))
                     for d, axes in enumerate(spec_axes(spec))]
             dims = [(d, over) for d, over in dims if over]
             if len(dims) > 1:
-                raise ValueError(f"{path} lies over the data axes twice")
+                raise ValueError(f"{key} lies over the data axes twice")
             if dims:
-                groups.setdefault(dims[0][1], []).append((path, dims[0][0]))
-        for over, members in groups.items():
-            paths = [p for p, _ in members]
-            xs.update(zip(paths, gathered_many(
-                [xs[p] for p in paths], self.mesh, over,
+                groups.setdefault((dims[0][1], x.dtype), []).append(
+                    (key, dims[0][0]))
+        out = {key: x for key, (x, _) in parts.items()}
+        for (over, _), members in groups.items():
+            keys = [k for k, _ in members]
+            out.update(zip(keys, gathered_many(
+                [out[k] for k in keys], self.mesh, over,
                 [d for _, d in members], dax)))
-        return map_with_path(lambda path, _t: xs[path], tree)
+
+        def whole(path, leaf):
+            if isinstance(leaf, QTensor):
+                return QTensor(out[path + (".qvalue",)],
+                               out[path + (".scale",)], leaf.bits)
+            return out[path]
+
+        return map_with_path(whole, tree, is_leaf=is_qtensor)
 
     def enter(self, x: Tensor, seq_dim: Optional[int]) -> Tensor:
         """``x`` (whole over the model axis, or, with ``seq_dim``, this

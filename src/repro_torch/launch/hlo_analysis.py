@@ -132,7 +132,12 @@ def trace(step: Callable, args: Sequence, layout_argument_bytes: int = 0
             raise
         op, where = rec.failed_op
         raise RuntimeError(f"{op} at {where}: {e}") from e
-    return Program(rec.records, _unique_bytes(_tensor_leaves(list(args))),
+    # a Python int argument (a decode step's index) is the reference's
+    # int32 scalar
+    scalars = sum(4 for leaf in tree_leaves(list(args))
+                  if isinstance(leaf, int) and not isinstance(leaf, bool))
+    return Program(rec.records,
+                   _unique_bytes(_tensor_leaves(list(args))) + scalars,
                    _unique_bytes(_tensor_leaves(out)), rec.peak_bytes,
                    layout_argument_bytes)
 

@@ -24,6 +24,14 @@ reaches its rank reduce-scattered over the slots in slot order; one
 whole on every slot is summed over them as a reduce-scatter and an
 all-gather of its pieces.  No rank gathers a whole leaf.
 
+``make_prefill_step(..., shardings=p_shard)`` and
+``make_decode_step(..., shardings=p_shard, cache_shardings=c_shard)``
+are the reference's serving steps jitted with their ``in_shardings``
+(the dense family): each rank holds its blocks of the PTQ'd params, a
+prefill under the FSDP+TP rules and a decode step under the serve
+rules, and a decode step its blocks of the caches under
+``cache_shardings``; a prefill returns its caches as those blocks.
+
 ``cache_shardings`` and ``batch_shardings`` give the reference's specs
 of the serving caches and the inputs.  ``abstract_params``,
 ``abstract_opt_state`` and ``abstract_caches`` give the trees as
@@ -44,11 +52,13 @@ from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.fxp import QTensor, div_scalar, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.distributed.sharding import (NamedSharding, P, axes_size,
-                                              batch_spec, data_axes,
-                                              data_axis_size, gather_rows,
+                                              axis_index, batch_spec,
+                                              data_axes, data_axis_size,
+                                              gather_over, gather_rows,
                                               local_rows, make_shardings,
-                                              mesh_rules, mesh_shape, psum,
-                                              psum_pieces, spec_axes)
+                                              map_sharded, mesh_rules,
+                                              mesh_shape, psum, psum_pieces,
+                                              spec_axes)
 from repro_torch.models.registry import (input_specs, model_for,
                                          sharding_rules)
 from repro_torch.nn.module import eval_shape
@@ -68,6 +78,16 @@ def _rules(cfg: ArchConfig, mesh, serve: bool = False) -> Dict:
 # ---------------------------------------------------------------------------
 # specs of the caches and inputs
 # ---------------------------------------------------------------------------
+
+def _kv_split(cfg: ArchConfig, capacity: int, model_n: int
+              ) -> Optional[str]:
+    """What of a KV cache of ``capacity`` positions lies over the model
+    axis: ``"heads"`` where the kv heads divide it, else ``"seq"`` where
+    the capacity does (flash-decoding), else None."""
+    if cfg.n_kv_heads and cfg.n_kv_heads % model_n == 0:
+        return "heads"
+    return "seq" if capacity % model_n == 0 else None
+
 
 def cache_shardings(caches, cfg: ArchConfig, batch: int, mesh):
     """Specs of the serving state, by leaf name:
@@ -92,15 +112,14 @@ def cache_shardings(caches, cfg: ArchConfig, batch: int, mesh):
         ax: list = [None] * nd
         if name in ("k", "v", "k_scale", "v_scale"):
             ax[nd - 4] = dax
-            if cfg.n_kv_heads and cfg.n_kv_heads % model_n == 0:
+            split = _kv_split(cfg, leaf.shape[nd - 3], model_n)
+            if split == "heads":
                 ax[nd - 2] = "model"
-            elif leaf.shape[nd - 3] % model_n == 0:
+            elif split == "seq":
                 ax[nd - 3] = "model"
         elif name == "pos":
             ax[nd - 2] = dax
-            if leaf.shape[nd - 1] % model_n == 0 and \
-                    not (cfg.n_kv_heads and
-                         cfg.n_kv_heads % model_n == 0):
+            if _kv_split(cfg, leaf.shape[nd - 1], model_n) == "seq":
                 ax[nd - 1] = "model"
         elif name == "ssm":
             ax[nd - 4] = dax
@@ -117,6 +136,46 @@ def cache_shardings(caches, cfg: ArchConfig, batch: int, mesh):
         return NamedSharding(mesh, P(*ax))
 
     return map_with_path(spec, caches)
+
+
+def _cache_seq(cache_shards):
+    """The rules' ``cache_seq`` entry for caches laid out by
+    ``cache_shards`` (``nn.attention.kv_split`` reads it): the mesh axis
+    the keys' sequence lies over, or None."""
+    for path, s in leaves_with_path(
+            cache_shards, is_leaf=lambda x: isinstance(x, NamedSharding)):
+        if str(path[-1]) == "k":
+            return s.spec[-3]
+    raise ValueError("the cache shardings hold no 'k' leaf")
+
+
+def pad_cache_blocks(caches, prompt_len: int, extra: int,
+                     cfg: ArchConfig, mesh):
+    """``launch.serve.pad_caches`` on a rank's blocks (a laid-out
+    prefill's, ``prompt_len`` positions): the blocks of the caches grown
+    by ``extra`` zero positions, under the grown caches'
+    ``cache_shardings``.  Where the sequence lies over the model axis
+    the split's boundaries move with the capacity, so each block is
+    gathered over that axis, grown, and cut to this rank's positions of
+    the new capacity; kv heads split over it stay where they are."""
+    model_n = mesh_shape(mesh).shape.get("model", 1)
+    old = _kv_split(cfg, prompt_len, model_n)
+    new = _kv_split(cfg, prompt_len + extra, model_n)
+
+    def grow(t):
+        if old == "seq" and model_n > 1:
+            t = torch.cat(gather_over(t.contiguous(), mesh, ("model",)),
+                          dim=-3)
+        shape = list(t.shape)
+        shape[-3] = extra
+        t = torch.cat([t, t.new_zeros(shape)], dim=-3)
+        if new == "seq" and model_n > 1:
+            n = t.shape[-3] // model_n
+            t = t.narrow(-3, axis_index(mesh, "model") * n, n).clone()
+        return t
+
+    return {k: grow(v) if k in ("k", "v", "k_scale", "v_scale") else v
+            for k, v in caches.items()}
 
 
 def batch_shardings(specs: Dict, mesh) -> Dict:
@@ -151,9 +210,15 @@ def _slot_microbatches(batch, mesh, k: int):
 
 
 def laid_out(cfg: ArchConfig) -> bool:
-    """Whether ``make_train_step`` takes ``shardings`` for ``cfg``: the
-    dense decoders.  The other families keep the whole-param step."""
+    """Whether the steps take ``shardings`` for ``cfg``: the dense
+    decoders.  The other families keep the whole-param steps."""
     return cfg.family == "dense"
+
+
+def _check_laid_out(cfg: ArchConfig, mesh) -> None:
+    if mesh is None or not laid_out(cfg):
+        raise ValueError(f"{cfg.name}: a laid-out step takes a mesh and a "
+                         "dense decoder")
 
 
 def _split_axes(shardings, mesh):
@@ -188,9 +253,7 @@ def make_train_step(cfg: ArchConfig, mesh,
     rules = _rules(cfg, mesh)
     sched = schedule or warmup_cosine(3e-4, 100, 10_000)
     if shardings is not None:
-        if mesh is None or not laid_out(cfg):
-            raise ValueError(f"{cfg.name}: a laid-out step takes a mesh "
-                             "and a dense decoder")
+        _check_laid_out(cfg, mesh)
         split = _split_axes(shardings, mesh)
 
     def _compute_cast(params):
@@ -284,13 +347,33 @@ def make_train_step(cfg: ArchConfig, mesh,
 
 def make_prefill_step(cfg: ArchConfig, mesh,
                       policy: Optional[QuantPolicy],
-                      kv_bits: int = 32) -> Callable:
+                      kv_bits: int = 32, shardings=None) -> Callable:
+    """``prefill_step(params, batch) -> (last-position logits, caches)``
+    on this rank's rows of ``batch``, under the FSDP+TP rules.
+
+    ``shardings`` (``make_shardings``' tree of the PTQ'd params under
+    those rules, on ``mesh``): the params are this rank's blocks under
+    it (a dense decoder, :func:`laid_out`).  The logits are this rank's
+    rows, whole over the vocabulary, and the caches this rank's blocks
+    under ``cache_shardings`` of the prefill's own caches (the prompt's
+    length): the reference leaves the prefill's output layout to XLA,
+    and its decode step's ``in_shardings`` fix what it must be, so the
+    prefill returns that (:func:`pad_cache_blocks` grows them for a
+    decode)."""
     model = model_for(cfg)
     rules = _rules(cfg, mesh)
+    if shardings is not None:
+        _check_laid_out(cfg, mesh)
+        model_n = mesh_shape(mesh).shape.get("model", 1)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        with mesh_rules(mesh, rules):
+        step_rules = rules
+        if shardings is not None:
+            seq = _kv_split(cfg, batch["tokens"].shape[1], model_n)
+            step_rules = dict(rules, cache_seq="model" if seq == "seq"
+                              else None)
+        with mesh_rules(mesh, step_rules, laid_out=shardings is not None):
             if cfg.is_encdec:
                 return model.prefill(params, batch, cfg, policy, kv_bits)
             return model.prefill(params, batch["tokens"], cfg, policy,
@@ -301,13 +384,30 @@ def make_prefill_step(cfg: ArchConfig, mesh,
 
 def make_decode_step(cfg: ArchConfig, mesh,
                      policy: Optional[QuantPolicy],
-                     kv_bits: int = 32) -> Callable:
+                     kv_bits: int = 32, shardings=None,
+                     cache_shardings=None) -> Callable:
+    """``decode_step(params, caches, token, index) -> (logits, caches)``
+    on this rank's rows, under the serve rules (no FSDP: the weights'
+    ``d_model`` lies over no data axis).
+
+    ``shardings`` (``make_shardings``' tree of the PTQ'd params under
+    the serve rules) with ``cache_shardings`` (``cache_shardings``' tree
+    of the caches): the params and the caches are this rank's blocks
+    under them (a dense decoder, :func:`laid_out`), the caches updated
+    in place; the logits this rank's rows, whole over the vocabulary."""
     model = model_for(cfg)
     rules = _rules(cfg, mesh, serve=True)
+    laid = shardings is not None or cache_shardings is not None
+    if laid:
+        if shardings is None or cache_shardings is None:
+            raise ValueError("a laid-out decode step takes the params' and "
+                             "the caches' shardings")
+        _check_laid_out(cfg, mesh)
+        rules = dict(rules, cache_seq=_cache_seq(cache_shardings))
 
     @torch.no_grad()
     def decode_step(params, caches, token, index):
-        with mesh_rules(mesh, rules):
+        with mesh_rules(mesh, rules, laid_out=laid):
             return model.decode_step(params, token, caches, index, cfg,
                                      policy, kv_bits)
 
@@ -399,14 +499,13 @@ def layout_bytes(tree, shardings) -> int:
 
 
 def rank_blocks(tree, shardings, axes=None):
-    """``tree`` (meta tensors, whole) as a rank holds its blocks under
+    """``tree`` (meta tensors, whole; a QTensor's payload and scale each
+    under its own sharding) as a rank holds its blocks under
     ``shardings``: every dimension divided by the mesh axes its spec
     names (of ``axes`` only, when given)."""
-    at = dict(leaves_with_path(
-        shardings, is_leaf=lambda x: isinstance(x, NamedSharding)))
-    return map_with_path(lambda path, t: torch.empty(
-        _shard_shape(t.shape, at[path], axes), dtype=t.dtype,
-        device="meta"), tree)
+    return map_sharded(lambda t, s: torch.empty(
+        _shard_shape(t.shape, s, axes), dtype=t.dtype, device="meta"),
+        tree, shardings)
 
 
 def rank_rows(tree, shardings, mesh):
@@ -424,22 +523,41 @@ STEP_NAMES = {"train": "train_step", "prefill": "prefill_step",
               "decode": "serve_step"}
 
 
+def _served_weights(cfg: ArchConfig, policy: Optional[QuantPolicy]
+                    ) -> Optional[QuantPolicy]:
+    """The PTQ a serving cell's weights take: the policy's, but an
+    MoE's (its packed experts' scales do not lead with the layer count,
+    and neither package's layer walk takes them)."""
+    return policy if (policy and policy.quantized_w and not cfg.is_moe) \
+        else None
+
+
 def cell_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
               policy: Optional[QuantPolicy] = None) -> Callable:
     """The step a cell runs, with the reference's choices: a training
     cell at ``seq_len <= 8192`` with two or more microbatches attends
-    unchunked (``q_chunk=None``), a dense decoder's training step runs
-    laid out on the params' shardings, serving steps quantize the KV
-    cache at the policy's ``kv_bits``."""
+    unchunked (``q_chunk=None``), a dense decoder's steps run laid out
+    on the params' shardings (a prefill on the PTQ'd params' under the
+    FSDP+TP rules, a decode step on the serve rules' and the caches'),
+    serving steps quantize the KV cache at the policy's ``kv_bits``."""
     kv_bits = policy.kv_bits if policy else 32
     if shape.kind == "train":
         if shape.seq_len <= 8192 and cfg.microbatches >= 2:
             cfg = cfg.replace(q_chunk=None)
         p_shard = abstract_params(cfg, mesh)[1] if laid_out(cfg) else None
         return make_train_step(cfg, mesh, policy, shardings=p_shard)
+    ptq = _served_weights(cfg, policy)
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, mesh, policy, kv_bits)
-    return make_decode_step(cfg, mesh, policy, kv_bits)
+        p_shard = abstract_params(cfg, mesh, weight_ptq=ptq)[1] \
+            if laid_out(cfg) else None
+        return make_prefill_step(cfg, mesh, policy, kv_bits,
+                                 shardings=p_shard)
+    if not laid_out(cfg):
+        return make_decode_step(cfg, mesh, policy, kv_bits)
+    return make_decode_step(
+        cfg, mesh, policy, kv_bits,
+        shardings=abstract_params(cfg, mesh, weight_ptq=ptq, serve=True)[1],
+        cache_shardings=abstract_caches(cfg, shape, mesh, kv_bits)[1])
 
 
 def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -448,11 +566,12 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     tensors; their bytes a device under the reference's layout).
 
     The inputs are ``input_specs`` laid out as ``data.place`` lays them
-    on the rank (its rows over the data axes).  A dense decoder's
-    training step holds the rank's blocks of the params and AdamW's
-    state under their shardings, as the reference lays them out (so the
-    traced arguments are the layout's bytes); every other step holds
-    them whole, as the port's steps do.
+    on the rank (its rows over the data axes).  A dense decoder's steps
+    hold the rank's blocks of the params (and AdamW's state in
+    training, the caches in decode) under their shardings, as the
+    reference lays them out, so the traced arguments are the layout's
+    bytes; every other step holds them whole, as the port's steps do,
+    and its caches' rows.
     Serving steps take PTQ'd weights, but an MoE's: its packed experts'
     scales do not lead with the layer count, and neither package's layer
     walk takes them (the reference's dry run fails there), so an MoE
@@ -462,28 +581,27 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     ms = mesh_shape(mesh)
     specs = input_specs(cfg, shape)
     in_shard = batch_shardings(specs, ms)
-    serve = shape.kind != "train"
-    ptq = policy if (serve and policy and policy.quantized_w
-                     and not cfg.is_moe) else None
+    ptq = _served_weights(cfg, policy) if shape.kind != "train" else None
     abs_params, p_shard = abstract_params(cfg, ms, dtype, weight_ptq=ptq,
                                           serve=shape.kind == "decode")
     batch = rank_rows(specs, in_shard, ms)
+    params = rank_blocks(abs_params, p_shard) if laid_out(cfg) \
+        else abs_params
     if shape.kind == "train":
         abs_opt, o_shard = abstract_opt_state(abs_params, p_shard, ms)
-        args = (abs_params, abs_opt)
-        if laid_out(cfg):
-            args = rank_blocks(args, (p_shard, o_shard))
-        return args + (batch,), layout_bytes(
+        opt = rank_blocks(abs_opt, o_shard) if laid_out(cfg) else abs_opt
+        return (params, opt, batch), layout_bytes(
             (abs_params, abs_opt, specs), (p_shard, o_shard, in_shard))
     if shape.kind == "prefill":
-        return (abs_params, batch), layout_bytes((abs_params, specs),
-                                                 (p_shard, in_shard))
+        return (params, batch), layout_bytes((abs_params, specs),
+                                             (p_shard, in_shard))
     kv_bits = policy.kv_bits if policy else 32
-    caches, c_shard = abstract_caches(cfg, shape, ms, kv_bits, dtype)
-    args = (abs_params, rank_rows(caches, c_shard, ms), batch["token"],
-            shape.seq_len - 1)
+    abs_caches, c_shard = abstract_caches(cfg, shape, ms, kv_bits, dtype)
+    caches = rank_blocks(abs_caches, c_shard) if laid_out(cfg) \
+        else rank_rows(abs_caches, c_shard, ms)
+    args = (params, caches, batch["token"], shape.seq_len - 1)
     # the index: one int32 scalar, replicated
-    return args, layout_bytes((abs_params, caches, specs),
+    return args, layout_bytes((abs_params, abs_caches, specs),
                               (p_shard, c_shard, in_shard)) + 4
 
 
@@ -497,7 +615,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
     this process is the mesh's rank 0 and no process group is touched.
     The step is :func:`cell_step`'s, its inputs :func:`cell_inputs`'
     (``meta["laid_out"]``: the step runs on rank 0's blocks of the
-    params, a dense decoder's training step).
+    params, a dense decoder's step of any kind).
     ``donate`` is the reference's; the port donates nothing."""
     del donate
     from repro_torch.launch import hlo_analysis
@@ -508,7 +626,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
                                  layout)
     return program, {"step": STEP_NAMES[shape.kind],
                      "inputs": input_specs(cfg, shape),
-                     "laid_out": shape.kind == "train" and laid_out(cfg)}
+                     "laid_out": laid_out(cfg)}
 
 
 def materialize(tree, gen: torch.Generator, vocab: int):

@@ -17,17 +17,25 @@ nothing saveable): the backward recomputes it from the block's input.
 reference's ``distributed.sharding.constrain`` layout hints stand at
 its sites; on a rank's plain tensors they return their input.
 
-A laid-out training step (``distributed.sharding.layout``; the dense
-family) holds this rank's blocks of the params as ``make_shardings``
-lays them out, and computes on them as the reference's partitioned
-program does: each layer's weights are gathered over the data axes
-inside its (rematerialised) body, so the recompute gathers them again
-and each gradient is reduce-scattered over the slots; the attention
-runs on the rank's heads and the MLP on its ``d_ff`` columns
-(column-parallel in, row-parallel out), the embedding and the head are
-vocab-parallel, and under ``cfg.seq_shard`` the residual stream holds
-the rank's piece of the sequence, gathered before each sub-block and
-reduce-scattered after it (the reference's ``constrain`` sites).
+A laid-out step (``distributed.sharding.layout``; the dense family)
+holds this rank's blocks of the params as ``make_shardings`` lays them
+out, and computes on them as the reference's partitioned program does:
+each layer's weights are gathered over the data axes inside its
+(rematerialised) body, so the recompute gathers them again and each
+gradient is reduce-scattered over the slots; the attention runs on the
+rank's heads and the MLP on its ``d_ff`` columns (column-parallel in,
+row-parallel out), the embedding and the head are vocab-parallel, and
+under ``cfg.seq_shard`` the residual stream holds the rank's piece of
+the sequence, gathered before each sub-block and reduce-scattered after
+it (the reference's ``constrain`` sites).  The serving steps run the
+same block body (:func:`_block`) on the PTQ'd blocks: a prefill under
+the FSDP+TP rules (its weights gathered over the data axes, packed; its
+residual stream split along the sequence under ``cfg.seq_shard``), a
+decode step under the serve rules (nothing over the data axes, one
+token and no sequence split), each on its block of the KV cache
+(``nn.attention.kv_split``); their logits are this rank's rows, whole
+over the vocabulary (the head's columns gathered over the model axis,
+as sampling reads them).
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from repro_torch.configs.base import ArchConfig, pad_vocab
 from repro_torch.core.fxp import QTensor, is_qtensor
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import Layout, constrain, layout
+from repro_torch.distributed.sharding import (Layout, constrain, gather_over,
+                                              layout)
 from repro_torch.models.common import (chunked_ce, logits_from_hidden,
                                        stack_axes, stack_init)
 from repro_torch.nn.attention import (AttnConfig, attention_apply,
@@ -95,11 +104,12 @@ def _seq(lay: Optional[Layout]) -> Optional[int]:
     return 1 if lay is not None and lay.split("seq") else None
 
 
-def _seq_norms(lay: Layout, *names: str):
+def _seq_norms(seq: Optional[int], *names: str):
     """The paths of the norm scales ``names`` where each model rank reads
-    them for its own piece of the sequence (sequence parallelism): their
-    gradients are its partials, summed over the model axis."""
-    return [(n, "scale") for n in names] if _seq(lay) else []
+    them for its own piece of the sequence (sequence parallelism,
+    ``seq`` its dimension): their gradients are its partials, summed
+    over the model axis."""
+    return [(n, "scale") for n in names] if seq else []
 
 
 def _whole(h: Tensor, lay: Optional[Layout], seq: Optional[int]) -> Tensor:
@@ -111,47 +121,60 @@ def _whole(h: Tensor, lay: Optional[Layout], seq: Optional[int]) -> Tensor:
     return lay.enter(h, seq)
 
 
-def _block_apply(p, x, cfg: ArchConfig, policy, positions,
-                 lay: Optional[Layout] = None):
-    # the reference's layout: the residual stream over "seq" (sequence
-    # parallelism), gathered before the attention and the FFN.  On a
-    # laid-out step ``p`` is this rank's blocks of the layer, gathered
-    # over the data axes first; the attention and the MLP split over the
-    # model axis, their row-parallel sums reduce-scattered along ``seq``
-    acfg = attn_config(cfg)
-    seq = _seq(lay)
+def _block(p, x, cfg: ArchConfig, policy, lay: Optional[Layout],
+           seq: Optional[int], attend):
+    """One block: ``x + attention``, then ``+ FFN``, each on the normed
+    stream; ``attend(p_attn, h)`` gives the attention's output and its
+    cache (or None).  The reference's layout: the residual stream over
+    "seq" (sequence parallelism, dimension ``seq``), gathered before
+    the attention and the FFN.  On a laid-out step ``p`` is this rank's
+    blocks of the layer, gathered over the data axes first; the
+    attention and the MLP split over the model axis, their row-parallel
+    sums reduce-scattered along ``seq``."""
     if lay is not None:
-        p = lay.gather(p, _block_axes(cfg), _seq_norms(lay, "ln1", "ln2") + [
-            ("attn",) + path for path in model_summed(acfg, lay)])
+        p = lay.gather(p, _block_axes(cfg), _seq_norms(seq, "ln1", "ln2") + [
+            ("attn",) + path for path in model_summed(attn_config(cfg), lay)])
     x = constrain(x, ("batch", "seq", None))
-    h = _whole(rmsnorm_apply(p["ln1"], x), lay, seq)
+    a, cache = attend(p["attn"], _whole(rmsnorm_apply(p["ln1"], x), lay,
+                                        seq))
+    x = x + constrain(a, ("batch", "seq", None))
     # no name holds the attention's output past the sum: it is freed
     # before the FFN runs
-    x = x + constrain(attention_apply(p["attn"], h, acfg, policy,
-                                      positions=positions, scatter=seq),
-                      ("batch", "seq", None))
+    del a
     h = _whole(rmsnorm_apply(p["ln2"], x), lay, seq)
     return x + constrain(_ffn(p, h, cfg, policy, seq),
-                         ("batch", "seq", None))
+                         ("batch", "seq", None)), cache
 
 
-def _block_prefill(p, x, cfg, policy, positions, kv_bits):
-    h = rmsnorm_apply(p["ln1"], x)
-    a, cache = attention_apply(p["attn"], h, attn_config(cfg), policy,
-                               positions=positions, return_cache=True,
-                               kv_bits=kv_bits)
-    x = x + a
-    h = rmsnorm_apply(p["ln2"], x)
-    return x + _ffn(p, h, cfg, policy), cache
+def _block_apply(p, x, cfg: ArchConfig, policy, positions,
+                 lay: Optional[Layout] = None):
+    """The training/scoring block (:func:`_block`)."""
+    acfg = attn_config(cfg)
+    seq = _seq(lay)
+    return _block(p, x, cfg, policy, lay, seq, lambda pa, h: (
+        attention_apply(pa, h, acfg, policy, positions=positions,
+                        scatter=seq), None))[0]
 
 
-def _block_decode(p, x, cfg, policy, cache, index, kv_bits):
-    h = rmsnorm_apply(p["ln1"], x)
-    a, cache = attention_decode(p["attn"], h, attn_config(cfg), cache,
-                                index, policy, kv_bits=kv_bits)
-    x = x + a
-    h = rmsnorm_apply(p["ln2"], x)
-    return x + _ffn(p, h, cfg, policy), cache
+def _block_prefill(p, x, cfg, policy, positions, kv_bits,
+                   lay: Optional[Layout] = None):
+    """The prefill block (:func:`_block`): its output and its KV cache
+    (on a laid-out step, this rank's block of it)."""
+    acfg = attn_config(cfg)
+    seq = _seq(lay)
+    return _block(p, x, cfg, policy, lay, seq, lambda pa, h: attention_apply(
+        pa, h, acfg, policy, positions=positions, return_cache=True,
+        kv_bits=kv_bits, scatter=seq))
+
+
+def _block_decode(p, x, cfg, policy, cache, index, kv_bits,
+                  lay: Optional[Layout] = None):
+    """The decode block (:func:`_block`): one token, no sequence split;
+    the cache (this rank's block of it) updated in place."""
+    acfg = attn_config(cfg)
+    return _block(p, x, cfg, policy, lay, None, lambda pa, h:
+                  attention_decode(pa, h, acfg, cache, index, policy,
+                                   kv_bits=kv_bits))
 
 
 def _unbind(leaf):
@@ -257,8 +280,9 @@ def _positions(tokens: Tensor) -> Tensor:
 def _gather_top(params, cfg: ArchConfig, lay: Optional[Layout]):
     """On a laid-out step, ``params`` with the leaves outside the layer
     stack (embedding, final norm, head) gathered over the data axes in
-    one buffer; the stack stays this rank's blocks, gathered a layer at
-    a time inside :func:`_block_apply`.  Else ``params`` as they are."""
+    one buffer a dtype; the stack stays this rank's blocks, gathered a
+    layer at a time inside :func:`_block`.  Else ``params`` as they
+    are."""
     if lay is None:
         return params
     if cfg.is_moe or cfg.tie_embeddings:
@@ -267,8 +291,21 @@ def _gather_top(params, cfg: ArchConfig, lay: Optional[Layout]):
     axes = param_axes(cfg)
     top = lay.gather({k: v for k, v in params.items() if k != "blocks"},
                      {k: v for k, v in axes.items() if k != "blocks"},
-                     _seq_norms(lay, "ln_f"))
+                     _seq_norms(_seq(lay), "ln_f"))
     return dict(top, blocks=params["blocks"])
+
+
+def _served_logits(params, x: Tensor, cfg: ArchConfig, policy,
+                   lay: Optional[Layout]) -> Tensor:
+    """The head's logits of ``x``, whole over the vocabulary: on a
+    laid-out step the vocab-parallel head's columns gathered over the
+    model axis, as sampling reads them."""
+    logits = _head(params, x, cfg, policy)
+    vocab = lay.split("vocab") if lay is not None else ()
+    if not vocab:
+        return logits
+    return torch.cat(gather_over(logits.contiguous(), lay.mesh, vocab),
+                     dim=-1)
 
 
 def forward(params, tokens: Tensor, cfg: ArchConfig,
@@ -333,28 +370,42 @@ def stack_caches(caches):
 
 def prefill(params, tokens: Tensor, cfg: ArchConfig,
             policy: Optional[QuantPolicy] = None, kv_bits: int = 32):
-    """Prefill: (last-position logits [B, V], stacked caches)."""
+    """Prefill: (last-position logits [B, V], stacked caches).  On a
+    laid-out step (``sharding.layout``): this rank's rows, from its
+    blocks of the PTQ'd params, and its blocks of the caches; under
+    ``cfg.seq_shard`` the last position comes from the model rank
+    holding the sequence's last piece."""
+    lay = layout()
+    params = _gather_top(params, cfg, lay)
+    seq = _seq(lay)
     blocks = layers(params["blocks"], cfg.n_layers)
-    x = _embed(params, tokens, policy)
+    x = _embed(params, tokens, policy, seq)
     positions = _positions(tokens)
     caches = []
     for p in blocks:
-        x, cache = _block_prefill(p, x, cfg, policy, positions, kv_bits)
+        x, cache = _block_prefill(p, x, cfg, policy, positions, kv_bits,
+                                  lay)
         caches.append(cache)
-    x = rmsnorm_apply(params["ln_f"], x[:, -1:])
-    return _head(params, x, cfg, policy)[:, 0], stack_caches(caches)
+    x = lay.enter(x[:, -1:], seq)[:, -1:] if seq else x[:, -1:]
+    x = rmsnorm_apply(params["ln_f"], x)
+    return _served_logits(params, x, cfg, policy, lay)[:, 0], \
+        stack_caches(caches)
 
 
 def decode_step(params, token: Tensor, caches, index: int,
                 cfg: ArchConfig, policy: Optional[QuantPolicy] = None,
                 kv_bits: int = 32):
     """One decode step: token [B, 1] -> (logits [B, V], caches).  Each
-    layer's cache is a view of the stacked one, updated in place."""
+    layer's cache is a view of the stacked one, updated in place.  On a
+    laid-out step (``sharding.layout``): this rank's rows from its
+    blocks of the params and of the caches."""
+    lay = layout()
+    params = _gather_top(params, cfg, lay)
     blocks = layers(params["blocks"], cfg.n_layers)
     x = _embed(params, token, policy)
     for i, p in enumerate(blocks):
         x, _ = _block_decode(p, x, cfg, policy,
                              {k: v[i] for k, v in caches.items()}, index,
-                             kv_bits)
+                             kv_bits, lay)
     x = rmsnorm_apply(params["ln_f"], x)
-    return _head(params, x, cfg, policy)[:, 0], caches
+    return _served_logits(params, x, cfg, policy, lay)[:, 0], caches

@@ -27,6 +27,18 @@ Differences from the reference, none of them in a result:
   heads stay whole on every model rank (their count does not divide the
   model axis), the rank projects them all and keeps the kv groups of its
   own q heads (:func:`kv_groups`);
+* a laid-out serving step's KV cache lies as ``launch.steps.
+  cache_shardings`` lays it (:func:`kv_split`): its kv heads over the
+  model axis with the q heads, so a rank attends alone, or, where the
+  kv heads do not divide the axis, its sequence (flash-decoding): a
+  rank holds every kv head at its own positions, a decode step gathers
+  the queries of every head, scores them on those positions, and the
+  softmax's max, its sum and the value contraction's partials are
+  reduced over the model axis (the sums in fp64, rounded once after
+  them, as ``core.exact`` rounds the whole-cache program's); the rank
+  that owns a new position alone writes it.  A prefill writes each
+  rank's block of its cache, slicing positions where the sequence is
+  split;
 * the q-chunked path loops over chunks in Python.  Under autograd each
   chunk is rematerialised (``nn.remat.checkpoint``, the reference's
   ``jax.checkpoint(block)``): the backward recomputes its scores rather
@@ -45,7 +57,8 @@ from repro_torch.core import exact
 from repro_torch.core.fxp import div_scalar, fxp_dtype, fxp_qmax
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.distributed.sharding import (Layout, axes_index, axes_size,
-                                              constrain, layout)
+                                              constrain, gather_over, layout,
+                                              pmax, psum)
 from repro_torch.nn.linear import linear_apply, linear_axes, linear_init
 from repro_torch.nn.module import ones_init
 from repro_torch.nn.norm import rmsnorm_apply
@@ -298,6 +311,31 @@ def kv_groups(cfg: AttnConfig, lay: Layout) -> Optional[Tuple[int, int]]:
     return first // group, (first + per - 1) // group + 1
 
 
+def kv_split(cfg: AttnConfig, lay: Optional[Layout]) -> Optional[str]:
+    """How a laid-out serving step's KV cache lies over the model axis
+    (``launch.steps.cache_shardings``): ``"heads"`` where its kv heads
+    are split with the q heads, ``"seq"`` where its sequence is (the
+    rules' ``cache_seq``), None where every model rank holds it whole,
+    or off a laid-out step."""
+    if lay is None or cfg.cross:
+        return None
+    if lay.split("kv_heads"):
+        return "heads"
+    return "seq" if lay.split("cache_seq") else None
+
+
+def _own_groups(k: Tensor, v: Tensor, cfg: AttnConfig
+                ) -> Tuple[Tensor, Tensor]:
+    """``k`` and ``v`` of every kv head, cut to the groups this rank's q
+    heads read (:func:`kv_groups`) on a laid-out step; as they are
+    otherwise."""
+    lay = layout()
+    groups = kv_groups(cfg, lay) if lay is not None else None
+    if groups is None:
+        return k, v
+    return k[:, :, groups[0]:groups[1]], v[:, :, groups[0]:groups[1]]
+
+
 def model_summed(cfg: AttnConfig, lay: Layout):
     """The paths of the attention params whose gradient a laid-out step
     sums over the model axis: those every model rank holds whole but
@@ -325,19 +363,18 @@ def project_q(p, x: Tensor, cfg: AttnConfig, policy) -> Tensor:
     return q
 
 
-def project_kv(p, kv_src: Tensor, cfg: AttnConfig,
-               policy) -> Tuple[Tensor, Tensor]:
+def project_kv(p, kv_src: Tensor, cfg: AttnConfig, policy,
+               own_groups: bool = True) -> Tuple[Tensor, Tensor]:
     """The keys and values [B, T, Hk, D] of ``kv_src`` (the keys
     qk-normed if the config says so); on a laid-out step, the kv heads
-    this rank's q heads read."""
+    this rank's q heads read (every kv head the rank projects, for its
+    cache, without ``own_groups``)."""
     B, T, D = kv_src.shape[0], kv_src.shape[1], cfg.head_dim
     ax = attention_axes(cfg)["wk"]["w"]
     k = linear_apply(p["wk"], kv_src, policy, ax).reshape(B, T, -1, D)
     v = linear_apply(p["wv"], kv_src, policy, ax).reshape(B, T, -1, D)
-    lay = layout()
-    groups = kv_groups(cfg, lay) if lay is not None else None
-    if groups is not None:
-        k, v = k[:, :, groups[0]:groups[1]], v[:, :, groups[0]:groups[1]]
+    if own_groups:
+        k, v = _own_groups(k, v, cfg)
     if cfg.qk_norm:
         k = rmsnorm_apply(p["k_norm"], k)
     return k, v
@@ -369,27 +406,90 @@ def attention_apply(p, x: Tensor, cfg: AttnConfig,
     kv_src = encoder_out if cfg.cross else x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    caching = return_cache and not cfg.cross
     q = project_q(p, x, cfg, policy)
-    k, v = project_kv(p, kv_src, cfg, policy) if kv is None else kv
+    k, v = project_kv(p, kv_src, cfg, policy, own_groups=not caching) \
+        if kv is None else kv
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         if not cfg.cross:
             k = apply_rope(k, positions, cfg.rope_theta)
     T = k.shape[1]
     k_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
-    out = attend_full(q, k, v, positions, k_pos,
+    # the cache holds every kv head this rank projects; the attention
+    # reads its q heads' groups
+    k_att, v_att = _own_groups(k, v, cfg) if caching else (k, v)
+    out = attend_full(q, k_att, v_att, positions, k_pos,
                       causal=cfg.causal and not cfg.cross,
                       window=cfg.window, compute_dtype=_compute_dtype(policy),
                       q_chunk=cfg.q_chunk)
     out = linear_apply(p["wo"], out.reshape(B, S, -1), policy,
                        attention_axes(cfg)["wo"]["w"], scatter)
-    if return_cache and not cfg.cross:
+    if caching:
+        lay = layout()
+        if kv_split(cfg, lay) == "seq":
+            # this rank's positions of every kv head: a slice, sent nowhere
+            axes = lay.split("cache_seq")
+            n = T // axes_size(lay.mesh, axes)
+            first = axes_index(lay.mesh, axes) * n
+            k, v = k[:, first:first + n], v[:, first:first + n]
         if cache is None:
-            cache = init_cache(B, T, cfg.n_kv_heads, cfg.head_dim, kv_bits,
-                               k.dtype, device=x.device)
+            cache = init_cache(B, k.shape[1], k.shape[2], cfg.head_dim,
+                               kv_bits, k.dtype, device=x.device)
         cache = cache_update(cache, k, v, 0, kv_bits)
         return out, cache
     return out
+
+
+def _attend_positions(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
+                      compute_dtype, mesh, axes) -> Tensor:
+    """:func:`gqa_attend` of every head's queries ``q`` [B, S, H, D] on
+    this rank's positions of a cache split along its sequence over
+    ``axes`` (``k``, ``v`` [B, T / n, Hk, D], ``bias`` from the global
+    positions): the row max a ``pmax``; the sum of the ``exp`` terms and
+    the value contraction's partials kept in fp64, summed over the peers
+    and rounded once after it, as the whole cache's program rounds
+    them.  Every peer gets every head's output."""
+    B, S, H, D = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, S, Hk, H // Hk, D).to(compute_dtype)
+    scores = exact.einsum("bskgd,btkd->bkgst", qg, k.to(compute_dtype))
+    scores = div_scalar(scores, math.sqrt(D))
+    scores = scores.to(torch.float32) + bias[:, None, None]
+    e = exact.exp(scores - pmax(scores.amax(dim=-1, keepdim=True), mesh,
+                                axes))
+    total = psum(e.to(torch.float64).sum(dim=-1, keepdim=True), mesh, axes)
+    w = (e / total.to(e.dtype)).to(compute_dtype)
+    part = torch.einsum("bkgst,btkd->bskgd", w.to(torch.float64),
+                        v.to(compute_dtype).to(torch.float64))
+    return psum(part, mesh, axes).to(compute_dtype).reshape(B, S, H, D)
+
+
+def _decode_seq_split(q: Tensor, k_new: Tensor, v_new: Tensor, cache,
+                      index: int, positions: Tensor, cfg: AttnConfig,
+                      lay: Layout, kv_bits: int, cdt) -> Tensor:
+    """One decode step's attention on a cache split along its sequence
+    (flash-decoding): the new k/v written by the rank that owns
+    ``index`` alone (clamped as a whole cache's write is), every head's
+    queries gathered over the model axis (``[B, 1, H, D]``: bytes, not
+    the cache) and attended on this rank's positions
+    (:func:`_attend_positions`); this rank's heads' output."""
+    axes = lay.split("cache_seq")
+    n, r = axes_size(lay.mesh, axes), axes_index(lay.mesh, axes)
+    B, T = k_new.shape[0], cache["k"].shape[1]
+    at = min(max(int(index), 0), n * T - 1)
+    if at // T == r:
+        cache_update(cache, k_new, v_new, at - r * T, kv_bits)
+    k, v = cache_kv(cache, cdt)
+    k_pos = (r * T + torch.arange(T, device=q.device))[None, :].expand(B, T)
+    bias = _mask_bias(positions, k_pos, causal=True, window=cfg.window,
+                      valid_len=index + 1)
+    heads = lay.split("heads")
+    q_all = torch.cat(gather_over(q.contiguous(), lay.mesh, heads), dim=2)
+    out = _attend_positions(q_all, k, v, bias, cdt, lay.mesh, axes)
+    h = q.shape[2]
+    first = axes_index(lay.mesh, heads) * h
+    return out[:, :, first:first + h]
 
 
 def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
@@ -400,12 +500,14 @@ def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
     """One-token decode step against a fixed-capacity cache.
 
     x: [B, 1, d_model]; cache_index: the current length (an int).
-    Returns (out [B,1,d_model], the cache, updated in place).
+    Returns (out [B,1,d_model], the cache, updated in place).  On a
+    laid-out step the cache is this rank's block (:func:`kv_split`).
     """
     B = x.shape[0]
     positions = torch.full((B, 1), int(cache_index), dtype=torch.int32,
                            device=x.device)
     cdt = _compute_dtype(policy)
+    wo_axes = attention_axes(cfg)["wo"]["w"]
     if cfg.cross:
         # cross-attention: cross_cache holds the (static) encoder K/V
         k, v = cache_kv(cross_cache, cdt)
@@ -420,13 +522,22 @@ def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
         out = gqa_attend(q, k, v, bias, cdt)
         out = linear_apply(p["wo"], out.reshape(B, 1, -1), policy)
         return out, cache
+    lay = layout()
+    if lay is not None and "pos" in cache:
+        raise ValueError("a ring-buffer cache's slot positions are not "
+                         "laid out: a laid-out decode takes a full cache")
     q = project_q(p, x, cfg, policy)
-    k_new, v_new = project_kv(p, x, cfg, policy)
+    k_new, v_new = project_kv(p, x, cfg, policy, own_groups=False)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    if kv_split(cfg, lay) == "seq":
+        out = _decode_seq_split(q, k_new, v_new, cache, cache_index,
+                                positions, cfg, lay, kv_bits, cdt)
+        out = linear_apply(p["wo"], out.reshape(B, 1, -1), policy, wo_axes)
+        return out, cache
     cache = cache_update(cache, k_new, v_new, cache_index, kv_bits)
-    k, v = cache_kv(cache, cdt)
+    k, v = _own_groups(*cache_kv(cache, cdt), cfg)
     T = k.shape[1]
     if "pos" in cache:
         # ring buffer: mask from the stored absolute positions
@@ -440,5 +551,5 @@ def attention_decode(p, x: Tensor, cfg: AttnConfig, cache,
         bias = _mask_bias(positions, k_pos, causal=True, window=cfg.window,
                           valid_len=cache_index + 1)
     out = gqa_attend(q, k, v, bias, cdt)
-    out = linear_apply(p["wo"], out.reshape(B, 1, -1), policy)
+    out = linear_apply(p["wo"], out.reshape(B, 1, -1), policy, wo_axes)
     return out, cache

@@ -86,21 +86,25 @@ def embedding_apply(p, ids: torch.Tensor,
                     scatter: Optional[int] = None):
     """Token lookup; a QTensor table is gathered, then dequantized (one
     byte a gathered element is read).  On a laid-out step whose table
-    (logical ``axes``) is split over its vocabulary: the rank's rows,
-    zero for an id another rank holds, summed over the model axis (one
-    term nonzero, so exact), or reduce-scattered along ``scatter``."""
+    (logical ``axes``) is split over its vocabulary: the rank's rows
+    (a packed table's dequantized), zero for an id another rank holds,
+    summed over the model axis (one term nonzero, so exact), or
+    reduce-scattered along ``scatter``."""
     emb = p["emb"]
-    if isinstance(emb, QTensor):
-        rows = emb.qvalue[ids]
-        return rows.to(torch.float32) * emb.scale    # [1, d] or [1, 1]
+    packed = isinstance(emb, QTensor)
+    table = emb.qvalue if packed else emb
     lay = layout()
     over = lay.split(axes[0]) if lay is not None and axes else ()
     if not over:
-        return emb[ids]
-    n = emb.shape[0]
+        rows = table[ids]
+        # a packed table's rows dequantized: its scale is [1, d] or [1, 1]
+        return rows.to(torch.float32) * emb.scale if packed else rows
+    n = table.shape[0]
     local = ids.long() - axes_index(lay.mesh, over) * n
     own = (local >= 0) & (local < n)
-    rows = emb[torch.where(own, local, 0)]
+    rows = table[torch.where(own, local, 0)]
+    if packed:
+        rows = rows.to(torch.float32) * emb.scale
     rows = torch.where(own[..., None], rows, rows.new_zeros(()))
     return summed(rows, lay.mesh, over, scatter)
 

@@ -9,9 +9,10 @@ served policy cannot drift from what evaluation measures: the server
 calls the one greedy forward with packed ``QTensor`` weights, evaluation
 with fp32 weights under the same quant policy.
 
-The port trains ppo/a2c and dqn/qrdqn/ddpg on one device, with
-telemetry, and serves every value checkpoint; several devices, still to
-port, raise ``NotImplementedError`` naming the slice that brings them.
+The port trains ppo/a2c (the mlp agent, the E2HRL agent, the conv net
+on the pixel envs) and dqn/qrdqn/ddpg with uniform or prioritized
+replay, on one device or sharded over a mesh of ranks, with telemetry
+and profiler windows, and serves every value checkpoint.
 """
 from __future__ import annotations
 
@@ -36,20 +37,6 @@ from repro_torch.rl.value import (DDPGConfig, DQNConfig, QRDQNConfig,
 ON_POLICY_ALGOS = ("ppo", "a2c")
 VALUE_ALGOS = ("dqn", "qrdqn", "ddpg")
 NETS = ("mlp", "conv")
-
-
-def not_in_slice(what: str, slice_name: str) -> NotImplementedError:
-    """The error an unported option raises, naming the slice that
-    brings it."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {slice_name} "
-        "slice of the PyTorch port (the port trains ppo/a2c — the mlp "
-        "agent, the E2HRL agent with --two-stage, --net conv on the "
-        "pixel envs — and dqn/qrdqn/ddpg with uniform or prioritized "
-        "replay, on one device or sharded over a mesh of ranks, over "
-        "every env, with telemetry and profiler windows, serves every "
-        "value checkpoint, and trains and serves the LM families on one "
-        "device)")
 
 
 def build_env(env_name: str, net: str = "mlp", frame_stack_k: int = 1,

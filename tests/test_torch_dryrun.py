@@ -139,8 +139,10 @@ def test_rank_rows_are_data_places():
     args, layout = tsteps.cell_inputs(cfg, tshapes.SHAPES["decode_32k"], tm,
                                       get_policy("qforce8"))
     k = args[1]["k"]
-    # [L, B, cap, kv, hd]: 128 sequences over 32 slots, the kv heads whole
-    assert tuple(k.shape) == (22, 4, 32768, 4, 64)
+    # [L, B, cap, kv, hd]: 128 sequences over 32 slots, the rank's block
+    # of the laid-out cache: its 4 kv heads do not divide 16 model ranks,
+    # so the 32,768 positions lie over them, 2,048 a rank
+    assert tuple(k.shape) == (22, 4, 2048, 4, 64)
     assert args[3] == 32767 and layout > 0
 
 
@@ -157,9 +159,9 @@ def test_meta_trace_equals_a_cpu_trace(arch, kinds):
     calls, costs and memory as the same step run on the CPU (plain
     kernels) on a (2, 2) mesh of one process.  Each device runs the
     first step once before (a table the rope builds once a device,
-    ``nn.rotary``).  The dense training step runs laid out, on rank 0's
-    blocks of the params and AdamW's state: its traced arguments are
-    the layout's bytes."""
+    ``nn.rotary``).  The dense steps run laid out, on rank 0's blocks of
+    the params (and AdamW's state, or the caches): their traced
+    arguments are the layout's bytes."""
     cfg = treg.get_arch(arch).reduced()
     mesh = tsh.MeshShape(("data", "model"), (2, 2))
     pol = get_policy("w8a8kv8")
@@ -179,7 +181,7 @@ def test_meta_trace_equals_a_cpu_trace(arch, kinds):
         assert H.cost_terms(meta) == H.cost_terms(cpu)
         assert H.op_histogram(meta) == H.op_histogram(cpu)
         m, c = H.memory_stats(meta), H.memory_stats(cpu)
-        assert info["laid_out"] == (kind == "train" and not cfg.is_moe)
+        assert info["laid_out"] == (not cfg.is_moe)
         if info["laid_out"]:
             assert m["argument_size_in_bytes"] == m["layout_argument_bytes"]
         assert m.pop("layout_argument_bytes") > 0
@@ -203,6 +205,10 @@ def test_a_data_dependent_op_fails_with_its_name(monkeypatch, capsys):
     monkeypatch.setattr(transformer, "decode_step", reads_a_value)
     monkeypatch.setattr(dryrun, "get_arch",
                         lambda a: treg.get_arch(a).reduced())
+    # the reduced config's 4 heads lay out over 2 model ranks, not 16
+    monkeypatch.setattr(dryrun, "production_mesh_shape",
+                        lambda multi_pod: tsh.MeshShape(("data", "model"),
+                                                        (2, 2)))
     assert dryrun.main(["--arch", "tinyllama-1.1b",
                         "--shape", "decode_32k"]) == 1
     out, err = capsys.readouterr()
@@ -267,10 +273,11 @@ def test_roofline_terms_on_a_hand_written_cost():
 # ---------------------------------------------------------------------------
 
 NUM = r"[0-9.]+(?:e[+-][0-9]+)?"
-# the reference's printed lines (repro.launch.dryrun.run_cell and main)
+# the reference's printed lines (repro.launch.dryrun.run_cell and main);
+# the port's banner also marks a laid-out cell
 REFERENCE_LINES = [
     r"== tinyllama-1\.1b x decode_32k on mesh \{'data': 16, 'model': 16\} "
-    r"\(256 devices\) \[serve_step, qforce8\] ==",
+    r"\(256 devices\) \[serve_step, qforce8, laid out\] ==",
     r"   lower [0-9]+\.[0-9]s  compile 0\.0s",
     r"   memory/device: args [0-9]+\.[0-9]{2} GiB  temps [0-9]+\.[0-9]{2} "
     r"GiB  total [0-9]+\.[0-9]{2} GiB",
@@ -306,9 +313,13 @@ def test_cli_runs_a_production_cell_without_a_card(tmp_path):
     assert cell["mesh"] == {"data": 16, "model": 16}
     assert cell["compile_s"] == 0.0
     mem = cell["memory"]
-    # the params whole on the rank; the layout shards them 256 ways
-    assert mem["layout_argument_bytes"] < mem["argument_size_in_bytes"]
+    # laid out: the rank holds its blocks of the params and the caches
+    assert cell["laid_out"]
+    assert mem["layout_argument_bytes"] == mem["argument_size_in_bytes"]
     assert cell["cost"]["int_ops"] > 0
-    assert cell["hlo_ops"]["qmac_i8_deq"] == 7 * 22 + 1
+    # the row-parallel products (wo, w_down) sum int32 partials over the
+    # model ranks before the dequant; the rest fuse it
+    assert cell["hlo_ops"]["qmac_i8_deq"] == 5 * 22 + 1
+    assert cell["hlo_ops"]["qmac_i8"] == 2 * 22
     assert math.isclose(cell["roofline"]["t_memory"],
                         cell["cost"]["bytes"] / troof.HBM_BW)

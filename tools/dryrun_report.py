@@ -7,7 +7,7 @@ step's inputs as the port's rank holds them, the same inputs under the
 reference's layout, the temps' peak) beside the useful share of the
 counted work and the collective bytes, and whether the port's step ran
 laid out (on the rank's blocks of the params: a dense decoder's
-training step) or on whole params.  Every figure is a forecast at an
+step of any kind) or on whole params.  Every figure is a forecast at an
 H100's data-sheet peaks; nothing here runs on a device.  From the repo
 root:
 

@@ -10,15 +10,17 @@ one full-width qwen3-moe layer through ``moe_shard_map``; phase 21: the
 dry run's traces and forecasts against the card; phase 22: the
 rematerialised step against the plain one, and a step at train_4k's
 sequence length; phase 23: the laid-out step on one rank against the
-unsharded one, and rank 0 of the (16, 16) mesh at train_4k.  Needs one
+unsharded one, and rank 0 of the (16, 16) mesh at train_4k; phase 24:
+the laid-out serving steps on one rank against the unsharded ones, and
+rank 0 of the (16, 16) mesh at decode_32k and prefill_32k.  Needs one
 CUDA card; run from the repo root:
 
     python3 tools/lm_train_probe.py [PHASE ...] [--no-limits]
 
-Given phases (of 17, 19, 21, 22, 23) run alone; phases 19, 22 and 23
-then start from TinyLlama's params drawn from seed 0 on the card.
-``--no-limits`` lifts phases 21, 22 and 23's time limits, to measure
-them.
+Given phases (of 17, 19, 21, 22, 23, 24) run alone; phases 19, 22, 23
+and 24 then start from TinyLlama's params drawn from seed 0 on the
+card.  ``--no-limits`` lifts phases 21, 22, 23 and 24's time limits, to
+measure them.
 """
 import os
 import sys
@@ -32,7 +34,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
-PHASES = ("17", "19", "21", "22", "23")
+PHASES = ("17", "19", "21", "22", "23", "24")
 
 
 def main() -> int:
@@ -44,6 +46,7 @@ def main() -> int:
         args.remove("--no-limits")
         cs.DRY_RUN_LIMIT_S = cs.REMAT_LIMIT_S = 3600
         cs.DRY_RUN_CELL_LIMIT_S = cs.LAYOUT_LIMIT_S = 3600
+        cs.SERVE_LAYOUT_LIMIT_S = 3600
     phases = args or PHASES
     if set(phases) - set(PHASES):
         print(f"lm_train_probe: phases are {PHASES}", file=sys.stderr)
@@ -63,6 +66,9 @@ def main() -> int:
         print(cs.check_lm_train_kernels(torch, dev, worst), flush=True)
         for r in cs.time_lm_train_kernels(torch, dev):
             cs.print_row("qmac_i8", r)
+    if "24" in phases:
+        worst = {"qmac_i8": 0.0, "qmac_i8_deq": 0.0}
+        print(cs.check_serving_layout_kernels(torch, dev, worst), flush=True)
     if "17" in phases:
         t0 = time.perf_counter()
         launches, params = cs.lm_training(torch, dev, card)
@@ -71,7 +77,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cs.lm_train_card_vs_cpu(torch, dev)
         print(f"card vs CPU {time.perf_counter() - t0:.1f} s", flush=True)
-    elif {"19", "22", "23"} & set(phases):
+    elif {"19", "22", "23", "24"} & set(phases):
         from repro_torch.configs.registry import get_arch
         from repro_torch.models import transformer
         params = transformer.init(torch.Generator().manual_seed(0),
@@ -108,6 +114,12 @@ def main() -> int:
         print(cs.laid_out_gate(torch, dev, card, tree_map(
             lambda t: t.cpu(), params)), flush=True)
         print(f"laid-out phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if "24" in phases:
+        t0 = time.perf_counter()
+        print(cs.serving_layout_gate(torch, dev, card, tree_map(
+            lambda t: t.cpu(), params)), flush=True)
+        print(f"serving layout phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(f"probe wall {time.perf_counter() - t_all:.1f} s")
     return 0
 
